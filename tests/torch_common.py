@@ -1,0 +1,84 @@
+"""Shared inputs for the PyTorch port's tests (tests/test_torch_*.py).
+
+Inputs are made with numpy from a seed and handed to both packages, so the
+JAX reference and the port compute on the same numbers.
+"""
+
+import numpy as np
+import torch
+
+from webgpu_raytracer_tpu.models.native import NativeWorld
+from webgpu_raytracer_tpu.render.worldtris import build_world_tris
+from webgpu_raytracer_tpu_torch.render.worldtris import tables_from_jax
+
+# The suite runs in several pytest-xdist workers, each of which imports
+# this module while collecting. ATen's OpenMP pool (a thread per core in
+# every worker) then oversubscribes the host, and its small ops ran up to
+# 50x slower. One intra-op thread per worker.
+torch.set_num_threads(1)
+
+
+def jax_and_port_tables(scene_name, res=32, glb_data=None):
+    """(world, JAX WorldTris, port WorldTables on the CPU) of one scene."""
+    world = NativeWorld(scene_name, glb_data=glb_data)
+    world.update_camera(res, res)
+    wt = build_world_tris(world)
+    tables = tables_from_jax({k: np.asarray(v)
+                              for k, v in wt._asdict().items()})
+    return world, wt, tables
+
+
+def camera_rays(world, res):
+    """Pixel-center primary rays (ro, rd), each (R, 3) f32."""
+    c = np.asarray(world.camera(), np.float32)
+    lane = np.arange(res * res)
+    u = ((lane % res).astype(np.float32) + 0.5) / res
+    v = 1.0 - ((lane // res).astype(np.float32) + 0.5) / res
+    rd = np.stack([c[4 + k] + u * c[8 + k] + v * c[12 + k] - c[k]
+                   for k in range(3)], 1).astype(np.float32)
+    ro = np.broadcast_to(c[:3], rd.shape).astype(np.float32)
+    return ro, rd
+
+
+def random_rays(R, seed=3):
+    """Rays from inside the unit box in random directions, with every 5th
+    lane inactive and every 3rd given a finite t_max (as
+    tests/test_pallas_interpret.py draws them)."""
+    rng = np.random.default_rng(seed)
+    ro = rng.uniform(-0.9, 0.9, size=(R, 3)).astype(np.float32)
+    rd = rng.normal(size=(R, 3)).astype(np.float32)
+    active = np.arange(R) % 5 != 0
+    tmax = np.where(np.arange(R) % 3 == 0, 1.5, 1e30).astype(np.float32)
+    return ro, rd, active, tmax
+
+
+def rays8_np(ro, rd, tmax):
+    """The (8, R) ray stack [d, o, t_max, 0] as a CPU tensor."""
+    R = ro.shape[0]
+    out = np.zeros((8, R), np.float32)
+    out[0:3] = rd.T
+    out[3:6] = ro.T
+    out[6] = tmax
+    return torch.from_numpy(out)
+
+
+def assert_near_ties(shade_table, ro, rd, idx_a, idx_b, lanes):
+    """Winners that differ on `lanes` must be f64 Moller-Trumbore near-ties
+    (the check of tests/test_pallas_interpret.py)."""
+    if lanes.size == 0:
+        return
+    st = np.asarray(shade_table, np.float64)
+    v0, e1, e2 = st[:, 0:3], st[:, 3:6], st[:, 6:9]
+    ron = np.asarray(ro, np.float64)[lanes]
+    rdn = np.asarray(rd, np.float64)[lanes]
+
+    def mt_t(tris):
+        s = ron - v0[tris]
+        h = np.cross(rdn, e2[tris])
+        a = np.einsum("ij,ij->i", e1[tris], h)
+        q = np.cross(s, e1[tris])
+        return np.einsum("ij,ij->i", e2[tris], q) / a
+
+    np.testing.assert_allclose(mt_t(idx_b[lanes]), mt_t(idx_a[lanes]),
+                               rtol=2e-3, atol=2e-4,
+                               err_msg="non-tie winner flip")

@@ -1,0 +1,127 @@
+"""Build and load the port's CUDA kernels; count their launches.
+
+The sources in `csrc/*.cu` have a plain C interface. At first CUDA use,
+`library()` compiles them with nvcc into one shared library under `build/`
+(listed in `.gitignore`), named by a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one is loaded as it is. The library
+is loaded with ctypes: every pointer and the stream go as `c_void_p`, and
+every C entry point returns `cudaGetLastError()` after its launch.
+
+Nothing here runs at import: the CPU tests import every module, on hosts
+that may have no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# Launch counts by kernel. A wrapper adds one where it launches its kernel
+# and nowhere else, so a run can show that its path went through it.
+launches = {"dense_sweep": 0, "shade_rows": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources() + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libwrt_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build(extra_flags: tuple[str, ...] = ()) -> tuple[str, float, str]:
+    """Compile csrc/*.cu unless the library for these sources exists.
+
+    Returns (library path, build seconds, nvcc's output); 0 s when it was
+    already built."""
+    path = _library_path()
+    if os.path.exists(path):
+        return path, 0.0, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path[:-3]}.{os.getpid()}.tmp.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, *_sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path, seconds, proc.stdout + proc.stderr
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = ctypes.CDLL(build()[0])
+    lib.wrt_dense_sweep.restype = _I
+    lib.wrt_dense_sweep.argtypes = [_P, _I, _I, _P, _P, _I, _F, _I, _I,
+                                    _P, _P, _P, _P, _P]
+    lib.wrt_shade_rows.restype = _I
+    lib.wrt_shade_rows.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _P, _P, _P, _P]
+    return lib
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype,
+          shape: tuple | None = None, device: torch.device | None = None):
+    """Raise unless `t` is a contiguous CUDA tensor of this dtype/shape."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on_error(code: int, kernel: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {code}")

@@ -1,0 +1,85 @@
+"""The dense sweep's wrappers: the CUDA kernel on the card, the plain
+version on the CPU.
+
+Kernel: `csrc/dense_sweep.cu`, which replaces the JAX package's
+`ops/pallas_dense.py::_kernel` (the single-tile sweep launched by `_run`).
+It loops over 128-triangle tiles, so it serves any triangle count. Its
+source says what bounds it on the card (instruction issue, as measured)
+and what the design does about that.
+
+A wrapper takes the plain version (`ops/dense.py`) only for tensors on the
+CPU. For CUDA tensors it launches the kernel or raises: there is no
+fallback.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from .dense import T_MIN, closest_plain, rows_plain, shadow_plain
+from ..render.worldtris import FEAT_K, SHADE_K, WorldTables
+
+
+def _check_tables(tables: WorldTables, device) -> int:
+    """Raise unless the tables fit the kernel; returns the padded tri count."""
+    tw = tables.features.shape[-1] // 5
+    kernels.check(tables.features, "features", torch.float32,
+                  (FEAT_K, 5 * tw), device)
+    kernels.check(tables.shade_table, "shade_table", torch.float32,
+                  (tw, SHADE_K), device)
+    if not 0 <= tables.valid_count <= tw:
+        raise ValueError(f"valid_count {tables.valid_count} outside "
+                         f"[0, {tw}]")
+    return tw
+
+
+def _launch(tables: WorldTables, rays8: torch.Tensor, any_hit: bool,
+            row_from_lane: int = 0):
+    dev = rays8.device
+    kernels.check(rays8, "rays8", torch.float32, device=dev)
+    if rays8.dim() != 2 or rays8.shape[0] != 8:
+        raise ValueError(f"rays8: shape {tuple(rays8.shape)}, expected (8, R)")
+    tw = _check_tables(tables, dev)
+    R = rays8.shape[1]
+    if not 0 <= row_from_lane <= R:
+        raise ValueError(f"row_from_lane {row_from_lane} outside [0, {R}]")
+    t = idx = rows = occ = None
+    if any_hit:
+        occ = torch.empty(R, dtype=torch.bool, device=dev)
+    else:
+        t = torch.empty(R, dtype=torch.float32, device=dev)
+        idx = torch.empty(R, dtype=torch.int32, device=dev)
+        rows = torch.empty((SHADE_K, R - row_from_lane),
+                           dtype=torch.float32, device=dev)
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        code = lib.wrt_dense_sweep(
+            kernels.ptr(tables.features), tw, tables.valid_count,
+            kernels.ptr(tables.shade_table), kernels.ptr(rays8), R, T_MIN,
+            int(any_hit), row_from_lane,
+            kernels.ptr(t), kernels.ptr(idx), kernels.ptr(rows),
+            kernels.ptr(occ), kernels.stream(dev))
+    kernels.raise_on_error(code, "dense_sweep")
+    kernels.launches["dense_sweep"] += 1
+    return occ if any_hit else (t, idx, rows)
+
+
+def closest_with_row(tables: WorldTables, rays8: torch.Tensor,
+                     row_from_lane: int = 0):
+    """Closest hit plus winner rows: (t (R,), idx (R,) int32,
+    rows (SHADE_K, R - row_from_lane)).
+
+    Rows cover lanes [row_from_lane:] only: the fused per-bounce call packs
+    the shadow lanes first, and they never read rows."""
+    if rays8.device.type == "cpu":
+        t, idx = closest_plain(tables, rays8)
+        return t, idx, rows_plain(tables.shade_table, idx[row_from_lane:])
+    return _launch(tables, rays8, False, row_from_lane)
+
+
+def shadow(tables: WorldTables, rays8: torch.Tensor):
+    """Any-hit occlusion: bool (R,)."""
+    if rays8.device.type == "cpu":
+        return shadow_plain(tables, rays8)
+    return _launch(tables, rays8, True)

@@ -1,0 +1,103 @@
+"""Plain dense rays x world-triangles sweep (PyTorch).
+
+The port's counterpart of the JAX package's `ops/dense.py`, and the plain
+version of the CUDA sweep kernel (`ops/cuda_dense.py`). Rays arrive as the
+(8, R) stack [dx, dy, dz, ox, oy, oz, t_max, pad] of the TPU kernel
+(`ops/pallas_dense.py:_run`); a lane with t_max <= 0 is inactive.
+
+Per triangle, with the Plucker ray feature [d, m = o x d, o, 1]:
+    s_k = f_k . [d, m] (k = 0, 1, 2),  tn = f . [o, 1],  td = f . d
+read from the f32 `features` table. td is the table's fifth column group,
+as in the CPU reference, not the TPU kernel's s0 + s1 + s2. A triangle is
+hit when all three s_k agree in sign (inclusive), |td| >= 1e-6 and
+t = tn / td lies strictly inside (T_MIN, t_max). Closest mode keeps the
+least t; on exact ties the lowest index wins. Every dot product is summed
+left to right in separately rounded f32 operations, which the CUDA kernel
+reproduces exactly, so kernel and plain version agree bit for bit.
+
+Chunked over 128-triangle tiles, so memory stays bounded at any triangle
+count.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .v3 import V3
+
+TRI_CHUNK = 128
+T_MIN = 1e-3  # every sweep's near bound, as in the JAX package
+T_MAX = 1e30
+
+
+def ray_stack(ro: V3, rd: V3, t_max) -> torch.Tensor:
+    """(8, R) ray stack [d, o, t_max, 0] from V3 origins and directions."""
+    R = ro.x.shape[0]
+    out = torch.empty((8, R), dtype=torch.float32, device=ro.x.device)
+    for k, c in enumerate((rd.x, rd.y, rd.z, ro.x, ro.y, ro.z)):
+        out[k] = c
+    out[6] = t_max
+    out[7] = 0.0
+    return out
+
+
+def _chunk_t(rays8, feats, c0: int, c1: int):
+    """(R, c1 - c0) hit distances and hit masks for triangles [c0, c1)."""
+    dx, dy, dz, ox, oy, oz = (rays8[k][:, None] for k in range(6))
+    mx = oy * dz - oz * dy
+    my = oz * dx - ox * dz
+    mz = ox * dy - oy * dx
+    f = feats[:, :, c0:c1]  # (FEAT_K, 5, C)
+
+    def side(g):
+        return (dx * f[0, g] + dy * f[1, g] + dz * f[2, g] + mx * f[3, g]
+                + my * f[4, g] + mz * f[5, g])
+
+    s0, s1, s2 = side(0), side(1), side(2)
+    tn = ox * f[6, 3] + oy * f[7, 3] + oz * f[8, 3] + f[9, 3]
+    td = dx * f[0, 4] + dy * f[1, 4] + dz * f[2, 4]
+    inside = (torch.minimum(torch.minimum(s0, s1), s2) >= 0.0) | (
+        torch.maximum(torch.maximum(s0, s1), s2) <= 0.0)
+    ok = inside & (torch.abs(td) >= 1e-6)
+    t = tn / torch.where(ok, td, 1.0)
+    return t, ok
+
+
+def _chunks(tables):
+    tw = tables.features.shape[1] // 5
+    feats = tables.features.view(-1, 5, tw)
+    for c0 in range(0, tables.valid_count, TRI_CHUNK):
+        yield feats, c0, min(c0 + TRI_CHUNK, tables.valid_count)
+
+
+def closest_plain(tables, rays8: torch.Tensor):
+    """Closest hit: (t (R,) f32, idx (R,) int32, -1 on miss). A miss keeps
+    t = t_max."""
+    t_max = rays8[6]
+    best_t = t_max.clone()
+    best_i = torch.full_like(t_max, -1, dtype=torch.int32)
+    for feats, c0, c1 in _chunks(tables):
+        t, ok = _chunk_t(rays8, feats, c0, c1)
+        ok = ok & (t > T_MIN) & (t < t_max[:, None])
+        tm = torch.where(ok, t, float("inf"))
+        cmin, carg = torch.min(tm, dim=1)  # first minimum on ties
+        upd = cmin < best_t
+        best_t = torch.where(upd, cmin, best_t)
+        best_i = torch.where(upd, (carg + c0).to(torch.int32), best_i)
+    return best_t, best_i
+
+
+def shadow_plain(tables, rays8: torch.Tensor):
+    """Any-hit occlusion: bool (R,)."""
+    t_max = rays8[6]
+    occ = torch.zeros(t_max.shape, dtype=torch.bool, device=t_max.device)
+    for feats, c0, c1 in _chunks(tables):
+        t, ok = _chunk_t(rays8, feats, c0, c1)
+        occ = occ | (ok & (t > T_MIN) & (t < t_max[:, None])).any(dim=1)
+    return occ
+
+
+def rows_plain(shade_table: torch.Tensor, idx: torch.Tensor):
+    """Winner shade rows, transposed: (SHADE_K, R), zeros where idx < 0."""
+    rows = shade_table[idx.clamp(min=0).long()].T
+    return torch.where((idx >= 0)[None, :], rows, 0.0).contiguous()

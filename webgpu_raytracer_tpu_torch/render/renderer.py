@@ -1,0 +1,137 @@
+"""Renderer facade: scene tables, accumulation state, history swap.
+
+The port of the JAX package's `render/renderer.py` for the dense path:
+`render_frame()` traces one progressive frame into the accumulator through
+the CUDA sweep and shade kernels (their plain versions on the CPU), and
+`present()` runs the post-process chain. PyTorch runs eagerly, so there is
+no compiled step: `build_pipeline(depth, spp)` only changes the parameters
+and resets the accumulation.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .._shared import JitterAccumulator, NativeWorld, RenderConfig
+from ..ops.dense_trace import trace_pixels_dense
+from ..ops.postprocess import postprocess
+from ..ops.trace import accumulate
+from .worldtris import build_world_tables
+
+DENSE_MAX_TRIS = 16384  # the JAX package's dense-backend limit (ops/api.py)
+
+
+class Renderer:
+    """End-to-end progressive path tracer over a native World, on one
+    device ("cuda" by default; raises when CUDA is absent)."""
+
+    def __init__(self, scene_name: str = "cornell",
+                 config: Optional[RenderConfig] = None, *,
+                 obj_source: Optional[str] = None,
+                 glb_data: Optional[bytes] = None, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Renderer(device='cuda'): CUDA is not "
+                               "available; pass device='cpu'")
+        if config is None:
+            config = RenderConfig(scene_name=scene_name)
+        elif scene_name != "cornell":
+            config.scene_name = scene_name
+        self.config = config
+        self.width = config.width
+        self.height = config.height
+        self.max_depth = config.max_depth
+        self.spp = config.shader_spp
+
+        self.world = NativeWorld(config.scene_name, obj_source, glb_data)
+        if 0 < config.anim_index < self.world.animation_count():
+            self.world.set_animation(config.anim_index)
+            self.world.update(0.0)
+        if self.world.texture_count() > 0:
+            raise NotImplementedError(
+                "textured scenes are not ported yet: the shade kernel covers "
+                "the 1x1 white texel only")
+        self.reupload_scene(reset=False)
+        if self.tables.valid_count > DENSE_MAX_TRIS:
+            raise NotImplementedError(
+                f"{self.tables.valid_count} world triangles: scenes over "
+                f"{DENSE_MAX_TRIS} need the BVH path, which is not ported yet")
+
+        self.frame_count = 0
+        self.last_rays = None
+        self.launches = {k: 0 for k in kernels.launches}
+        self._jitter_acc = JitterAccumulator(self.width, self.height)
+        self._avg_jitter = torch.zeros(2, dtype=torch.float32,
+                                       device=self.device)
+        self.accum = torch.zeros((self.width * self.height, 4),
+                                 dtype=torch.float32, device=self.device)
+        self.history = torch.zeros((self.height, self.width, 3),
+                                   dtype=torch.float32, device=self.device)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def build_pipeline(self, max_depth: int, spp: int):
+        """Change depth / spp; resets accumulation."""
+        self.max_depth = int(max_depth)
+        self.spp = int(spp)
+        self.reset_accumulation()
+
+    def reset_accumulation(self):
+        """The accumulator reset is semantic (frame 1 overwrites), as in the
+        JAX package; the TAA history feeds frame 1 and is cleared."""
+        self.frame_count = 0
+        self._jitter_acc = JitterAccumulator(self.width, self.height)
+        self.history.zero_()
+
+    # -- scene updates -----------------------------------------------------
+
+    def update_scene(self, time: float, reset: bool = True):
+        """Tick the native scene compiler and re-upload the tables."""
+        self.world.update(time)
+        self.reupload_scene(reset=reset)
+
+    def reupload_scene(self, reset: bool = True):
+        self.world.update_camera(self.width, self.height)
+        self.tables = build_world_tables(self.world, self.device)
+        self.camera = torch.from_numpy(
+            np.asarray(self.world.camera(), np.float32)).to(self.device)
+        if reset:
+            self.reset_accumulation()
+
+    # -- per-frame ---------------------------------------------------------
+
+    def render_frame(self):
+        """Trace one progressive frame into the accumulator.
+
+        Sets self.last_rays (float64 device scalar, unread until needed) to
+        the exact ray count of this frame, and adds this frame's kernel
+        launches to self.launches."""
+        self.frame_count += 1
+        jitter, avg = self._jitter_acc.step(self.frame_count)
+        self._avg_jitter = torch.from_numpy(avg).to(self.device)
+        before = dict(kernels.launches)
+        col, self.last_rays = trace_pixels_dense(
+            self.tables, self.camera, self.frame_count,
+            torch.from_numpy(jitter).to(self.device), self.width,
+            self.height, self.spp, self.max_depth, with_stats=True)
+        self.accum = accumulate(self.accum, col, self.frame_count)
+        for k, v in kernels.launches.items():
+            self.launches[k] += v - before[k]
+        return self.accum
+
+    def present(self) -> np.ndarray:
+        """Run the post-process chain; returns (H, W, 3) uint8. Call once
+        per rendered frame: the TAA history blend uses alpha = 1/frame."""
+        ldr, self.history = postprocess(
+            self.accum.view(self.height, self.width, 4), self.history,
+            self.frame_count, self._avg_jitter)
+        return ldr.cpu().numpy()
+
+    def radiance(self) -> np.ndarray:
+        """Mean HDR radiance of the accumulator, (H, W, 3) float32."""
+        acc = self.accum.cpu().numpy().reshape(self.height, self.width, 4)
+        return acc[..., 0:3] / np.maximum(acc[..., 3:4], 1e-20)
