@@ -3,18 +3,34 @@
 
 Run from the repository root with no arguments:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # add --profile for a torch.profiler
+                                     # device-time split of each path
 
 It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
 (and the shared native scene compiler), then:
 
 1. holds each kernel against its plain PyTorch version on the card, at the
-   shapes of the cornell 512^2 main path, and times both;
-2. drives the main path with the kernels' launch counts reset: 32 frames of
-   `trace_pixels_dense` at cornell 512^2 d8 and 8 at 1920x1080 (each mean
-   within 2% of bench.py's golden), then `Renderer(...).render_frame()` x 16
-   and `present()`; every frame must launch the sweep 1 + 8 times and the
-   shade kernel 8 times;
+   shapes its main path gives it, and times kernel, plain version and, where
+   one exists, the PyTorch library call that computes the same function:
+   the sweep and the shade kernel at cornell 512^2; the row fetch on
+   cornell's shade table with the 1080p G-buffer's wt_idx and on the light
+   rows with a bounce's light pick; the quad fetch on the textured quad's
+   level-0 table and its mip with the rows of a 1080p bounce. Kernel times
+   are many launches between one pair of CUDA events;
+2. drives every path of the port with the launch counts set to 0 just
+   before it and read just after, and asserts each kernel's exact count:
+   - cornell 512^2 d8 x 32 and 1920x1080 d8 x 8 (`trace_pixels_dense`, the
+     row-state loop: 1 + 8 sweeps and 8 shades a frame), each mean within
+     2% of bench.py's golden;
+   - `Renderer("cornell", 512x512, d8)`: `render_frame()` + `present()`
+     x 16;
+   - the textured quad GLB (bench.py's config 3) at 1920x1080 d8 x 8 through
+     `ray_color_dense`, mean within 2% of 0.2739, from a texture decoded
+     without PIL and checked to be red and blue;
+   - G-buffer-seeded cornell 1920x1080 d8 x 8, mean within 2% of 0.1766,
+     frame 1 bit-equal to the traced frame 1;
+   - the textured `Renderer` at 512^2 d8, `render_frame(use_gbuffer=True)`
+     + `present()` x 8;
 3. prints the card's name and power limit, one JSON line of per-kernel
    results, and last `{"ok": true, "device": {...}}`.
 
@@ -25,45 +41,153 @@ non-zero before printing any result. It imports no JAX.
 from __future__ import annotations
 
 import json
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
 
 from webgpu_raytracer_tpu_torch import NativeWorld, Renderer, RenderConfig
 from webgpu_raytracer_tpu_torch import kernels
-from webgpu_raytracer_tpu_torch.ops import cuda_dense, shade_rows
+from webgpu_raytracer_tpu_torch.ops import cuda_dense, cuda_fetch, shade_rows
 from webgpu_raytracer_tpu_torch.ops.dense import (T_MAX, closest_plain,
                                                   ray_stack, rows_plain,
                                                   shadow_plain)
-from webgpu_raytracer_tpu_torch.ops.dense_trace import trace_pixels_dense
-from webgpu_raytracer_tpu_torch.ops.rng import init_rng
+from webgpu_raytracer_tpu_torch.ops.dense_trace import (
+    BASE, EMISSIVE, METAL_ROUGH, NORMAL, intersect_and_shade, texel_rows,
+    trace_pixels_dense)
+from webgpu_raytracer_tpu_torch.ops.fetch import (device_pyramid,
+                                                  fetch_quad_plain,
+                                                  fetch_rows_plain)
+from webgpu_raytracer_tpu_torch.ops.gbuffer import render_gbuffer
+from webgpu_raytracer_tpu_torch.ops.rng import init_rng, rand_n
 from webgpu_raytracer_tpu_torch.ops.v3 import V3
-from webgpu_raytracer_tpu_torch.render.worldtris import build_world_tables
+from webgpu_raytracer_tpu_torch.render.worldtris import (SHADE_COLS,
+                                                         build_world_tables)
+from webgpu_raytracer_tpu_torch.utils.textures import (build_quad_pyramid,
+                                                       decode_world_textures)
 
 # bench.py's golden mean radiance (same estimator) and its 2% gate
-GOLDENS = {"cornell_512": 0.3040, "cornell_1080p": 0.1766}
+GOLDENS = {"cornell_512": 0.3040, "cornell_1080p": 0.1766,
+           "textured_1080p": 0.2739}
 GOLDEN_TOL = 0.02
 DEPTH = 8
+KERNEL_LAUNCHES = 200  # per timing, between one pair of CUDA events
+PLAIN_LAUNCHES = 20
+SMALL = (512, 512)
+HD = (1920, 1080)
+DEVICE = "cuda"
+
+# The card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
+# and f32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+SWEEP_OPS = 45   # f32 operations per ray x triangle test (dense_sweep.cu)
+SHADE_OPS = 300  # f32 operations per lane of one bounce (shade_rows.cu)
+
+PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
 
-def median_ms(fn, reps: int = 20) -> float:
-    """Median device time of fn() over reps calls, by CUDA events."""
+def device_ms(fn, launches: int = KERNEL_LAUNCHES) -> float:
+    """Device ms per call of fn: `launches` calls between one pair of CUDA
+    events, after 3 warm-up calls."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(launches):
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / launches
+
+
+def bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+    """The least time the card could take: (ms, the bound that decides)."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / F32_OPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def png_rgb(img: np.ndarray) -> bytes:
+    """(H, W, 3) u8 -> PNG bytes (filter 0 rows, zlib), without PIL."""
+    h, w, _ = img.shape
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    return (PNG_SIG
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def textured_quad_glb() -> bytes:
+    """tests/glb_fixture.textured_quad_glb without PIL: the same quad and
+    the same 8x8 image, left half red and right half blue, as a PNG
+    baseColorTexture."""
+    img = np.zeros((8, 8, 3), np.uint8)
+    img[:, :4] = [255, 0, 0]
+    img[:, 4:] = [0, 0, 255]
+    png = png_rgb(img)
+    positions = np.array(
+        [[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]], np.float32)
+    normals = np.tile(np.array([[0, 0, 1]], np.float32), (4, 1))
+    uvs = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    indices = np.array([0, 1, 2, 0, 2, 3], np.uint16)
+
+    def pad4(b: bytes, fill: bytes = b"\x00") -> bytes:
+        return b + fill * ((4 - len(b) % 4) % 4)
+
+    blobs = [positions.tobytes(), normals.tobytes(), uvs.tobytes(),
+             indices.tobytes(), png]
+    offsets = np.cumsum([0] + [len(pad4(b)) for b in blobs[:-1]]).tolist()
+    bin_data = b"".join(pad4(b) for b in blobs)
+    views = [48, 48, 32, 12, len(png)]
+    doc = {
+        "asset": {"version": "2.0"},
+        "scene": 0,
+        "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0, "translation": [0.0, 1.0, 0.0]}],
+        "buffers": [{"byteLength": len(bin_data)}],
+        "bufferViews": [{"buffer": 0, "byteOffset": o, "byteLength": n}
+                        for o, n in zip(offsets, views)],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": 4,
+             "type": "VEC3"},
+            {"bufferView": 1, "componentType": 5126, "count": 4,
+             "type": "VEC3"},
+            {"bufferView": 2, "componentType": 5126, "count": 4,
+             "type": "VEC2"},
+            {"bufferView": 3, "componentType": 5123, "count": 6,
+             "type": "SCALAR"},
+        ],
+        "images": [{"bufferView": 4, "mimeType": "image/png"}],
+        "textures": [{"source": 0}],
+        "materials": [{
+            "pbrMetallicRoughness": {
+                "baseColorFactor": [1.0, 1.0, 1.0, 1.0],
+                "baseColorTexture": {"index": 0},
+                "metallicFactor": 0.0,
+            },
+        }],
+        "meshes": [{"primitives": [{
+            "attributes": {"POSITION": 0, "NORMAL": 1, "TEXCOORD_0": 2},
+            "indices": 3,
+            "material": 0,
+        }]}],
+    }
+    js = pad4(json.dumps(doc).encode(), b" ")
+    total = 12 + 8 + len(js) + 8 + len(bin_data)
+    return (struct.pack("<III", 0x46546C67, 2, total)
+            + struct.pack("<II", len(js), 0x4E4F534A) + js
+            + struct.pack("<II", len(bin_data), 0x004E4942) + bin_data)
 
 
 def camera_rays(camera: torch.Tensor, width: int, height: int):
@@ -153,19 +277,26 @@ def check_sweep(tables, camera, width, height) -> dict:
           f"{differ.size} (f64 gap {gap:.2e}), occlusion agrees "
           f"{occ_agree:.6f}, t max abs err {t_err:.3e}")
 
-    ms = median_ms(lambda: cuda_dense.closest_with_row(tables, rays8, R))
-    ms_any = median_ms(lambda: cuda_dense.shadow(tables, rays8))
-    plain_ms = median_ms(lambda: (rows_plain(tables.shade_table,
-                                             closest_plain(tables,
-                                                           rays8)[1][R:])),
-                         reps=5)
-    plain_any = median_ms(lambda: shadow_plain(tables, rays8), reps=5)
-    print(f"sweep closest+rows: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms;"
-          f" any-hit: kernel {ms_any:.4f} ms, plain {plain_any:.4f} ms")
+    ms = device_ms(lambda: cuda_dense.closest_with_row(tables, rays8, R))
+    ms_any = device_ms(lambda: cuda_dense.shadow(tables, rays8))
+    plain_ms = device_ms(lambda: rows_plain(
+        tables.shade_table, closest_plain(tables, rays8)[1][R:]),
+        PLAIN_LAUNCHES)
+    plain_any = device_ms(lambda: shadow_plain(tables, rays8),
+                          PLAIN_LAUNCHES)
+    tw = tables.shade_table.shape[0]
+    active = int((rays8[6] > 0).sum())
+    nbytes = (rays8.numel() * 4 + 2 * R * 4 * 2 + R * 40 * 4
+              + tables.features.numel() * 4 + tw * 40 * 4)
+    b_ms, b_by = bound(nbytes, active * tables.valid_count * SWEEP_OPS)
+    print(f"sweep closest+rows: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB); "
+          f"any-hit: kernel {ms_any:.4f} ms, plain {plain_any:.4f} ms")
     return dict(name="dense_sweep", route="cuda",
                 source="webgpu_raytracer_tpu_torch/csrc/dense_sweep.cu",
                 replaces="webgpu_raytracer_tpu/ops/pallas_dense.py:57",
-                max_abs_err=t_err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=t_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
 def bounce_inputs(tables, camera, width, height, depth):
@@ -225,32 +356,115 @@ def check_shade(tables, camera, width, height) -> dict:
         assert close.mean() >= 0.995 and flags.mean() >= 0.995
         assert rays_close >= 0.995
         if depth == 0:
-            ms = median_ms(lambda: shade_rows.shade(*args))
-            plain_ms = median_ms(
+            ms = device_ms(lambda: shade_rows.shade(*args))
+            plain_ms = device_ms(
                 lambda: shade_rows.next_rays(shade_rows.shade_step(*args)[0]),
-                reps=5)
-    print(f"shade: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                PLAIN_LAUNCHES)
+            R = width * height
+            nbytes = (R * (20 * 4 + 8 + 40 * 4 + 4 + 27 * 4 + 8 + 16 * 4)
+                      + tables.light_rows.numel() * 4)
+            b_ms, b_by = bound(nbytes, R * SHADE_OPS)
+    print(f"shade: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
     return dict(name="shade_rows", route="cuda",
                 source="webgpu_raytracer_tpu_torch/csrc/shade_rows.cu",
                 replaces="webgpu_raytracer_tpu/ops/shade_rows.py:264",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
-def frames(tables, camera, width, height, n, golden_key):
-    """n frames of trace_pixels_dense (jitter 0, spp 1, depth 8): checks
-    the golden mean over all n and prints ms/frame and Mrays/s of frames
-    2..n (frame 1 also pays the allocator's first requests at this size)."""
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit equality of two 32-bit tensors (f32 compared as int32 words)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def time_fetch(label, kernel, plain, library, nbytes) -> dict:
+    ms = device_ms(kernel)
+    plain_ms = device_ms(plain)
+    library_ms = device_ms(library)
+    b_ms, b_by = bound(nbytes)
+    print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+          f"{nbytes / 1e6:.1f} MB)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def check_fetch_rows(cases) -> dict:
+    """Kernel 3 against its plain version on (label, table, idx) cases;
+    the first case's numbers go to the JSON line."""
+    results = []
+    for label, table, idx in cases:
+        out_k = cuda_fetch.fetch_rows_t(table, idx)
+        out_p = fetch_rows_plain(table, idx)
+        torch.cuda.synchronize()
+        assert bits_equal(out_k, out_p), f"{label}: rows differ"
+        n, k = table.shape
+        r = idx.shape[0]
+        clipped = idx.clamp(0, n - 1)
+        print(f"fetch_rows {label}: N {n}, K {k}, R {r}, bit-equal")
+        results.append(time_fetch(
+            f"fetch_rows {label}",
+            lambda: cuda_fetch.fetch_rows_t(table, idx),
+            lambda: fetch_rows_plain(table, idx),
+            lambda: table.index_select(0, clipped).T.contiguous(),
+            r * 4 + k * r * 4 + n * k * 4))
+    return dict(name="fetch_rows", route="cuda",
+                source="webgpu_raytracer_tpu_torch/csrc/fetch_rows.cu",
+                replaces="webgpu_raytracer_tpu/ops/pallas_dense.py:1381",
+                max_abs_err=0.0, **results[0])
+
+
+def check_fetch_quad(cases) -> dict:
+    """Kernel 4 against its plain version on (label, flat, rows) cases;
+    the first case's numbers go to the JSON line."""
+    results = []
+    for label, flat, rows in cases:
+        out_k = cuda_fetch.fetch_quad(flat, rows)
+        out_p = fetch_quad_plain(flat, rows)
+        torch.cuda.synchronize()
+        assert bits_equal(out_k, out_p), f"{label}: words differ"
+        n, r = flat.shape[0], rows.shape[0]
+        print(f"fetch_quad {label}: N {n}, R {r}, bit-equal")
+        results.append(time_fetch(
+            f"fetch_quad {label}",
+            lambda: cuda_fetch.fetch_quad(flat, rows),
+            lambda: fetch_quad_plain(flat, rows),
+            lambda: flat.index_select(0, rows),
+            r * 4 + r * 16 + n * 16))
+    return dict(name="fetch_quad", route="cuda",
+                source="webgpu_raytracer_tpu_torch/csrc/fetch_rows.cu",
+                replaces="webgpu_raytracer_tpu/ops/pallas_dense.py:1438",
+                max_abs_err=0.0, **results[0])
+
+
+def frames(tables, camera, width, height, n, golden_key, textures=None,
+           seeded=False):
+    """n frames of trace_pixels_dense (jitter 0, spp 1, depth 8), traced or
+    seeded from a G-buffer rendered each frame: checks the golden mean
+    over all n and prints ms/frame and Mrays/s of frames 2..n (frame 1 also
+    pays the allocator's first requests at this size). Returns frame 1's
+    radiance on the host."""
     jitter = torch.zeros(2, device=tables.device)
-    means, rays = [], []
+    means, rays, first = [], [], []
 
     def frame(f):
+        seed, gb_rays = None, 0.0
+        if seeded:
+            gb = render_gbuffer(tables, textures, camera, width, height,
+                                jitter=jitter)
+            seed = gb.wt_idx.reshape(-1)
+            gb_rays = float(width * height)
         col, r = trace_pixels_dense(tables, camera, f, jitter, width, height,
-                                    1, DEPTH, with_stats=True)
+                                    1, DEPTH, with_stats=True,
+                                    textures=textures, seed_wt_idx=seed)
         means.append(col.mean())
-        rays.append(r)
+        rays.append(r + gb_rays)
         return col
 
-    frame(1)
+    first.append(frame(1).cpu())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for f in range(2, n + 1):
@@ -264,19 +478,114 @@ def frames(tables, camera, width, height, n, golden_key):
     ok = abs(mean - golden) <= GOLDEN_TOL * golden
     ms = 1e3 * seconds / (n - 1)
     mrays = timed / seconds / 1e6
-    print(f"{golden_key} d{DEPTH}: {n} frames, {ms:.3f} ms/frame and "
-          f"{mrays:.2f} Mrays/s over frames 2..{n} "
+    print(f"{golden_key}{' seeded' if seeded else ''} d{DEPTH}: {n} frames, "
+          f"{ms:.3f} ms/frame and {mrays:.2f} Mrays/s over frames 2..{n} "
           f"({timed / (n - 1):.0f} rays/frame), mean {mean:.4f} vs golden "
           f"{golden} (+-{GOLDEN_TOL:.0%}) {'ok' if ok else 'FAIL'}")
     assert ok, f"{golden_key}: mean {mean} outside golden {golden}"
+    return first[0]
 
 
-def main() -> int:
+def renderer_frames(r: Renderer, n: int, label: str, per_frame: dict,
+                    use_gbuffer=False):
+    """n x (render_frame + present) through the user's entry points; the
+    Renderer's own launch counts must be n x per_frame."""
+    r.render_frame(use_gbuffer=use_gbuffer)
+    r.present()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rays = 0.0
+    for _ in range(n - 1):
+        r.render_frame(use_gbuffer=use_gbuffer)
+        img = r.present()  # copies to the host: synchronises
+        rays += float(r.last_rays)
+    seconds = time.perf_counter() - t0
+    assert img.shape == (r.height, r.width, 3) and img.dtype == np.uint8
+    assert 10 < img.mean() < 245, f"implausible image mean {img.mean()}"
+    assert np.isfinite(r.radiance()).all()
+    want = {k: n * v for k, v in per_frame.items()}
+    assert r.launches == want, f"Renderer launches {r.launches}, not {want}"
+    print(f"Renderer {label}: {n} x (render_frame + present), frames "
+          f"2..{n} {1e3 * seconds / (n - 1):.3f} ms/frame, "
+          f"{rays / seconds / 1e6:.2f} Mrays/s, image mean {img.mean():.2f}")
+
+
+def rows_launches(seeded: bool) -> dict:
+    """Per frame of the row-state loop (untextured scenes): traced, one
+    primary sweep; seeded, one G-buffer sweep and one seed-row fetch; then
+    per bounce one shade and one fused sweep."""
+    return {"dense_sweep": 1 + DEPTH, "shade_rows": DEPTH,
+            "fetch_rows": int(seeded), "fetch_quad": 0}
+
+
+def textured_launches(tables, seeded: bool) -> dict:
+    """Per frame of ray_color_dense (textured scenes). Sweeps: the primary
+    (or G-buffer) sweep, DEPTH - 1 fused sweeps and the last bounce's
+    shadow query. Row fetches: the light rows of every bounce, and the seed
+    rows when seeded. Quad fetches: one per bound base / normal slot at
+    every shaded hit (primary or G-buffer + seed, then DEPTH - 1 extension
+    hits), and one per bound metal-rough / emissive slot and per textured
+    light table at every bounce."""
+    s = tables.tex_slots
+    per_hit = int(s[BASE]) + int(s[NORMAL])
+    per_bounce = int(s[METAL_ROUGH]) + int(s[EMISSIVE]) + int(tables.light_tex)
+    return {"dense_sweep": 1 + DEPTH, "shade_rows": 0,
+            "fetch_rows": DEPTH + int(seeded),
+            "fetch_quad": per_hit * (DEPTH + int(seeded))
+            + per_bounce * DEPTH}
+
+
+def drive(label: str, n_frames: int, per_frame: dict, fn, totals: dict):
+    """Run one path with the launch counts zeroed just before it; assert
+    its exact counts and add them to the totals."""
+    kernels.reset_launches()
+    fn()
+    counts = dict(kernels.launches)
+    want = {k: n_frames * v for k, v in per_frame.items()}
+    assert counts == want, f"{label}: launches {counts}, expected {want}"
+    print(f"launches, {label} ({n_frames} frames): {counts}")
+    for k, v in counts.items():
+        totals[k] += v
+
+
+def profile_paths(paths) -> None:
+    """torch.profiler over 2 frames of each path: device time by kernel and
+    the device's busy share of the profiled wall time. Only the kernels'
+    own events count (a CPU op's device time repeats its kernels')."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, fn in paths:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+        events = [(e.key, e.self_device_time_total, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        busy = sum(t for _, t, _ in events)
+        launches = sum(c for _, _, c in events)
+        print(f"profile {label}: device busy {busy / 2e3:.3f} ms/frame in "
+              f"{launches / 2:.0f} kernel launches/frame, busy share of "
+              f"profiled wall {busy / wall_us:.3f} ({wall_us / 2e3:.3f} "
+              f"ms/frame profiled)")
+        for key, t, count in sorted(events, key=lambda e: -e[1])[:8]:
+            print(f"  {t / 2e3:9.3f} ms/frame  {count / 2:7.1f} calls/frame"
+                  f"  {key[:70]}")
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -294,52 +603,129 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
-    # --- phase 2: each kernel against its plain version ---
-    width, height = 512, 512
+    # --- scenes ---
+    width, height = SMALL
+    hd = HD
     world = NativeWorld("cornell")
     world.update_camera(width, height)
     tables = build_world_tables(world, dev)
     camera = torch.from_numpy(np.asarray(world.camera(), np.float32)).to(dev)
+    world.update_camera(*hd)
+    cam_hd = torch.from_numpy(np.asarray(world.camera(), np.float32)).to(dev)
+
+    glb = textured_quad_glb()
+    tq_world = NativeWorld("viewer", glb_data=glb)
+    tq_world.update_camera(*hd)
+    tq_tables = build_world_tables(tq_world, dev)
+    tq_cam = torch.from_numpy(np.asarray(tq_world.camera(),
+                                         np.float32)).to(dev)
+    decoded = decode_world_textures(tq_world)
+    assert decoded is not None and decoded.shape == (1, 1024, 1024, 3)
+    # A decode that failed would fill 0.8 grey: the quad must be red on
+    # its left and blue on its right.
+    assert np.array_equal(decoded[0, :, :448], np.broadcast_to(
+        np.float32([1, 0, 0]), (1024, 448, 3))), "left half is not red"
+    assert np.array_equal(decoded[0, :, 576:], np.broadcast_to(
+        np.float32([0, 0, 1]), (1024, 448, 3))), "right half is not blue"
+    tq_tex = device_pyramid(build_quad_pyramid(decoded), dev)
+    assert tq_tex[0].shape == (1, 1024, 1024)
+    assert tq_tex[1].shape == (1, 128, 128)
+    assert tq_tables.tex_slots == (True, False, False, False)
+    assert not tq_tables.light_tex
+    print(f"textured quad: {tq_tables.valid_count} world tris (padded "
+          f"{tq_tables.shade_table.shape[0]}), {tq_tables.light_count} "
+          f"lights, texture decoded red/blue, level 0 "
+          f"{tuple(tq_tex[0].flat.shape)}, mip {tuple(tq_tex[1].flat.shape)}")
+
+    # --- phase 2: each kernel against its plain version ---
     results = [check_sweep(tables, camera, width, height),
                check_shade(tables, camera, width, height)]
 
-    # --- phase 3: the main path, counting launches ---
-    kernels.reset_launches()
-    frames(tables, camera, width, height, 32, "cornell_512")
-    world.update_camera(1920, 1080)
-    cam_hd = torch.from_numpy(np.asarray(world.camera(), np.float32)).to(dev)
-    frames(tables, cam_hd, 1920, 1080, 8, "cornell_1080p")
+    R_hd = hd[0] * hd[1]
+    gb_hd = render_gbuffer(tables, None, cam_hd, *hd)
+    wt_idx = gb_hd.wt_idx.reshape(-1)
+    lc = tq_tables.light_count
+    rng = init_rng(torch.arange(R_hd, device=dev), 1)
+    rng, _ = rand_n(rng, 2)  # the lens sample
+    _, (r0,) = rand_n(rng, 1)  # bounce 0's light pick draw
+    pick = torch.clamp((r0 * float(max(lc, 1))).to(torch.int32), 0,
+                       max(lc - 1, 0))
+    results.append(check_fetch_rows([
+        ("cornell shade table, 1080p G-buffer wt_idx", tables.shade_table,
+         wt_idx),
+        ("textured quad light rows, bounce-0 light pick",
+         tq_tables.light_rows, pick)]))
 
-    r = Renderer("cornell", RenderConfig(width=512, height=512,
-                                         max_depth=DEPTH), device="cuda")
-    r.render_frame()
-    r.present()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rays = 0.0
-    for _ in range(15):
-        r.render_frame()
-        img = r.present()  # copies to the host: synchronises
-        rays += float(r.last_rays)
-    seconds = time.perf_counter() - t0
-    assert img.shape == (512, 512, 3) and img.dtype == np.uint8
-    assert 10 < img.mean() < 245, f"implausible image mean {img.mean()}"
-    assert np.isfinite(r.radiance()).all()
-    assert r.launches == {"dense_sweep": 16 * (1 + DEPTH),
-                          "shade_rows": 16 * DEPTH}, r.launches
-    print(f"Renderer cornell 512x512 d{DEPTH}: 16 x (render_frame + "
-          f"present), frames 2..16 {1e3 * seconds / 15:.3f} ms/frame, "
-          f"{rays / seconds / 1e6:.2f} Mrays/s, image mean {img.mean():.2f}")
+    ro, rd = camera_rays(tq_cam, *hd)
+    hit = intersect_and_shade(tq_tables, tq_tex, ro, rd)
+    base = torch.where(hit.wt >= 0,
+                       hit.rowT[SHADE_COLS["tex"][0]].to(torch.int32), -1)
+    rows0 = texel_rows(tq_tex[0], base, hit.tex_u, hit.tex_v)[0]
+    rows1 = texel_rows(tq_tex[1], base, hit.tex_u, hit.tex_v)[0]
+    results.append(check_fetch_quad([
+        ("mip 128^2, 1080p bounce rows", tq_tex[1].flat, rows1),
+        ("level 0 1024^2, 1080p bounce rows", tq_tex[0].flat, rows0)]))
 
-    n_frames = 32 + 8 + 16
-    counts = dict(kernels.launches)
-    want = {"dense_sweep": n_frames * (1 + DEPTH),
-            "shade_rows": n_frames * DEPTH}
-    assert counts == want, f"launch counts {counts}, expected {want}"
-    print(f"launches on the main path ({n_frames} frames): {counts}")
+    # --- phase 3: every path, counting launches ---
+    totals = {k: 0 for k in kernels.launches}
+    traced_hd = []
+    drive("cornell 512^2 traced", 32, rows_launches(False),
+          lambda: frames(tables, camera, width, height, 32, "cornell_512"),
+          totals)
+    drive("cornell 1080p traced", 8, rows_launches(False),
+          lambda: traced_hd.append(frames(tables, cam_hd, *hd, 8,
+                                          "cornell_1080p")), totals)
+
+    r = Renderer("cornell", RenderConfig(width=width, height=height,
+                                         max_depth=DEPTH), device=dev)
+    drive("Renderer cornell 512^2", 16, rows_launches(False),
+          lambda: renderer_frames(r, 16, f"cornell {width}x{height} "
+                                  f"d{DEPTH}", rows_launches(False)),
+          totals)
+
+    drive("textured quad 1080p traced", 8,
+          textured_launches(tq_tables, False),
+          lambda: frames(tq_tables, tq_cam, *hd, 8, "textured_1080p",
+                         textures=tq_tex), totals)
+
+    seeded_hd = []
+    drive("cornell 1080p G-buffer seeded", 8, rows_launches(True),
+          lambda: seeded_hd.append(frames(tables, cam_hd, *hd, 8,
+                                          "cornell_1080p", seeded=True)),
+          totals)
+    assert torch.equal(seeded_hd[0], traced_hd[0]), \
+        "seeded frame 1 differs from the traced frame 1"
+    print("cornell 1080p: seeded frame 1 bit-equal to the traced frame 1")
+
+    rt = Renderer("viewer", RenderConfig(width=width, height=height,
+                                         max_depth=DEPTH),
+                  glb_data=glb, device=dev)
+    assert rt.textures is not None and rt.textures[1].shape == (1, 128, 128)
+    drive("Renderer textured quad 512^2 G-buffer seeded", 8,
+          textured_launches(rt.tables, True),
+          lambda: renderer_frames(rt, 8, f"textured quad {width}x{height} "
+                                  f"d{DEPTH} use_gbuffer=True",
+                                  textured_launches(rt.tables, True),
+                                  use_gbuffer=True),
+          totals)
+    print(f"launches on the main paths (all of the above): {totals}")
+
+    if "--profile" in argv:
+        jit0 = torch.zeros(2, device=dev)
+        profile_paths([
+            ("textured quad 1080p d8", lambda: trace_pixels_dense(
+                tq_tables, tq_cam, 1, jit0, *hd, 1, DEPTH, textures=tq_tex)),
+            ("cornell 1080p d8 seeded", lambda: trace_pixels_dense(
+                tables, cam_hd, 1, jit0, *hd, 1, DEPTH,
+                seed_wt_idx=render_gbuffer(tables, None, cam_hd, *hd)
+                .wt_idx.reshape(-1))),
+            ("cornell 1080p d8 traced", lambda: trace_pixels_dense(
+                tables, cam_hd, 1, jit0, *hd, 1, DEPTH)),
+        ])
 
     for res in results:
-        res["launches"] = counts[res["name"]]
+        res["launches"] = totals[res["name"]]
+        assert res["launches"] > 0, f"{res['name']} never ran on a path"
     print(smi_line)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
@@ -349,4 +735,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -13,13 +13,17 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from webgpu_raytracer_tpu_torch import NativeWorld, Renderer, RenderConfig
 from webgpu_raytracer_tpu_torch import kernels
-from webgpu_raytracer_tpu_torch.ops import cuda_dense, shade_rows
+from webgpu_raytracer_tpu_torch.ops import cuda_dense, cuda_fetch, shade_rows
 from webgpu_raytracer_tpu_torch.ops.dense import (T_MAX, closest_plain,
                                                   ray_stack, rows_plain,
                                                   shadow_plain)
 from webgpu_raytracer_tpu_torch.ops.dense_trace import trace_pixels_dense
+from webgpu_raytracer_tpu_torch.ops.fetch import (fetch_quad_plain,
+                                                  fetch_rows_plain)
 from webgpu_raytracer_tpu_torch.ops.rng import init_rng
 from webgpu_raytracer_tpu_torch.ops.v3 import V3
 from webgpu_raytracer_tpu_torch.render.worldtris import build_world_tables
@@ -134,4 +138,70 @@ def test_renderer_on_card_counts_launches(cuda):
         r.render_frame()
         img = r.present()
     assert img.shape == (RES, RES, 3) and np.isfinite(r.radiance()).all()
-    assert r.launches == {"dense_sweep": 2 * 6, "shade_rows": 2 * 5}
+    assert r.launches == {"dense_sweep": 2 * 6, "shade_rows": 2 * 5,
+                          "fetch_rows": 0, "fetch_quad": 0}
+
+
+@pytest.mark.parametrize("n,k", [(1, 40), (40, 40), (1408, 40), (300, 3)])
+def test_fetch_rows_kernel_matches_plain(cuda, n, k):
+    """Bit-equal to table[clip(idx)].T, odd R, indices out of range."""
+    rs = np.random.default_rng(n + k)
+    table = torch.from_numpy(rs.normal(size=(n, k)).astype(np.float32))
+    table[0, 0] = -0.0
+    idx = np.concatenate([[-1, n, -7, n + 5, 0, n - 1],
+                          rs.integers(-2, n + 2, 995)]).astype(np.int32)
+    table, idx = table.to(cuda), torch.from_numpy(idx).to(cuda)
+    before = kernels.launches["fetch_rows"]
+    out = cuda_fetch.fetch_rows_t(table, idx)
+    assert kernels.launches["fetch_rows"] == before + 1
+    want = fetch_rows_plain(table, idx)
+    assert out.shape == (k, 1001)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 16384])
+def test_fetch_quad_kernel_matches_plain(cuda, n):
+    rs = np.random.default_rng(n)
+    flat = rs.integers(0, 1 << 24, size=(n, 4)).astype(np.int32)
+    flat[0] = [0, (1 << 24) - 1, 0xFF0000, 0x0000FF]
+    rows = np.concatenate([[-1, n, 0, n - 1],
+                           rs.integers(-3, n + 3, 997)]).astype(np.int32)
+    flat, rows = torch.from_numpy(flat).to(cuda), torch.from_numpy(rows).to(
+        cuda)
+    before = kernels.launches["fetch_quad"]
+    out = cuda_fetch.fetch_quad(flat, rows)
+    assert kernels.launches["fetch_quad"] == before + 1
+    assert torch.equal(out, fetch_quad_plain(flat, rows))
+
+
+def test_fetch_wrappers_reject_bad_inputs(cuda):
+    table = torch.zeros((8, 40), device=cuda)
+    flat = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    idx = torch.zeros(5, dtype=torch.int32, device=cuda)
+    before = dict(kernels.launches)
+    with pytest.raises(TypeError, match="idx"):
+        cuda_fetch.fetch_rows_t(table, idx.long())
+    with pytest.raises(ValueError, match="idx"):
+        cuda_fetch.fetch_rows_t(table, idx.cpu())
+    with pytest.raises(ValueError, match="no rows"):
+        cuda_fetch.fetch_rows_t(table[:0], idx)
+    with pytest.raises(ValueError, match="flat"):
+        cuda_fetch.fetch_quad(flat[:, :3].contiguous(), idx)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_fetch.fetch_quad(flat.view(-1)[1:29].view(7, 4), idx)
+    assert kernels.launches == before
+
+
+def test_textured_renderer_on_card_counts_launches(cuda):
+    """The textured quad (base-colour texture only, untextured lights):
+    per frame of depth 5, seeded from the G-buffer: 6 sweeps, 6 row fetches
+    (5 light, 1 seed) and 6 quad fetches (G-buffer, seed, 4 extension
+    hits)."""
+    r = Renderer("viewer", RenderConfig(width=RES, height=RES, max_depth=5),
+                 glb_data=chip_smoke.textured_quad_glb(), device="cuda")
+    for _ in range(2):
+        r.render_frame(use_gbuffer=True)
+        img = r.present()
+    assert img.shape == (RES, RES, 3) and np.isfinite(r.radiance()).all()
+    assert r.launches == {"dense_sweep": 2 * 6, "shade_rows": 0,
+                          "fetch_rows": 2 * 6, "fetch_quad": 2 * 6}

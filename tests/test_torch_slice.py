@@ -5,41 +5,70 @@
   (`ray_color_dense`) on cornell 32^2 d5, frames 1..8. As in
   tests/test_shade_rows.py: >= 95% of lanes at rel < 1e-3 (winner
   near-ties flip paths), means within 2%, ray counts within 2%.
+- the same tolerance on the second slice's paths, frames 1..4: the
+  textured quad at 32^2 d4 and the character GLB (1294 tris over 11 tiles,
+  2 textures, an emissive-textured collar, a metallic head) at 16^2 d3
+  through the port's `ray_color_dense`, each package with its own decode;
+  G-buffer-seeded cornell at 32^2 d4, each seeded from its own G-buffer.
+  The textured quad's mean at 64^2 d8 over 4 frames within 2% of JAX's.
 - goldens: the port's mean radiance of every untextured preset within
   tests/test_golden.py's bounds (cornell 0.2597 +- 0.03, ...); the
   multi-tile presets run the sweep over many 128-tri tiles.
 - present: the port's `postprocess` on the same accum/history: HDR history
   allclose at rtol 1e-5, LDR within 1 code and equal on >= 99%.
 - Renderer: CPU frames are finite; "cuda" raises without a card; a
-  textured scene and one over 16384 world tris raise NotImplementedError.
-- the package imports no JAX.
+  textured scene renders and presents, and `render_frame(use_gbuffer=True)`
+  gives the traced frame while counting the G-buffer's W*H rays in place of
+  the primaries; a scene over 16384 world tris raises NotImplementedError.
+- the package imports no JAX and loads no file of the JAX package: a fresh
+  process renders a CPU frame, and its scene compiler is the port's own
+  build.
 """
 
+import os
 import subprocess
 import sys
+import textwrap
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
 from webgpu_raytracer_tpu.ops.dense_trace import \
     trace_pixels_dense as jax_trace
+from webgpu_raytracer_tpu.ops.gbuffer import render_gbuffer as jax_gbuffer
 from webgpu_raytracer_tpu.ops.postprocess import \
     postprocess as jax_postprocess
 from webgpu_raytracer_tpu.render.resources import build_device_scene
+from webgpu_raytracer_tpu.utils import textures as jax_textures
 from webgpu_raytracer_tpu_torch import (NativeWorld, Renderer, RenderConfig,
                                         kernels)
+from webgpu_raytracer_tpu_torch.models import native
 from webgpu_raytracer_tpu_torch.ops.dense_trace import trace_pixels_dense
+from webgpu_raytracer_tpu_torch.ops.fetch import device_pyramid
+from webgpu_raytracer_tpu_torch.ops.gbuffer import render_gbuffer
 from webgpu_raytracer_tpu_torch.ops.postprocess import postprocess
 from webgpu_raytracer_tpu_torch.ops.trace import accumulate
 from webgpu_raytracer_tpu_torch.render.worldtris import build_world_tables
+from webgpu_raytracer_tpu_torch.utils import textures as port_textures
+from webgpu_raytracer_tpu_torch.utils.halton import frame_jitter
 
-from tests.glb_fixture import textured_quad_glb
+from tests.glb_fixture import character_glb, textured_quad_glb
 from tests.test_golden import GOLDEN
 from tests.torch_common import jax_and_port_tables
 
 RES, DEPTH, FRAMES = 32, 5, 8
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# The second slice's frames: name -> (scene, GLB, res, depth, seeded).
+SLICE2 = {"textured": ("viewer", textured_quad_glb, 32, 4, False),
+          "character": ("viewer", character_glb, 16, 3, False),
+          "cornell_seeded": ("cornell", None, 32, 4, True)}
+SLICE2_FRAMES = 4
+_jax_trace = jax.jit(jax_trace, static_argnames=(
+    "width", "height", "spp", "max_depth", "with_stats"))
 
 
 @pytest.fixture(scope="module")
@@ -71,6 +100,79 @@ def test_trace_matches_jax(cornell_frames, frame):
     assert frac >= 0.95, f"{frac:.3%} lanes match"
     assert abs(a.mean() - b.mean()) < 0.02 * max(a.mean(), 1e-3)
     assert abs(rays_a - rays_b) <= 0.02 * rays_a
+
+
+def _both_textures(world):
+    """(JAX texture operand, port pyramid), each package decoding the
+    world's images itself (the white placeholder / None when it has
+    none)."""
+    dec = jax_textures.decode_world_textures(world)
+    if dec is None:
+        jtex = jnp.ones((1, 1, 1, 3), jnp.float32)
+    else:
+        jtex = jax_textures.device_pyramid(jax_textures.build_quad_pyramid(dec))
+        jtex = jtex[0] if jtex[1] is jtex[0] else jtex
+    dec = port_textures.decode_world_textures(world)
+    ptex = None if dec is None else device_pyramid(
+        port_textures.build_quad_pyramid(dec), "cpu")
+    return jtex, ptex
+
+
+def _slice2_frames(case, frames, res=None, depth=None):
+    """Per frame: (JAX col, JAX rays, port col, port rays)."""
+    scene_name, glb, res0, depth0, seeded = SLICE2[case]
+    res, depth = res or res0, depth or depth0
+    world, wt, tables = jax_and_port_tables(scene_name, res,
+                                            glb() if glb else None)
+    jtex, ptex = _both_textures(world)
+    cam = np.asarray(world.camera(), np.float32)
+    jseed = pseed = None
+    if seeded:
+        jseed = jax_gbuffer(wt, jtex, jnp.asarray(cam), res, res) \
+            .wt_idx.reshape(-1)
+        pseed = render_gbuffer(tables, ptex, torch.from_numpy(cam), res,
+                               res).wt_idx.reshape(-1)
+    out = []
+    for f in range(1, frames + 1):
+        col_j, rays_j = _jax_trace(wt, jtex, jnp.asarray(cam),
+                                   jnp.asarray(f, jnp.int32),
+                                   jnp.zeros(2, jnp.float32), width=res,
+                                   height=res, spp=1, max_depth=depth,
+                                   with_stats=True, seed_wt_idx=jseed)
+        col_t, rays_t = trace_pixels_dense(
+            tables, torch.from_numpy(cam), f, torch.zeros(2), res, res, 1,
+            depth, with_stats=True, textures=ptex, seed_wt_idx=pseed)
+        out.append((np.asarray(col_j), float(rays_j), col_t.numpy(),
+                    float(rays_t)))
+    return out
+
+
+@pytest.fixture(scope="module", params=sorted(SLICE2))
+def slice2_frames(request):
+    return request.param, _slice2_frames(request.param, SLICE2_FRAMES)
+
+
+@pytest.mark.parametrize("frame", range(1, SLICE2_FRAMES + 1))
+def test_slice2_trace_matches_jax(slice2_frames, frame):
+    """Textured, character and seeded frames: the cornell tolerance."""
+    case, per_frame = slice2_frames
+    a, rays_a, b, rays_b = per_frame[frame - 1]
+    assert b.shape == a.shape and np.isfinite(b).all(), case
+    rel = np.abs(a - b).max(1) / np.maximum(np.abs(a).max(1), 1e-3)
+    frac = (rel < 1e-3).mean()
+    assert frac >= 0.95, f"{case}: {frac:.3%} lanes match"
+    assert abs(a.mean() - b.mean()) < 0.02 * max(a.mean(), 1e-3), case
+    assert abs(rays_a - rays_b) <= 0.02 * rays_a, case
+
+
+def test_textured_mean_64_d8_matches_jax():
+    """bench.py's textured config at 64^2 (its 1080p golden 0.2739 belongs
+    to the 16:9 frame): 4 frames, means within 2%."""
+    per_frame = _slice2_frames("textured", 4, res=64, depth=8)
+    mean_j = np.mean([a.mean() for a, _, _, _ in per_frame])
+    mean_t = np.mean([b.mean() for _, _, b, _ in per_frame])
+    assert 0.3 < mean_j < 0.7
+    assert abs(mean_t - mean_j) < 0.02 * mean_j, (mean_t, mean_j)
 
 
 @pytest.mark.parametrize("case", ["cornell", "viewer", "mixed", "special",
@@ -146,10 +248,43 @@ def test_renderer_cuda_raises_without_card():
         Renderer("cornell", RenderConfig(width=8, height=8))
 
 
-def test_renderer_textured_scene_not_ported():
-    with pytest.raises(NotImplementedError, match="textured"):
-        Renderer("viewer", RenderConfig(width=8, height=8),
-                 glb_data=textured_quad_glb(), device="cpu")
+def test_renderer_textured_frames_and_gbuffer_seeding():
+    """A textured Renderer on the CPU renders and presents the red/blue
+    quad. With use_gbuffer=True (lens radius 0) each frame equals the
+    traced one, and its ray count adds the G-buffer's W*H rays to the
+    seeded trace's, in place of the traced frame's primaries."""
+    W, H = 32, 24
+    glb = textured_quad_glb()
+    traced, seeded = (Renderer("viewer", RenderConfig(width=W, height=H,
+                                                      max_depth=4),
+                               glb_data=glb, device="cpu")
+                      for _ in range(2))
+    assert traced.textures[0].shape == (1, 1024, 1024)
+    assert traced.textures[1].shape == (1, 128, 128)
+    assert float(traced.camera[3]) == 0.0
+    for _ in range(3):
+        traced.render_frame()
+        img = traced.present()
+        seeded.render_frame(use_gbuffer=True)
+        img_s = seeded.present()
+        assert torch.equal(seeded.accum, traced.accum)
+        np.testing.assert_array_equal(img_s, img)
+        assert float(seeded.last_rays) == float(traced.last_rays)
+    assert img.shape == (H, W, 3) and img.dtype == np.uint8
+    rad = seeded.radiance()
+    assert np.isfinite(rad).all()
+    red = (rad[..., 0] > 4 * rad[..., 2]).mean()
+    blue = (rad[..., 2] > 4 * rad[..., 0]).mean()
+    assert red > 0.02 and blue > 0.02, (red, blue)  # not the 0.8 grey
+    assert seeded.launches == {k: 0 for k in kernels.launches}
+    jitter = torch.from_numpy(frame_jitter(4, W, H))
+    seed = render_gbuffer(seeded.tables, seeded.textures, seeded.camera, W,
+                          H, jitter=jitter).wt_idx.reshape(-1)
+    seeded.render_frame(use_gbuffer=True)
+    _, rays = trace_pixels_dense(seeded.tables, seeded.camera, 4, jitter, W,
+                                 H, 1, 4, with_stats=True,
+                                 textures=seeded.textures, seed_wt_idx=seed)
+    assert float(seeded.last_rays) == float(rays) + W * H
 
 
 def test_renderer_large_scene_not_ported():
@@ -160,10 +295,34 @@ def test_renderer_large_scene_not_ported():
 
 
 def test_package_imports_no_jax():
-    code = ("import webgpu_raytracer_tpu_torch, "
-            "webgpu_raytracer_tpu_torch.render.renderer\n"
-            "import webgpu_raytracer_tpu_torch.kernels\n"
-            "import sys; assert 'jax' not in sys.modules, 'jax imported'")
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=120)
+    """A fresh process imports the port, builds a world and renders a CPU
+    frame: no JAX, no module of the JAX package, and the scene compiler
+    mapped from the port's own build directory."""
+    code = textwrap.dedent('''
+        import os, sys
+        import webgpu_raytracer_tpu_torch as port
+        import webgpu_raytracer_tpu_torch.kernels
+        from webgpu_raytracer_tpu_torch.models import native
+        world = port.NativeWorld("cornell")
+        r = port.Renderer("cornell", port.RenderConfig(width=8, height=8,
+                                                       max_depth=2),
+                          device="cpu")
+        r.render_frame()
+        assert r.present().shape == (8, 8, 3)
+        assert "jax" not in sys.modules, "jax imported"
+        jax_pkg = os.path.join(sys.argv[1], "webgpu_raytracer_tpu", "")
+        for name, mod in list(sys.modules.items()):
+            path = os.path.abspath(getattr(mod, "__file__", None) or "/")
+            assert not path.startswith(jax_pkg), (name, path)
+        with open("/proc/self/maps") as f:
+            libs = {line.split()[-1] for line in f if "libscene" in line}
+        assert libs, "no libscene mapped"
+        for lib in libs:
+            assert os.path.dirname(lib) == native.BUILD_DIR, lib
+        print(sorted(libs))
+    ''')
+    proc = subprocess.run([sys.executable, "-c", code, REPO],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=REPO)
     assert proc.returncode == 0, proc.stderr
+    assert "webgpu_raytracer_tpu_torch/build/libscene_" in proc.stdout

@@ -82,3 +82,50 @@ def assert_near_ties(shade_table, ro, rd, idx_a, idx_b, lanes):
     np.testing.assert_allclose(mt_t(idx_b[lanes]), mt_t(idx_a[lanes]),
                                rtol=2e-3, atol=2e-4,
                                err_msg="non-tie winner flip")
+
+
+def png_bytes(px, color_type, filters=(0,), palette=None, depth=8,
+              interlace=0):
+    """A PNG of (H, W, C) u8 samples, row y written with row filter
+    filters[y % len(filters)] (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth):
+    filtered rows the encoders in the tests do not choose themselves.
+    `depth` and `interlace` only label the header."""
+    import struct
+    import zlib
+
+    h, w, c = px.shape
+    rows = px.reshape(h, w * c).astype(np.int64)
+    zero = np.zeros(c, np.int64)
+    prior = np.zeros(w * c, np.int64)
+    raw = bytearray()
+    for y in range(h):
+        cur = rows[y]
+        left = np.concatenate([zero, cur[:-c]])
+        upleft = np.concatenate([zero, prior[:-c]])
+        f = filters[y % len(filters)]
+        if f == 0:
+            pred = 0
+        elif f == 1:
+            pred = left
+        elif f == 2:
+            pred = prior
+        elif f == 3:
+            pred = (left + prior) >> 1
+        else:
+            p = left + prior - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prior), np.abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, prior, upleft))
+        raw += bytes([f]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes()
+        prior = cur
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, color_type, 0, 0, interlace))
+    if palette is not None:
+        out += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return out + chunk(b"IDAT", zlib.compress(bytes(raw))) \
+        + chunk(b"IEND", b"")

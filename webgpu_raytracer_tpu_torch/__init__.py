@@ -8,7 +8,8 @@ kernel has a plain PyTorch version beside it, which runs on the CPU.
 This package never imports JAX.
 """
 
-from ._shared import NativeWorld, RenderConfig
+from .config import RenderConfig
+from .models.native import NativeWorld
 from .render.renderer import Renderer
 
 __all__ = ["RenderConfig", "NativeWorld", "Renderer"]

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels; count their launches.
 
 The sources in `csrc/*.cu` have a plain C interface. At first CUDA use,
-`library()` compiles them with nvcc into one shared library under `build/`
+`library()` compiles them with nvcc, one process per source, all started
+together, and links the objects into one shared library under `build/`
 (listed in `.gitignore`), named by a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one is loaded as it is. The library
 is loaded with ctypes: every pointer and the stream go as `c_void_p`, and
@@ -28,11 +29,12 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # Launch counts by kernel. A wrapper adds one where it launches its kernel
 # and nowhere else, so a run can show that its path went through it.
-launches = {"dense_sweep": 0, "shade_rows": 0}
+launches = {"dense_sweep": 0, "shade_rows": 0, "fetch_rows": 0,
+            "fetch_quad": 0}
 
 
 def reset_launches() -> None:
@@ -70,15 +72,31 @@ def build(extra_flags: tuple[str, ...] = ()) -> tuple[str, float, str]:
     if os.path.exists(path):
         return path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path[:-3]}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, *_sources()]
+    stem = f"{path[:-3]}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = f"{stem}.{os.path.basename(src)}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = [proc.communicate()[0] for _, proc in jobs]  # wait for all
+    for (_, proc), out in zip(jobs, log):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}")
+    tmp = f"{stem}.tmp.so"
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+                           *(obj for obj, _ in jobs)],
+                          capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{proc.stderr}")
     os.replace(tmp, path)
-    return path, seconds, proc.stdout + proc.stderr
+    for obj, _ in jobs:
+        os.remove(obj)
+    return path, seconds, "".join(log) + proc.stdout + proc.stderr
 
 
 _P = ctypes.c_void_p
@@ -96,6 +114,10 @@ def library() -> ctypes.CDLL:
     lib.wrt_shade_rows.restype = _I
     lib.wrt_shade_rows.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _P, _P, _P, _P]
+    lib.wrt_fetch_rows_t.restype = _I
+    lib.wrt_fetch_rows_t.argtypes = [_P, _I, _I, _P, _I, _P, _P]
+    lib.wrt_fetch_quad.restype = _I
+    lib.wrt_fetch_quad.argtypes = [_P, _I, _P, _I, _P, _P]
     return lib
 
 

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from .v3 import V3, dot, normalize, where
+from .v3 import V3, dot, normalize, sqrt_rn, where
 
 PI = 3.141592653589793
 
@@ -36,7 +36,7 @@ def refract(i: V3, n: V3, eta) -> V3:
     """WGSL refract(): zero vector on total internal reflection."""
     cos_i = dot(n, i)
     k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
-    out = i * eta - n * (eta * cos_i + torch.sqrt(torch.clamp(k, min=0.0)))
+    out = i * eta - n * (eta * cos_i + sqrt_rn(torch.clamp(k, min=0.0)))
     zero = torch.zeros_like(out.x)
     return where(k >= 0.0, out, V3(zero, zero, zero))
 
@@ -57,15 +57,15 @@ def local_to_world(u: V3, v: V3, w: V3, a: V3) -> V3:
 def cosine_hemisphere(n: V3, r1, r2) -> V3:
     u, v = build_onb(n)
     phi = 2.0 * PI * r1
-    cos_theta = torch.sqrt(torch.clamp(1.0 - r2, min=0.0))
-    sin_theta = torch.sqrt(torch.clamp(r2, min=0.0))
+    cos_theta = sqrt_rn(torch.clamp(1.0 - r2, min=0.0))
+    sin_theta = sqrt_rn(torch.clamp(r2, min=0.0))
     local = V3(torch.cos(phi) * sin_theta, torch.sin(phi) * sin_theta,
                cos_theta)
     return local_to_world(u, v, n, local)
 
 
 def random_in_unit_disk(r1, r2):
-    r = torch.sqrt(r1)
+    r = sqrt_rn(r1)
     theta = 2.0 * PI * r2
     return r * torch.cos(theta), r * torch.sin(theta)
 
@@ -94,9 +94,9 @@ def ggx_d(n_dot_h, a2):
 
 
 def ggx_g(n_dot_v, n_dot_l, a2):
-    g1v = 2.0 * n_dot_v / (n_dot_v + torch.sqrt(a2 + (1.0 - a2)
+    g1v = 2.0 * n_dot_v / (n_dot_v + sqrt_rn(a2 + (1.0 - a2)
                                                  * pow2(n_dot_v)))
-    g1l = 2.0 * n_dot_l / (n_dot_l + torch.sqrt(a2 + (1.0 - a2)
+    g1l = 2.0 * n_dot_l / (n_dot_l + sqrt_rn(a2 + (1.0 - a2)
                                                  * pow2(n_dot_l)))
     return g1v * g1l
 
@@ -131,9 +131,9 @@ def ggx_pdf(n: V3, v: V3, l: V3, roughness):
 def sample_ggx(n: V3, v: V3, roughness, f0: V3, r1, r2) -> Scatter:
     a = roughness
     phi = 2.0 * PI * r1
-    cos_theta = torch.sqrt(torch.clamp(
+    cos_theta = sqrt_rn(torch.clamp(
         (1.0 - r2) / (1.0 + (a * a - 1.0) * r2), min=0.0))
-    sin_theta = torch.sqrt(torch.clamp(1.0 - pow2(cos_theta), min=0.0))
+    sin_theta = sqrt_rn(torch.clamp(1.0 - pow2(cos_theta), min=0.0))
     h_local = V3(sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
                  cos_theta)
     u, vv = build_onb(n)
@@ -175,7 +175,7 @@ def sample_dielectric(dir: V3, normal: V3, ior, albedo: V3, r1) -> Scatter:
 
     unit = normalize(dir)
     cos_theta = torch.clamp(dot(-unit, n), max=1.0)
-    sin_theta = torch.sqrt(torch.clamp(1.0 - pow2(cos_theta), min=0.0))
+    sin_theta = sqrt_rn(torch.clamp(1.0 - pow2(cos_theta), min=0.0))
 
     cannot_refract = ratio * sin_theta > 1.0
     do_reflect = cannot_refract | (reflectance_dielectric(cos_theta, ratio)

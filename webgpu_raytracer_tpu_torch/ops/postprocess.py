@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .v3 import sqrt_rn
+
 
 def _edge_pad(img):
     """Pad H, W by 1 with edge clamping."""
@@ -118,7 +120,7 @@ def postprocess(acc, history, frame_count: int, average_jitter):
 
     # TAA with neighborhood mean +- k*sigma clamping.
     mean = m1 / 9.0
-    std = torch.sqrt(torch.clamp(m2 / 9.0 - mean * mean, min=0.0))
+    std = sqrt_rn(torch.clamp(m2 / 9.0 - mean * mean, min=0.0))
     k = 60.0 if frame_count > 16 else 1.0
     clamped_hist = torch.minimum(torch.maximum(history, mean - std * k),
                                  mean + std * k)

@@ -35,7 +35,8 @@ from . import bsdf_v3 as bsdf
 from .bsdf_v3 import PI, power_heuristic
 from .dense import T_MAX
 from .rng import rand_n, rand_pcg
-from .v3 import V3, cross, dot, length, max_component, normalize, rows, where
+from .v3 import (V3, cross, dot, length, max_component, normalize, rows,
+                 sqrt_rn, where)
 from ..render.worldtris import SHADE_COLS, SHADE_K
 
 NS_IN = 20
@@ -142,7 +143,7 @@ def shade_step(state, rng, rowT, idx, light_rows, depth: int,
     lv0 = _rv3(lrow, "v0")
     le1 = _rv3(lrow, "e1")
     le2 = _rv3(lrow, "e2")
-    sqrt_r1 = torch.sqrt(r1)
+    sqrt_r1 = sqrt_rn(r1)
     lu = 1.0 - sqrt_r1
     lv = r2 * sqrt_r1
     lpnt = lv0 + le1 * lv + le2 * (1.0 - lu - lv)
@@ -151,7 +152,7 @@ def shade_step(state, rng, rowT, idx, light_rows, depth: int,
     larea = length(lcr) * 0.5
     l_dir = lpnt - hit_p
     dist_sq = dot(l_dir, l_dir)
-    ldist = torch.sqrt(dist_sq)
+    ldist = sqrt_rn(dist_sq)
     ldir = l_dir * (1.0 / torch.clamp(ldist, min=1e-20))
     cos_theta_l = torch.clamp(dot(ln_raw, -ldir), min=0.0)
     L = _rv3(lrow, "base_color")

@@ -2,10 +2,14 @@
 
 The port of the JAX package's `render/renderer.py` for the dense path:
 `render_frame()` traces one progressive frame into the accumulator through
-the CUDA sweep and shade kernels (their plain versions on the CPU), and
-`present()` runs the post-process chain. PyTorch runs eagerly, so there is
-no compiled step: `build_pipeline(depth, spp)` only changes the parameters
-and resets the accumulation.
+the CUDA kernels (their plain versions on the CPU), and `present()` runs
+the post-process chain. A scene's textures are decoded, packed into the
+(level 0, mip) quad-table pyramid and uploaded once, at construction.
+Untextured scenes take the row-state loop (the shade kernel); textured
+ones `ray_color_dense`. `render_frame(use_gbuffer=True)` renders the
+G-buffer first and seeds bounce 0 from it. PyTorch runs eagerly, so there
+is no compiled step: `build_pipeline(depth, spp)` only changes the
+parameters and resets the accumulation.
 """
 
 from __future__ import annotations
@@ -16,10 +20,15 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .._shared import JitterAccumulator, NativeWorld, RenderConfig
+from ..config import RenderConfig
+from ..models.native import NativeWorld
 from ..ops.dense_trace import trace_pixels_dense
+from ..ops.fetch import device_pyramid
+from ..ops.gbuffer import render_gbuffer
 from ..ops.postprocess import postprocess
 from ..ops.trace import accumulate
+from ..utils.halton import JitterAccumulator
+from ..utils.textures import build_quad_pyramid, decode_world_textures
 from .worldtris import build_world_tables
 
 DENSE_MAX_TRIS = 16384  # the JAX package's dense-backend limit (ops/api.py)
@@ -51,10 +60,11 @@ class Renderer:
         if 0 < config.anim_index < self.world.animation_count():
             self.world.set_animation(config.anim_index)
             self.world.update(0.0)
-        if self.world.texture_count() > 0:
-            raise NotImplementedError(
-                "textured scenes are not ported yet: the shade kernel covers "
-                "the 1x1 white texel only")
+        # Textures never change across scene ticks: decode and pack them
+        # once and keep the device pyramid. None is the white placeholder.
+        decoded = decode_world_textures(self.world)
+        self.textures = (None if decoded is None else device_pyramid(
+            build_quad_pyramid(decoded), self.device))
         self.reupload_scene(reset=False)
         if self.tables.valid_count > DENSE_MAX_TRIS:
             raise NotImplementedError(
@@ -104,20 +114,33 @@ class Renderer:
 
     # -- per-frame ---------------------------------------------------------
 
-    def render_frame(self):
+    def render_frame(self, use_gbuffer: bool = False):
         """Trace one progressive frame into the accumulator.
 
+        use_gbuffer=True renders the primary-visibility G-buffer first and
+        seeds every sample's bounce 0 from its id channel instead of
+        tracing primaries; at lens radius 0 the radiance is bit-identical.
+
         Sets self.last_rays (float64 device scalar, unread until needed) to
-        the exact ray count of this frame, and adds this frame's kernel
-        launches to self.launches."""
+        the exact ray count of this frame, the G-buffer's own W*H primary
+        rays included, and adds this frame's kernel launches to
+        self.launches."""
         self.frame_count += 1
         jitter, avg = self._jitter_acc.step(self.frame_count)
         self._avg_jitter = torch.from_numpy(avg).to(self.device)
+        jitter = torch.from_numpy(jitter).to(self.device)
         before = dict(kernels.launches)
-        col, self.last_rays = trace_pixels_dense(
-            self.tables, self.camera, self.frame_count,
-            torch.from_numpy(jitter).to(self.device), self.width,
-            self.height, self.spp, self.max_depth, with_stats=True)
+        seed, gb_rays = None, 0.0
+        if use_gbuffer:
+            gb = render_gbuffer(self.tables, self.textures, self.camera,
+                                self.width, self.height, jitter=jitter)
+            seed = gb.wt_idx.reshape(-1)
+            gb_rays = float(self.width * self.height)
+        col, rays = trace_pixels_dense(
+            self.tables, self.camera, self.frame_count, jitter, self.width,
+            self.height, self.spp, self.max_depth, with_stats=True,
+            textures=self.textures, seed_wt_idx=seed)
+        self.last_rays = rays + gb_rays
         self.accum = accumulate(self.accum, col, self.frame_count)
         for k, v in kernels.launches.items():
             self.launches[k] += v - before[k]

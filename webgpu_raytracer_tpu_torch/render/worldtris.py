@@ -11,7 +11,14 @@ scene update, then
   SHADE_COLS layout;
 - `light_rows` (Lpad, 40) f32, the shade rows of the emissive triangles
   padded to a multiple of 8;
-- `light_count` and `valid_count` (host ints).
+- `light_count` and `valid_count` (host ints);
+- `tex_slots` and `light_tex` (host bools): which of the four texture
+  slots (base colour, metallic-roughness, normal, emissive) some real
+  triangle binds, and whether some light row that NEE can pick binds a
+  base-colour texture. The samplers skip a slot that is bound nowhere: the
+  JAX package skips it at run time when no lane carries it, and these
+  facts, known when the tables are built, give the same result without
+  a host sync.
 
 The TPU-only operands (the bf16x3 `featk3`/`shadek3` layouts, the tile
 bounding spheres, the packed upload) have no counterpart here: the port's
@@ -24,6 +31,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..ops.fetch import device_pyramid
 
 FEAT_K = 16
 
@@ -45,6 +54,8 @@ class WorldTables(NamedTuple):
     light_rows: torch.Tensor   # (Lpad, SHADE_K) f32
     light_count: int
     valid_count: int
+    tex_slots: tuple = (True, True, True, True)
+    light_tex: bool = True
 
     @property
     def device(self) -> torch.device:
@@ -194,11 +205,28 @@ def tables_from_jax(np_dict: dict, device="cpu") -> WorldTables:
     def dev(name):
         return torch.from_numpy(np.array(np_dict[name], np.float32)).to(device)
 
+    light_count = int(np_dict["light_count"])
+    valid_count = int(np_dict["valid_count"])
+    lo = SHADE_COLS["tex"][0]
+    tex = np.asarray(np_dict["shade_table"])[:valid_count, lo:lo + 4]
+    light_tex = np.asarray(np_dict["light_rows"])[:max(light_count, 1), lo]
     return WorldTables(features=dev("features"),
                        shade_table=dev("shade_table"),
                        light_rows=dev("light_rows"),
-                       light_count=int(np_dict["light_count"]),
-                       valid_count=int(np_dict["valid_count"]))
+                       light_count=light_count,
+                       valid_count=valid_count,
+                       tex_slots=tuple(bool(b) for b in (tex >= 0).any(0)),
+                       light_tex=bool((light_tex >= 0).any()))
+
+
+def textures_from_jax(pyr, device="cpu") -> tuple:
+    """The JAX package's `build_quad_pyramid` output, as numpy -> the
+    port's (level0, level1) TexLevels on `device`.
+
+    level1 is a `TexKron` (its `.flat` holds the quad words) or level 0
+    itself; both packages then sample the same texels."""
+    l0, l1 = pyr
+    return device_pyramid((l0, l1 if l1 is l0 else l1.flat), device)
 
 
 def build_world_tables(world, device) -> WorldTables:
