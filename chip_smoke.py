@@ -15,7 +15,10 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
    the sweep and the shade kernel at cornell 512^2; the row fetch on
    cornell's shade table with the 1080p G-buffer's wt_idx and on the light
    rows with a bounce's light pick; the quad fetch on the textured quad's
-   level-0 table and its mip with the rows of a 1080p bounce. Kernel times
+   level-0 table and its mip with the rows of a 1080p bounce; the
+   job-stream path's cull and narrow-phase kernels on the fused bounce-1
+   sweep of `spheres` 512^2 (524,288 lanes over 2,009 tiles), the narrow
+   phase bit-equal to the sweep kernel walking every tile. Kernel times
    are many launches between one pair of CUDA events;
 2. drives every path of the port with the launch counts set to 0 just
    before it and read just after, and asserts each kernel's exact count:
@@ -31,6 +34,10 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
      frame 1 bit-equal to the traced frame 1;
    - the textured `Renderer` at 512^2 d8, `render_frame(use_gbuffer=True)`
      + `present()` x 8;
+   - `spheres` (257,136 triangles) 512^2 d8 x 4 (`trace_pixels_dense`:
+     1 + 8 culls and job sweeps and 8 shades a frame, no dense sweep),
+     mean within 2% of bench.py's golden, then `Renderer("spheres",
+     512x512, d8)`: `render_frame()` + `present()` x 4;
 3. prints the card's name and power limit, one JSON line of per-kernel
    results, and last `{"ok": true, "device": {...}}`.
 
@@ -52,19 +59,27 @@ import torch
 
 from webgpu_raytracer_tpu_torch import NativeWorld, Renderer, RenderConfig
 from webgpu_raytracer_tpu_torch import kernels
-from webgpu_raytracer_tpu_torch.ops import cuda_dense, cuda_fetch, shade_rows
+from webgpu_raytracer_tpu_torch.ops import (cuda_dense, cuda_fetch, cuda_jobs,
+                                            shade_rows)
+from webgpu_raytracer_tpu_torch.ops.cluster_cull import (CLUSTER_CHUNK,
+                                                         LANE_CHUNK,
+                                                         lane_terms, pair_ok,
+                                                         worklists_plain)
+from webgpu_raytracer_tpu_torch.ops.coherence import coherence_sort
 from webgpu_raytracer_tpu_torch.ops.dense import (T_MAX, closest_plain,
+                                                  jobs_closest_plain,
                                                   ray_stack, rows_plain,
-                                                  shadow_plain)
+                                                  shadow_plain,
+                                                  worklist_mask)
+from webgpu_raytracer_tpu_torch.ops.tune import M_TILE3
 from webgpu_raytracer_tpu_torch.ops.dense_trace import (
-    BASE, EMISSIVE, METAL_ROUGH, NORMAL, intersect_and_shade, texel_rows,
-    trace_pixels_dense)
+    BASE, EMISSIVE, METAL_ROUGH, NORMAL, bounce_inputs, bounce_rays,
+    intersect_and_shade, pinhole_rays, texel_rows, trace_pixels_dense)
 from webgpu_raytracer_tpu_torch.ops.fetch import (device_pyramid,
                                                   fetch_quad_plain,
                                                   fetch_rows_plain)
 from webgpu_raytracer_tpu_torch.ops.gbuffer import render_gbuffer
 from webgpu_raytracer_tpu_torch.ops.rng import init_rng, rand_n
-from webgpu_raytracer_tpu_torch.ops.v3 import V3
 from webgpu_raytracer_tpu_torch.render.worldtris import (SHADE_COLS,
                                                          build_world_tables)
 from webgpu_raytracer_tpu_torch.utils.textures import (build_quad_pyramid,
@@ -72,7 +87,7 @@ from webgpu_raytracer_tpu_torch.utils.textures import (build_quad_pyramid,
 
 # bench.py's golden mean radiance (same estimator) and its 2% gate
 GOLDENS = {"cornell_512": 0.3040, "cornell_1080p": 0.1766,
-           "textured_1080p": 0.2739}
+           "textured_1080p": 0.2739, "spheres_512": 0.0424}
 GOLDEN_TOL = 0.02
 DEPTH = 8
 KERNEL_LAUNCHES = 200  # per timing, between one pair of CUDA events
@@ -87,6 +102,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 SWEEP_OPS = 45   # f32 operations per ray x triangle test (dense_sweep.cu)
 SHADE_OPS = 300  # f32 operations per lane of one bounce (shade_rows.cu)
+CULL_OPS = 25    # f32 operations per lane x cluster test (cluster_cull.cu)
+JOB_PLAIN_GROUPS = 256  # lane groups the plain job sweep is held on
 
 PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
@@ -190,25 +207,12 @@ def textured_quad_glb() -> bytes:
             + struct.pack("<II", len(bin_data), 0x004E4942) + bin_data)
 
 
-def camera_rays(camera: torch.Tensor, width: int, height: int):
-    """Pixel-center pinhole rays (ro, rd) as V3 on the camera's device."""
-    dev = camera.device
-    lane = torch.arange(width * height, device=dev)
-    u = ((lane % width).float() + 0.5) / width
-    v = 1.0 - ((lane // width).float() + 0.5) / height
-    c = camera
-    rd = V3(*(c[4 + k] + u * c[8 + k] + v * c[12 + k] - c[k]
-              for k in range(3)))
-    ro = V3(*(c[k].expand(width * height).contiguous() for k in range(3)))
-    return ro, rd
-
-
 def sweep_inputs(camera, width, height):
     """The fused per-bounce layout at cornell 512^2: R camera rays (every
     4th with t_max 2.0) then R random rays inside the box (every 5th
     inactive, every 3rd with t_max 1.5), as one (8, 2R) numpy stack."""
     R = width * height
-    ro_c, rd_c = camera_rays(camera, width, height)
+    ro_c, rd_c = pinhole_rays(camera, width, height)
     tmax_c = torch.where(torch.arange(R, device=camera.device) % 4 == 0,
                          2.0, T_MAX)
     cam8 = ray_stack(ro_c, rd_c, tmax_c).cpu().numpy()
@@ -299,35 +303,12 @@ def check_sweep(tables, camera, width, height) -> dict:
                 bound_by=b_by, library_ms=None)
 
 
-def bounce_inputs(tables, camera, width, height, depth):
-    """(state, rng, rowT, idx) entering bounce `depth` of frame 1, advanced
-    through the kernels."""
-    dev = tables.device
-    R = width * height
-    ro, rd = camera_rays(camera, width, height)
-    rng = init_rng(torch.arange(R, device=dev), 1)
-    _, idx, rowT = cuda_dense.closest_with_row(tables,
-                                               ray_stack(ro, rd, T_MAX))
-    one = torch.ones(R, device=dev)
-    zero = torch.zeros(R, device=dev)
-    state = torch.stack([one, *ro, *rd, one, one, one, zero, zero, zero,
-                         zero, one, zero, zero, zero, zero, one])
-    for d in range(depth):
-        out, rng, rays8 = shade_rows.shade(state, rng, rowT, idx,
-                                           tables.light_rows, d,
-                                           tables.light_count, DEPTH)
-        _, idx2, rowT = cuda_dense.closest_with_row(tables, rays8, R)
-        state = torch.cat([out[:19], (idx2[:R] >= 0).float()[None]])
-        idx = idx2[R:]
-    return state, rng, rowT, idx
-
-
 def check_shade(tables, camera, width, height) -> dict:
     """Kernel 2 against shade_step + next_rays on real cornell bounces."""
     worst = 0.0
     for depth in (0, 4):
         state, rng, rowT, idx = bounce_inputs(tables, camera, width, height,
-                                              depth)
+                                              depth, DEPTH)
         args = (state, rng, rowT, idx, tables.light_rows, depth,
                 tables.light_count, DEPTH)
         out_k, rng_k, rays_k = shade_rows.shade(*args)
@@ -371,6 +352,132 @@ def check_shade(tables, camera, width, height) -> dict:
                 replaces="webgpu_raytracer_tpu/ops/shade_rows.py:264",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
+
+
+def check_jobs(tables, camera, width, height) -> list[dict]:
+    """The job-stream path's kernels on the fused sweep of bounce 1 (2R
+    lanes): the cull against its plain version, the narrow phase bit-equal
+    to the sweep kernel walking every tile and to its plain version on the
+    first JOB_PLAIN_GROUPS groups. Times the coherence sort too."""
+    R = width * height
+    g = M_TILE3
+    spheres = tables.spheres
+    ct = spheres.shape[0]
+    rays8 = bounce_rays(tables, camera, width, height, 1, DEPTH)
+    rays_s, perm = coherence_sort(rays8, spheres, g, R)
+    order, counts = cuda_jobs.worklists(spheres, rays_s, g)
+    order_p, counts_p = worklists_plain(spheres, rays_s, g)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, counts_p), "worklist counts differ"
+    pos = torch.arange(ct, device=order.device)[None, :] < counts[:, None]
+    assert torch.equal(torch.where(pos, order, -1),
+                       torch.where(pos, order_p, -1)), "worklists differ"
+    live = int((rays_s[6] > 0).sum())
+    n_pairs = int(counts.sum())
+    G = counts.shape[0]
+    busy = counts > 0
+    print(f"cull: {2 * R} lanes ({live} live) x {ct} clusters, {G} groups "
+          f"of {g}; worklists equal to the plain cull; length mean "
+          f"{n_pairs / G:.2f} (over non-empty groups "
+          f"{n_pairs / max(int(busy.sum()), 1):.2f}), max "
+          f"{int(counts.max())}; {n_pairs} (group, cluster) jobs")
+
+    def jobs(any_hit):
+        return cuda_jobs.job_sweep(tables, rays_s, perm, order, counts, g,
+                                   2 * R, any_hit, R)
+
+    t, idx, rows = jobs(False)
+    occ = jobs(True)
+    t_f, idx_f, rows_f = cuda_dense.full_sweep(tables, rays8, False, R)
+    occ_f = cuda_dense.full_sweep(tables, rays8, True)
+    torch.cuda.synchronize()
+    assert bits_equal(idx, idx_f), "job sweep winners differ"
+    assert bits_equal(t, t_f), "job sweep t differs"
+    assert bits_equal(rows, rows_f), "job sweep rows differ"
+    assert torch.equal(occ, occ_f), "job sweep occlusion differs"
+    hits = float((idx >= 0).float().mean())
+    assert 0.05 < hits < 1.0, f"implausible hit fraction {hits}"
+    L = JOB_PLAIN_GROUPS * g
+    sub = (rays_s[:, :L], order[:JOB_PLAIN_GROUPS],
+           counts[:JOB_PLAIN_GROUPS])
+    t_p, i_p = jobs_closest_plain(tables, *sub, g)
+    lanes = perm[:L].long()
+    keep = lanes < 2 * R
+    assert bits_equal(i_p[keep], idx[lanes[keep]]), "plain job winners"
+    assert bits_equal(t_p[keep], t[lanes[keep]]), "plain job t"
+    print(f"job sweep: t, idx, rows bit-equal to dense_sweep over all {ct} "
+          f"tiles, occlusion equal; hits {hits:.3f}, occluded "
+          f"{float(occ.float().mean()):.3f}; bit-equal to the plain job "
+          f"sweep on the first {JOB_PLAIN_GROUPS} groups")
+
+    sort_ms = device_ms(lambda: coherence_sort(rays8, spheres, g, R),
+                        PLAIN_LAUNCHES)
+    cull_ms = device_ms(lambda: cuda_jobs.worklists(spheres, rays_s, g))
+    cull_plain_ms = device_ms(lambda: worklists_plain(
+        spheres, rays_s[:, :L], g), PLAIN_LAUNCHES)
+    job_ms = device_ms(lambda: jobs(False))
+    job_any_ms = device_ms(lambda: jobs(True))
+    job_plain_ms = device_ms(lambda: jobs_closest_plain(tables, *sub, g), 3)
+    path_ms = device_ms(lambda: cuda_dense.closest_with_row(tables, rays8, R),
+                        20)
+    full_ms = device_ms(lambda: cuda_dense.full_sweep(tables, rays8, False,
+                                                      R), 1)
+    # Bounds from this run's data. The cull reads the rays and the spheres
+    # and writes each group's survivors and count. The job sweep must test
+    # each lane only against the tiles whose sphere its segment, up to the
+    # hit it found, can touch (the kernel's per-lane skip), and read each
+    # tile that some worklist holds once: rays, perm, counts and worklist
+    # entries in; t, idx and the extension lanes' rows out, the hits' shade
+    # rows in.
+    cull_bytes = rays_s.numel() * 4 + ct * 16 + n_pairs * 4 + G * 4
+    cb_ms, cb_by = bound(cull_bytes, live * ct * CULL_OPS)
+    t_s = torch.where(perm < 2 * R, t[perm.long().clamp(max=2 * R - 1)], 0.0)
+    lane_pairs = needed_pairs(spheres, rays_s, t_s)
+    tiles_read = int(worklist_mask(order, counts, ct).any(0).sum())
+    ext_hits = int((idx[R:] >= 0).sum())
+    job_bytes = (2 * R * (32 + 4) + G * 4 + n_pairs * 4
+                 + tiles_read * 25 * 128 * 4 + 2 * R * 8 + R * 40 * 4
+                 + ext_hits * 40 * 4)
+    jb_ms, jb_by = bound(job_bytes, lane_pairs * 128 * SWEEP_OPS)
+    print(f"coherence sort (torch sort + gather, {2 * R} lanes): "
+          f"{sort_ms:.4f} ms")
+    print(f"cull: kernel {cull_ms:.4f} ms, plain {cull_plain_ms:.4f} ms on "
+          f"the first {JOB_PLAIN_GROUPS} groups ({L} lanes), bound "
+          f"{cb_ms:.4f} ms ({cb_by}, {live} live lanes x {ct} x {CULL_OPS} "
+          f"ops, {cull_bytes / 1e6:.1f} MB)")
+    print(f"job sweep closest+rows: kernel {job_ms:.4f} ms (any-hit "
+          f"{job_any_ms:.4f} ms), plain {job_plain_ms:.4f} ms on the first "
+          f"{JOB_PLAIN_GROUPS} groups, bound {jb_ms:.4f} ms ({jb_by}, "
+          f"{lane_pairs} (lane, tile) pairs a lane's segment up to its hit "
+          f"touches x 128 x {SWEEP_OPS} ops, against {n_pairs * g} in the "
+          f"groups' worklists; {tiles_read} tiles read, "
+          f"{job_bytes / 1e6:.1f} MB); whole path (sort + cull + sweep) "
+          f"{path_ms:.4f} ms; dense_sweep over every tile {full_ms:.4f} ms")
+    common = dict(max_abs_err=0.0, library_ms=None)
+    return [dict(name="job_sweep", route="cuda",
+                 source="webgpu_raytracer_tpu_torch/csrc/job_sweep.cu",
+                 replaces="webgpu_raytracer_tpu/ops/pallas_dense.py:991",
+                 ms=job_ms, plain_ms=job_plain_ms, bound_ms=jb_ms,
+                 bound_by=jb_by, **common),
+            dict(name="cluster_cull", route="cuda",
+                 source="webgpu_raytracer_tpu_torch/csrc/cluster_cull.cu",
+                 replaces="webgpu_raytracer_tpu/ops/cluster_cull.py:26",
+                 ms=cull_ms, plain_ms=cull_plain_ms, bound_ms=cb_ms,
+                 bound_by=cb_by, **common)]
+
+
+def needed_pairs(spheres, rays_s, t_end) -> int:
+    """(lane, tile) pairs of a sorted stack whose segment (T_MIN, min(t_clip,
+    t_end)) can touch the tile's sphere (the cull's test, lane by lane)."""
+    dd, t_clip = lane_terms(rays_s, spheres)
+    t_clip = torch.minimum(t_clip, t_end)
+    n = torch.zeros((), dtype=torch.int64, device=rays_s.device)
+    for l0 in range(0, rays_s.shape[1], LANE_CHUNK):
+        lanes = slice(l0, l0 + LANE_CHUNK)
+        for c0 in range(0, spheres.shape[0], CLUSTER_CHUNK):
+            n += pair_ok(rays_s[:, lanes], dd[lanes], t_clip[lanes],
+                         spheres[c0:c0 + CLUSTER_CHUNK]).sum()
+    return int(n)
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -510,11 +617,19 @@ def renderer_frames(r: Renderer, n: int, label: str, per_frame: dict,
           f"{rays / seconds / 1e6:.2f} Mrays/s, image mean {img.mean():.2f}")
 
 
-def rows_launches(seeded: bool) -> dict:
+def sweeps(n: int, multi_tile: bool) -> dict:
+    """n sweeps: a dense sweep each on a single-tile scene, a cull and a job
+    sweep each on a multi-tile one."""
+    return {"dense_sweep": 0 if multi_tile else n,
+            "cluster_cull": n if multi_tile else 0,
+            "job_sweep": n if multi_tile else 0}
+
+
+def rows_launches(seeded: bool, multi_tile: bool = False) -> dict:
     """Per frame of the row-state loop (untextured scenes): traced, one
     primary sweep; seeded, one G-buffer sweep and one seed-row fetch; then
     per bounce one shade and one fused sweep."""
-    return {"dense_sweep": 1 + DEPTH, "shade_rows": DEPTH,
+    return {**sweeps(1 + DEPTH, multi_tile), "shade_rows": DEPTH,
             "fetch_rows": int(seeded), "fetch_quad": 0}
 
 
@@ -529,8 +644,8 @@ def textured_launches(tables, seeded: bool) -> dict:
     s = tables.tex_slots
     per_hit = int(s[BASE]) + int(s[NORMAL])
     per_bounce = int(s[METAL_ROUGH]) + int(s[EMISSIVE]) + int(tables.light_tex)
-    return {"dense_sweep": 1 + DEPTH, "shade_rows": 0,
-            "fetch_rows": DEPTH + int(seeded),
+    return {**sweeps(1 + DEPTH, cuda_dense.multi_tile(tables)),
+            "shade_rows": 0, "fetch_rows": DEPTH + int(seeded),
             "fetch_quad": per_hit * (DEPTH + int(seeded))
             + per_bounce * DEPTH}
 
@@ -550,21 +665,28 @@ def drive(label: str, n_frames: int, per_frame: dict, fn, totals: dict):
 
 def profile_paths(paths) -> None:
     """torch.profiler over 2 frames of each path: device time by kernel and
-    the device's busy share of the profiled wall time. Only the kernels'
+    the device's busy share of the same 2 frames' wall time, taken inside
+    the profiled window (the tracer's start and stop fall outside it; its
+    cost per launch does not, so the share is a floor). Only the kernels'
     own events count (a CPU op's device time repeats its kernels')."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    # The first profile of a process also pays the tracer's start-up:
+    # spend it on a warm-up, outside the measured windows.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        paths[0][1]()
+        torch.cuda.synchronize()
     for label, fn in paths:
         fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             for _ in range(2):
                 fn()
             torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
+            wall_us = 1e6 * (time.perf_counter() - t0)
         events = [(e.key, e.self_device_time_total, e.count)
                   for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
@@ -637,6 +759,16 @@ def main(argv: list[str]) -> int:
           f"lights, texture decoded red/blue, level 0 "
           f"{tuple(tq_tex[0].flat.shape)}, mip {tuple(tq_tex[1].flat.shape)}")
 
+    sp_world = NativeWorld("spheres")
+    sp_world.update_camera(width, height)
+    sp_tables = build_world_tables(sp_world, dev)
+    sp_cam = torch.from_numpy(np.asarray(sp_world.camera(),
+                                         np.float32)).to(dev)
+    assert cuda_dense.multi_tile(sp_tables)
+    print(f"spheres: {sp_tables.valid_count} world tris (padded "
+          f"{sp_tables.shade_table.shape[0]}, {sp_tables.spheres.shape[0]} "
+          f"tiles), {sp_tables.light_count} lights")
+
     # --- phase 2: each kernel against its plain version ---
     results = [check_sweep(tables, camera, width, height),
                check_shade(tables, camera, width, height)]
@@ -656,7 +788,7 @@ def main(argv: list[str]) -> int:
         ("textured quad light rows, bounce-0 light pick",
          tq_tables.light_rows, pick)]))
 
-    ro, rd = camera_rays(tq_cam, *hd)
+    ro, rd = pinhole_rays(tq_cam, *hd)
     hit = intersect_and_shade(tq_tables, tq_tex, ro, rd)
     base = torch.where(hit.wt >= 0,
                        hit.rowT[SHADE_COLS["tex"][0]].to(torch.int32), -1)
@@ -665,6 +797,8 @@ def main(argv: list[str]) -> int:
     results.append(check_fetch_quad([
         ("mip 128^2, 1080p bounce rows", tq_tex[1].flat, rows1),
         ("level 0 1024^2, 1080p bounce rows", tq_tex[0].flat, rows0)]))
+
+    results += check_jobs(sp_tables, sp_cam, width, height)
 
     # --- phase 3: every path, counting launches ---
     totals = {k: 0 for k in kernels.launches}
@@ -708,11 +842,22 @@ def main(argv: list[str]) -> int:
                                   textured_launches(rt.tables, True),
                                   use_gbuffer=True),
           totals)
+    drive("spheres 512^2 traced", 4, rows_launches(False, True),
+          lambda: frames(sp_tables, sp_cam, width, height, 4, "spheres_512"),
+          totals)
+    rs = Renderer("spheres", RenderConfig(width=width, height=height,
+                                          max_depth=DEPTH), device=dev)
+    drive("Renderer spheres 512^2", 4, rows_launches(False, True),
+          lambda: renderer_frames(rs, 4, f"spheres {width}x{height} "
+                                  f"d{DEPTH}", rows_launches(False, True)),
+          totals)
     print(f"launches on the main paths (all of the above): {totals}")
 
     if "--profile" in argv:
         jit0 = torch.zeros(2, device=dev)
         profile_paths([
+            ("spheres 512^2 d8", lambda: trace_pixels_dense(
+                sp_tables, sp_cam, 1, jit0, width, height, 1, DEPTH)),
             ("textured quad 1080p d8", lambda: trace_pixels_dense(
                 tq_tables, tq_cam, 1, jit0, *hd, 1, DEPTH, textures=tq_tex)),
             ("cornell 1080p d8 seeded", lambda: trace_pixels_dense(

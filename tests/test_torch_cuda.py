@@ -5,8 +5,9 @@ is present. On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-`python3 chip_smoke.py` runs the same checks at the full cornell 512^2
-shapes; these use small frames.
+`python3 chip_smoke.py` runs the same checks at the full 512^2 shapes
+(cornell for the single-tile kernels, spheres for the job-stream path);
+these use small frames.
 """
 
 import numpy as np
@@ -17,11 +18,16 @@ import chip_smoke
 
 from webgpu_raytracer_tpu_torch import NativeWorld, Renderer, RenderConfig
 from webgpu_raytracer_tpu_torch import kernels
-from webgpu_raytracer_tpu_torch.ops import cuda_dense, cuda_fetch, shade_rows
+from webgpu_raytracer_tpu_torch.ops import (cuda_dense, cuda_fetch, cuda_jobs,
+                                            shade_rows)
+from webgpu_raytracer_tpu_torch.ops.cluster_cull import worklists_plain
 from webgpu_raytracer_tpu_torch.ops.dense import (T_MAX, closest_plain,
+                                                  jobs_closest_plain,
                                                   ray_stack, rows_plain,
-                                                  shadow_plain)
-from webgpu_raytracer_tpu_torch.ops.dense_trace import trace_pixels_dense
+                                                  shadow_plain, worklist_mask)
+from webgpu_raytracer_tpu_torch.ops.coherence import coherence_sort
+from webgpu_raytracer_tpu_torch.ops.dense_trace import (bounce_rays,
+                                                        trace_pixels_dense)
 from webgpu_raytracer_tpu_torch.ops.fetch import (fetch_quad_plain,
                                                   fetch_rows_plain)
 from webgpu_raytracer_tpu_torch.ops.rng import init_rng
@@ -59,10 +65,13 @@ def test_sweep_kernel_matches_plain(cuda, scene):
     R = RES * RES
     tmax = torch.where(torch.arange(R, device=cuda) % 3 == 0, 0.0, T_MAX)
     rays8 = ray_stack(ro, rd, tmax)
-    before = kernels.launches["dense_sweep"]
+    # mixed has 35 tiles: its sweeps take the job-stream path.
+    kernel = "job_sweep" if cuda_dense.multi_tile(tables) else "dense_sweep"
+    assert kernel == ("job_sweep" if scene == "mixed" else "dense_sweep")
+    before = kernels.launches[kernel]
     t, idx, rows = cuda_dense.closest_with_row(tables, rays8, R // 2)
     occ = cuda_dense.shadow(tables, rays8)
-    assert kernels.launches["dense_sweep"] == before + 2
+    assert kernels.launches[kernel] == before + 2
     t_p, idx_p = closest_plain(tables, rays8)
     assert torch.equal(idx, idx_p) and torch.equal(t, t_p)
     assert torch.equal(rows, rows_plain(tables.shade_table, idx_p[R // 2:]))
@@ -139,7 +148,8 @@ def test_renderer_on_card_counts_launches(cuda):
         img = r.present()
     assert img.shape == (RES, RES, 3) and np.isfinite(r.radiance()).all()
     assert r.launches == {"dense_sweep": 2 * 6, "shade_rows": 2 * 5,
-                          "fetch_rows": 0, "fetch_quad": 0}
+                          "fetch_rows": 0, "fetch_quad": 0,
+                          "cluster_cull": 0, "job_sweep": 0}
 
 
 @pytest.mark.parametrize("n,k", [(1, 40), (40, 40), (1408, 40), (300, 3)])
@@ -204,4 +214,92 @@ def test_textured_renderer_on_card_counts_launches(cuda):
         img = r.present()
     assert img.shape == (RES, RES, 3) and np.isfinite(r.radiance()).all()
     assert r.launches == {"dense_sweep": 2 * 6, "shade_rows": 0,
-                          "fetch_rows": 2 * 6, "fetch_quad": 2 * 6}
+                          "fetch_rows": 2 * 6, "fetch_quad": 2 * 6,
+                          "cluster_cull": 0, "job_sweep": 0}
+
+
+# --- the job-stream path (multi-tile scenes) ---------------------------------
+
+
+@pytest.fixture(scope="module")
+def bounce_stacks():
+    """name -> (tables, the fused (8, 2R) ray stack of bounce 1 at RES^2,
+    R), advanced through the kernels: mixed (35 tiles) and spheres (2,009
+    tiles)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    out = {}
+    for name in ("mixed", "spheres"):
+        world = NativeWorld(name)
+        world.update_camera(RES, RES)
+        tables = build_world_tables(world, "cuda")
+        cam = torch.from_numpy(np.asarray(world.camera(), np.float32)).cuda()
+        out[name] = (tables, bounce_rays(tables, cam, RES, RES, 1, 8),
+                     RES * RES)
+    return out
+
+
+def _sort_and_cull(tables, rays8, R, g=128):
+    """The fused sweep's sort (segments split at R) and the cull kernel."""
+    rays_s, perm = coherence_sort(rays8, tables.spheres, g, R)
+    order, counts = cuda_jobs.worklists(tables.spheres, rays_s, g)
+    return rays_s, perm, order, counts
+
+
+@pytest.mark.parametrize("scene", ["mixed", "spheres"])
+def test_cull_kernel_matches_plain(cuda, bounce_stacks, scene):
+    tables, rays8, R = bounce_stacks[scene]
+    g = 128
+    rays_s, perm, order, counts = _sort_and_cull(tables, rays8, R)
+    assert kernels.launches["cluster_cull"] > 0
+    order_p, counts_p = worklists_plain(tables.spheres, rays_s, g)
+    assert torch.equal(counts, counts_p)
+    ct = tables.spheres.shape[0]
+    assert torch.equal(worklist_mask(order, counts, ct),
+                       worklist_mask(order_p, counts_p, ct))
+    pos = torch.arange(ct, device=cuda)[None, :] < counts[:, None]
+    assert torch.equal(torch.where(pos, order, -1),
+                       torch.where(pos, order_p, -1))  # ascending ids
+    assert 0 < int(counts.max()) < ct
+
+
+@pytest.mark.parametrize("scene", ["mixed", "spheres"])
+def test_job_kernel_bit_equal_to_full_sweep(cuda, bounce_stacks, scene):
+    """t, idx and rows bit-equal to dense_sweep.cu walking every tile;
+    occlusion equal to its any-hit mode; also against the plain job
+    sweep."""
+    tables, rays8, R = bounce_stacks[scene]
+    before = dict(kernels.launches)
+    t, idx, rows = cuda_dense.closest_with_row(tables, rays8, R)
+    occ = cuda_dense.shadow(tables, rays8)
+    assert kernels.launches["job_sweep"] == before["job_sweep"] + 2
+    assert kernels.launches["cluster_cull"] == before["cluster_cull"] + 2
+    assert kernels.launches["dense_sweep"] == before["dense_sweep"]
+    t_f, idx_f, rows_f = cuda_dense.full_sweep(tables, rays8, False, R)
+    occ_f = cuda_dense.full_sweep(tables, rays8, True)
+    assert torch.equal(idx, idx_f)
+    assert torch.equal(t.view(torch.int32), t_f.view(torch.int32))
+    assert torch.equal(rows.view(torch.int32), rows_f.view(torch.int32))
+    assert torch.equal(occ, occ_f)
+    hits = float((idx >= 0).float().mean())
+    assert 0.05 < hits < 1.0, hits
+
+    rays_s, perm, order, counts = _sort_and_cull(tables, rays8, R)
+    t_s, i_s = jobs_closest_plain(tables, rays_s, order, counts, 128)
+    keep = perm.long() < 2 * R
+    assert torch.equal(i_s[keep], idx[perm.long()[keep]])
+    assert torch.equal(t_s[keep], t[perm.long()[keep]])
+
+
+def test_renderer_spheres_on_card_counts_launches(cuda):
+    """spheres (257k tris) through the job path: per frame of depth 3, one
+    primary and three fused sweeps, each a cull and a job sweep."""
+    r = Renderer("spheres", RenderConfig(width=RES, height=RES, max_depth=3),
+                 device="cuda")
+    for _ in range(2):
+        r.render_frame()
+        img = r.present()
+    assert img.shape == (RES, RES, 3) and np.isfinite(r.radiance()).all()
+    assert r.launches == {"dense_sweep": 0, "cluster_cull": 2 * 4,
+                          "job_sweep": 2 * 4, "shade_rows": 2 * 3,
+                          "fetch_rows": 0, "fetch_quad": 0}

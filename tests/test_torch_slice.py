@@ -11,15 +11,20 @@
   through the port's `ray_color_dense`, each package with its own decode;
   G-buffer-seeded cornell at 32^2 d4, each seeded from its own G-buffer.
   The textured quad's mean at 64^2 d8 over 4 frames within 2% of JAX's.
+  And on the third slice's: `spheres` (257,136 tris over 2,009 tiles) at
+  16^2 d3, frames 1..2.
 - goldens: the port's mean radiance of every untextured preset within
-  tests/test_golden.py's bounds (cornell 0.2597 +- 0.03, ...); the
-  multi-tile presets run the sweep over many 128-tri tiles.
+  tests/test_golden.py's bounds (cornell 0.2597 +- 0.03, ..., spheres
+  0.0382 +- 0.006). Every multi-tile scene (the character GLB, viewer,
+  mixed, special, mesh, spheres) sweeps through the job-stream path's
+  plain versions: coherence sort, exact cull, per-group worklists.
 - present: the port's `postprocess` on the same accum/history: HDR history
   allclose at rtol 1e-5, LDR within 1 code and equal on >= 99%.
-- Renderer: CPU frames are finite; "cuda" raises without a card; a
-  textured scene renders and presents, and `render_frame(use_gbuffer=True)`
-  gives the traced frame while counting the G-buffer's W*H rays in place of
-  the primaries; a scene over 16384 world tris raises NotImplementedError.
+- Renderer: CPU frames are finite, for cornell and for mixed through the
+  job-stream path; "cuda" raises without a card; a textured scene renders
+  and presents, and `render_frame(use_gbuffer=True)` gives the traced
+  frame while counting the G-buffer's W*H rays in place of the primaries;
+  on the CPU a scene over 16384 world tris raises NotImplementedError.
 - the package imports no JAX and loads no file of the JAX package: a fresh
   process renders a CPU frame, and its scene compiler is the port's own
   build.
@@ -67,6 +72,9 @@ SLICE2 = {"textured": ("viewer", textured_quad_glb, 32, 4, False),
           "character": ("viewer", character_glb, 16, 3, False),
           "cornell_seeded": ("cornell", None, 32, 4, True)}
 SLICE2_FRAMES = 4
+# The third slice's: multi-tile scenes through the job-stream path.
+SLICE3 = {"spheres": ("spheres", None, 16, 3, False)}
+SLICE3_FRAMES = 2
 _jax_trace = jax.jit(jax_trace, static_argnames=(
     "width", "height", "spp", "max_depth", "with_stats"))
 
@@ -120,7 +128,7 @@ def _both_textures(world):
 
 def _slice2_frames(case, frames, res=None, depth=None):
     """Per frame: (JAX col, JAX rays, port col, port rays)."""
-    scene_name, glb, res0, depth0, seeded = SLICE2[case]
+    scene_name, glb, res0, depth0, seeded = {**SLICE2, **SLICE3}[case]
     res, depth = res or res0, depth or depth0
     world, wt, tables = jax_and_port_tables(scene_name, res,
                                             glb() if glb else None)
@@ -165,6 +173,24 @@ def test_slice2_trace_matches_jax(slice2_frames, frame):
     assert abs(rays_a - rays_b) <= 0.02 * rays_a, case
 
 
+@pytest.fixture(scope="module")
+def spheres_frames():
+    return _slice2_frames("spheres", SLICE3_FRAMES)
+
+
+@pytest.mark.parametrize("frame", range(1, SLICE3_FRAMES + 1))
+def test_spheres_trace_matches_jax(spheres_frames, frame):
+    """spheres 16^2 d3 through the job-stream path: the cornell
+    tolerance."""
+    a, rays_a, b, rays_b = spheres_frames[frame - 1]
+    assert b.shape == a.shape and np.isfinite(b).all()
+    rel = np.abs(a - b).max(1) / np.maximum(np.abs(a).max(1), 1e-3)
+    frac = (rel < 1e-3).mean()
+    assert frac >= 0.95, f"{frac:.3%} lanes match"
+    assert abs(a.mean() - b.mean()) < 0.02 * max(a.mean(), 1e-3)
+    assert abs(rays_a - rays_b) <= 0.02 * rays_a
+
+
 def test_textured_mean_64_d8_matches_jax():
     """bench.py's textured config at 64^2 (its 1080p golden 0.2739 belongs
     to the 16:9 frame): 4 frames, means within 2%."""
@@ -176,7 +202,7 @@ def test_textured_mean_64_d8_matches_jax():
 
 
 @pytest.mark.parametrize("case", ["cornell", "viewer", "mixed", "special",
-                                  "mesh"])
+                                  "mesh", "spheres"])
 def test_golden_mean_radiance(case):
     scene_name, depth, frames, res, _, _, expected, tol = GOLDEN[case]
     world = NativeWorld(scene_name)
@@ -241,6 +267,20 @@ def test_renderer_cpu_frames_and_present():
     assert np.isfinite(r.radiance()).all()
 
 
+def test_renderer_multi_tile_cpu_frames():
+    """mixed (35 tiles) renders finite frames through the job-stream
+    path's plain versions."""
+    r = Renderer("mixed", RenderConfig(width=32, height=32, max_depth=4),
+                 device="cpu")
+    assert r.tables.spheres.shape == (35, 4)
+    for _ in range(2):
+        r.render_frame()
+        img = r.present()
+    assert img.shape == (32, 32, 3) and 0 < img.mean() < 255
+    assert np.isfinite(r.radiance()).all()
+    assert r.launches == {k: 0 for k in kernels.launches}  # plain on CPU
+
+
 def test_renderer_cuda_raises_without_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -288,8 +328,9 @@ def test_renderer_textured_frames_and_gbuffer_seeding():
 
 
 def test_renderer_large_scene_not_ported():
-    """Over the dense limit (spheres: ~257k world tris) the JAX package
-    takes its BVH path, which the port does not have yet."""
+    """On the CPU, over the dense limit (spheres: ~257k world tris) the JAX
+    package takes its BVH path, which the port does not have yet. (On
+    CUDA the port's dense path takes spheres: tests/test_torch_cuda.py.)"""
     with pytest.raises(NotImplementedError, match="16384"):
         Renderer("spheres", RenderConfig(width=8, height=8), device="cpu")
 

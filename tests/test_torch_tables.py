@@ -13,12 +13,14 @@ from webgpu_raytracer_tpu.render.worldtris import (SHADE_COLS,
                                                    build_world_tris)
 from webgpu_raytracer_tpu_torch.render import worldtris as port_wt
 
-from tests.glb_fixture import textured_quad_glb
+from tests.glb_fixture import character_glb, textured_quad_glb
 
 SCENES = {
     "cornell": ("cornell", None),
     "mixed": ("mixed", None),
     "textured_quad": ("viewer", textured_quad_glb),
+    "character": ("viewer", character_glb),
+    "spheres": ("spheres", None),
 }
 KEYS = ("features", "shade_table", "light_rows", "light_count",
         "valid_count")
@@ -31,7 +33,7 @@ def _world(case):
     return world
 
 
-@pytest.mark.parametrize("case", sorted(SCENES))
+@pytest.mark.parametrize("case", ["cornell", "mixed", "textured_quad"])
 def test_tables_bit_equal_to_jax_builder(case):
     world = _world(case)
     ref = build_world_tris(world)
@@ -56,6 +58,25 @@ def test_tables_from_jax_round_trip(case):
                                       np_dict[key], err_msg=key)
     assert carried.light_count == built.light_count == int(ref.light_count)
     assert carried.valid_count == built.valid_count == int(ref.valid_count)
+
+
+@pytest.mark.parametrize("case", ["cornell", "mixed", "character",
+                                  "spheres"])
+def test_tile_spheres_bit_equal_to_jax(case):
+    """The cull's tile spheres: the port's rule against JAX
+    `build_world_tris(...).spheres[:, 0, :4]`, also as carried across."""
+    world = _world(case)
+    ref = build_world_tris(world)
+    want = np.asarray(ref.spheres)[:, 0, :4]
+    got = port_wt.world_tables_np(world)["spheres"]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    carried = port_wt.tables_from_jax(
+        {k: np.asarray(v) for k, v in ref._asdict().items()})
+    np.testing.assert_array_equal(carried.spheres.numpy(), want)
+    n_tiles = want.shape[0]
+    assert (n_tiles > 1) == (case != "cornell")
+    assert (want[:, 3] >= 0).all()  # no all-padding tile in these scenes
 
 
 def test_shade_cols_match():

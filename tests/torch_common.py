@@ -9,7 +9,11 @@ import torch
 
 from webgpu_raytracer_tpu.models.native import NativeWorld
 from webgpu_raytracer_tpu.render.worldtris import build_world_tris
-from webgpu_raytracer_tpu_torch.render.worldtris import tables_from_jax
+from webgpu_raytracer_tpu_torch.ops.dense_trace import bounce_rays
+from webgpu_raytracer_tpu_torch.render.worldtris import (build_world_tables,
+                                                         tables_from_jax)
+
+from tests.test_two_level import _rays
 
 # The suite runs in several pytest-xdist workers, each of which imports
 # this module while collecting. ATen's OpenMP pool (a thread per core in
@@ -129,3 +133,50 @@ def png_bytes(px, color_type, filters=(0,), palette=None, depth=8,
         out += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
     return out + chunk(b"IDAT", zlib.compress(bytes(raw))) \
         + chunk(b"IEND", b"")
+
+
+def np_rays(ro, rd, act, tmax):
+    """JAX-fixture rays as numpy: (ro (3, R), rd (3, R), t_max (R,) with 0
+    on inactive lanes)."""
+    ro = np.stack([np.asarray(c, np.float32) for c in ro])
+    rd = np.stack([np.asarray(c, np.float32) for c in rd])
+    t = np.where(np.asarray(act), np.asarray(tmax, np.float32), 0.0)
+    return ro, rd, t.astype(np.float32)
+
+
+def stack8(ro, rd, t_max):
+    """The (8, R) ray stack [d, o, t_max, 0] of (3, R) arrays, on the CPU."""
+    return torch.from_numpy(np.concatenate(
+        [rd, ro, t_max[None], np.zeros((1, t_max.size), np.float32)]))
+
+
+def bounce_case(name, res=16):
+    """(port tables on the CPU, ro (3, 2R), rd, t_max, R): the fused ray
+    stack of bounce 1 at res^2 (R NEE shadow lanes, then R extension
+    lanes), advanced through the port's plain path."""
+    world = NativeWorld(name)
+    world.update_camera(res, res)
+    tables = build_world_tables(world, "cpu")
+    cam = torch.from_numpy(np.asarray(world.camera(), np.float32))
+    rays8 = bounce_rays(tables, cam, res, res, 1, 8).numpy()
+    return tables, rays8[3:6], rays8[0:3], rays8[6], res * res
+
+
+def job_cases(grid_wt, ladder_world, drain_world):
+    """The job-stream path's fixtures: name -> (port tables, ro (3, R),
+    rd (3, R), t_max (R,), split lane). tests/test_two_level.py's grid
+    (random rays), ladder and drain worlds, and the bounce-1 stacks of
+    mixed (35 tiles) and spheres (2,009 tiles) at 16^2."""
+    def port(wt):
+        return tables_from_jax({k: np.asarray(v)
+                                for k, v in wt._asdict().items()})
+
+    ro, rd, act, tmax = _rays(2000)
+    out = {"grid": (port(grid_wt), *np_rays(ro, rd, act, tmax), 1000)}
+    wt, ro, rd, act, tmax = ladder_world
+    out["ladder"] = (port(wt), *np_rays(ro, rd, act, tmax), 384)
+    wt, ro, rd, act, tmax = drain_world
+    out["drain"] = (port(wt), *np_rays(ro, rd, act, tmax), 1280)
+    for name in ("mixed", "spheres"):
+        out[name] = bounce_case(name)
+    return out

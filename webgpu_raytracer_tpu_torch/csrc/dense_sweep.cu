@@ -17,14 +17,9 @@
 //                        per lane so the writes coalesce; zeros on a miss
 //   out_occ  (n,) u8     any-hit mode only
 //
-// Arithmetic: s_k = f . [d, o x d], tn = f . [o, 1], td = f . d with td the
-// table's fifth group (the CPU reference's choice, ops/dense.py), each dot
-// product summed left to right with separately rounded f32 operations
-// (__fmul_rn / __fadd_rn block FMA contraction). The plain PyTorch version
-// (webgpu_raytracer_tpu_torch/ops/dense.py) evaluates the same expression,
-// so the two agree bit for bit. Inside test inclusive, |td| >= 1e-6,
-// strict t_min < t < t_max; closest mode commits on strict < in ascending
-// index order, so the lowest index wins exact ties.
+// Arithmetic: tri_tile.cuh, shared with job_sweep.cu (the multi-tile
+// path), so both kernels and the plain PyTorch version
+// (webgpu_raytracer_tpu_torch/ops/dense.py) agree bit for bit.
 //
 // What bounds it on an H100. By bytes, the fused per-bounce call at
 // cornell 512^2 (524,288 lanes x 40 triangles) moves ~63 MB: 17 MB of rays
@@ -40,42 +35,20 @@
 // lane-minor so a warp stores 128 contiguous bytes per row. Blocks whose
 // lanes are all inactive, or all already occluded in any-hit mode, stop
 // walking tiles. Fusing the multiply-adds (and giving up bit-equality with
-// the plain version) or culling tiles by bounding sphere would cut issue.
+// the plain version) would cut issue. Multi-tile scenes do not come here:
+// they take the job-stream path (job_sweep.cu behind a cluster cull), and
+// this kernel's walk over every tile serves single-tile scenes and
+// chip_smoke.py's cross-check of that path.
 
 #include <cuda_runtime.h>
 
+#include "tri_tile.cuh"
+
 namespace {
 
-constexpr int kTile = 128;     // triangles staged per shared-memory tile
+using namespace wrt;
+
 constexpr int kThreads = 256;  // rays per block
-constexpr int kFeat = 25;      // staged floats per triangle
-constexpr int kShadeK = 40;
-
-// Staged row q -> (feature row, column group) of the features table:
-// q 0-17: rows 0-5 of groups s0, s1, s2; q 18-21: rows 6-9 of tn;
-// q 22-24: rows 0-2 of td.
-__device__ __forceinline__ int feat_offset(int q, int tw) {
-  int row, group;
-  if (q < 18) {
-    row = q % 6;
-    group = q / 6;
-  } else if (q < 22) {
-    row = 6 + (q - 18);
-    group = 3;
-  } else {
-    row = q - 22;
-    group = 4;
-  }
-  return row * 5 * tw + group * tw;
-}
-
-__device__ __forceinline__ float mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-
-__device__ __forceinline__ float add(float a, float b) {
-  return __fadd_rn(a, b);
-}
 
 __global__ void __launch_bounds__(kThreads)
 dense_sweep_kernel(const float* __restrict__ features, int tw, int valid,
@@ -92,12 +65,8 @@ dense_sweep_kernel(const float* __restrict__ features, int tw, int valid,
   if (in_range) {
     for (int k = 0; k < 7; ++k) r[k] = rays8[(size_t)k * n + lane];
   }
-  const float dx = r[0], dy = r[1], dz = r[2];
-  const float ox = r[3], oy = r[4], oz = r[5], t_max = r[6];
-  const float mx = __fsub_rn(mul(oy, dz), mul(oz, dy));
-  const float my = __fsub_rn(mul(oz, dx), mul(ox, dz));
-  const float mz = __fsub_rn(mul(ox, dy), mul(oy, dx));
-
+  const Ray ray = make_ray(r);
+  const float t_max = r[6];
   float best_t = t_max;
   int best_i = -1;
   bool occ = false;
@@ -108,43 +77,11 @@ dense_sweep_kernel(const float* __restrict__ features, int tw, int valid,
     // Also the barrier that retires the previous tile's shared reads.
     if (!__syncthreads_or(want)) break;
     const int cnt = min(kTile, valid - base);
-    for (int e = threadIdx.x; e < kFeat * kTile; e += blockDim.x) {
-      const int q = e / kTile, j = e % kTile;
-      if (j < cnt) tri[q][j] = features[feat_offset(q, tw) + base + j];
-    }
+    stage_tile(tri, features, tw, base, cnt);
     __syncthreads();
     if (!want) continue;
-    for (int j = 0; j < cnt; ++j) {
-      float s[3];
-      for (int g = 0; g < 3; ++g) {
-        const int q = 6 * g;
-        s[g] = add(add(add(add(add(mul(dx, tri[q][j]), mul(dy, tri[q + 1][j])),
-                                   mul(dz, tri[q + 2][j])),
-                               mul(mx, tri[q + 3][j])),
-                           mul(my, tri[q + 4][j])),
-                   mul(mz, tri[q + 5][j]));
-      }
-      const float td = add(add(mul(dx, tri[22][j]), mul(dy, tri[23][j])),
-                           mul(dz, tri[24][j]));
-      const bool inside =
-          fminf(fminf(s[0], s[1]), s[2]) >= 0.f ||
-          fmaxf(fmaxf(s[0], s[1]), s[2]) <= 0.f;
-      if (!inside || !(fabsf(td) >= 1e-6f)) continue;
-      const float tn = add(add(add(mul(ox, tri[18][j]), mul(oy, tri[19][j])),
-                               mul(oz, tri[20][j])),
-                           tri[21][j]);
-      const float t = __fdiv_rn(tn, td);
-      if (!(t > t_min)) continue;
-      if (any_hit) {
-        if (t < t_max) {
-          occ = true;
-          break;
-        }
-      } else if (t < best_t) {
-        best_t = t;
-        best_i = base + j;
-      }
-    }
+    walk_tile(tri, cnt, base, ray, t_min, t_max, any_hit, best_t, best_i,
+              occ);
   }
 
   if (!in_range) return;
@@ -155,12 +92,8 @@ dense_sweep_kernel(const float* __restrict__ features, int tw, int valid,
   out_t[lane] = best_t;
   out_idx[lane] = best_i;
   if (out_rows != nullptr && lane >= row_from) {
-    const size_t rn = (size_t)(n - row_from);
-    const size_t c = (size_t)(lane - row_from);
-    const float* src = shade + (size_t)(best_i < 0 ? 0 : best_i) * kShadeK;
-    for (int k = 0; k < kShadeK; ++k) {
-      out_rows[k * rn + c] = best_i >= 0 ? src[k] : 0.f;
-    }
+    write_row(shade, best_i, out_rows, (size_t)(n - row_from),
+              (size_t)(lane - row_from));
   }
 }
 

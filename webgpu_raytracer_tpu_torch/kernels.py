@@ -3,8 +3,9 @@
 The sources in `csrc/*.cu` have a plain C interface. At first CUDA use,
 `library()` compiles them with nvcc, one process per source, all started
 together, and links the objects into one shared library under `build/`
-(listed in `.gitignore`), named by a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one is loaded as it is. The library
+(listed in `.gitignore`), named by a hash of the sources, the shared
+`csrc/*.cuh` headers and the flags, so an edited source or header
+rebuilds and an unchanged one is loaded as it is. The library
 is loaded with ctypes: every pointer and the stream go as `c_void_p`, and
 every C entry point returns `cudaGetLastError()` after its launch.
 
@@ -34,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Launch counts by kernel. A wrapper adds one where it launches its kernel
 # and nowhere else, so a run can show that its path went through it.
 launches = {"dense_sweep": 0, "shade_rows": 0, "fetch_rows": 0,
-            "fetch_quad": 0}
+            "fetch_quad": 0, "cluster_cull": 0, "job_sweep": 0}
 
 
 def reset_launches() -> None:
@@ -118,6 +119,12 @@ def library() -> ctypes.CDLL:
     lib.wrt_fetch_rows_t.argtypes = [_P, _I, _I, _P, _I, _P, _P]
     lib.wrt_fetch_quad.restype = _I
     lib.wrt_fetch_quad.argtypes = [_P, _I, _P, _I, _P, _P]
+    lib.wrt_cluster_cull.restype = _I
+    lib.wrt_cluster_cull.argtypes = [_P, _I, _P, _I, _I, _F, _F, _P, _P, _P]
+    lib.wrt_job_sweep.restype = _I
+    lib.wrt_job_sweep.argtypes = [_P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P,
+                                  _P, _I, _F, _F, _F, _I, _I, _P, _P, _P, _P,
+                                  _P]
     return lib
 
 

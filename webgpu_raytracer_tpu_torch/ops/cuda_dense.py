@@ -1,15 +1,20 @@
-"""The dense sweep's wrappers: the CUDA kernel on the card, the plain
-version on the CPU.
+"""The sweep's entry points: closest hit with winner rows, and any-hit
+occlusion, dispatched by tile count as the JAX package's `_run` does.
 
-Kernel: `csrc/dense_sweep.cu`, which replaces the JAX package's
-`ops/pallas_dense.py::_kernel` (the single-tile sweep launched by `_run`).
-It loops over 128-triangle tiles, so it serves any triangle count. Its
-source says what bounds it on the card (instruction issue, as measured)
-and what the design does about that.
+- A scene whose padded triangle count is at most 128 (one tile) takes
+  `csrc/dense_sweep.cu`, which replaces the JAX package's
+  `ops/pallas_dense.py::_kernel` (the single-tile sweep launched by
+  `_run`). Its source says what bounds it on the card (instruction issue,
+  as measured) and what the design does about that.
+- Every multi-tile scene takes the job-stream path (`ops/cuda_jobs.py`):
+  coherence sort, exact cluster cull, `csrc/job_sweep.cu`, with outputs in
+  the caller's lane order. The rule is the same on both devices.
 
-A wrapper takes the plain version (`ops/dense.py`) only for tensors on the
-CPU. For CUDA tensors it launches the kernel or raises: there is no
-fallback.
+A wrapper takes the plain versions (`ops/dense.py`, and the job path's)
+only for tensors on the CPU. For CUDA tensors it launches the kernels or
+raises: there is no fallback. `full_sweep` walks every tile with
+`dense_sweep.cu` whatever the tile count: `chip_smoke.py` holds the job
+path against it.
 """
 
 from __future__ import annotations
@@ -17,8 +22,14 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .dense import T_MIN, closest_plain, rows_plain, shadow_plain
+from . import cuda_jobs
+from .dense import TRI_CHUNK, T_MIN, closest_plain, rows_plain, shadow_plain
 from ..render.worldtris import FEAT_K, SHADE_K, WorldTables
+
+
+def multi_tile(tables: WorldTables) -> bool:
+    """More than one 128-triangle tile: the job-stream path's scenes."""
+    return tables.features.shape[-1] // 5 > TRI_CHUNK
 
 
 def _check_tables(tables: WorldTables, device) -> int:
@@ -65,6 +76,18 @@ def _launch(tables: WorldTables, rays8: torch.Tensor, any_hit: bool,
     return occ if any_hit else (t, idx, rows)
 
 
+def full_sweep(tables: WorldTables, rays8: torch.Tensor, any_hit: bool,
+               row_from_lane: int = 0):
+    """Every tile, in one sweep: `dense_sweep.cu` on the card, the plain
+    version on the CPU. Occlusion when any_hit, else (t, idx, rows)."""
+    if rays8.device.type == "cpu":
+        if any_hit:
+            return shadow_plain(tables, rays8)
+        t, idx = closest_plain(tables, rays8)
+        return t, idx, rows_plain(tables.shade_table, idx[row_from_lane:])
+    return _launch(tables, rays8, any_hit, row_from_lane)
+
+
 def closest_with_row(tables: WorldTables, rays8: torch.Tensor,
                      row_from_lane: int = 0):
     """Closest hit plus winner rows: (t (R,), idx (R,) int32,
@@ -72,14 +95,13 @@ def closest_with_row(tables: WorldTables, rays8: torch.Tensor,
 
     Rows cover lanes [row_from_lane:] only: the fused per-bounce call packs
     the shadow lanes first, and they never read rows."""
-    if rays8.device.type == "cpu":
-        t, idx = closest_plain(tables, rays8)
-        return t, idx, rows_plain(tables.shade_table, idx[row_from_lane:])
-    return _launch(tables, rays8, False, row_from_lane)
+    if multi_tile(tables):
+        return cuda_jobs.closest_with_row(tables, rays8, row_from_lane)
+    return full_sweep(tables, rays8, False, row_from_lane)
 
 
 def shadow(tables: WorldTables, rays8: torch.Tensor):
     """Any-hit occlusion: bool (R,)."""
-    if rays8.device.type == "cpu":
-        return shadow_plain(tables, rays8)
-    return _launch(tables, rays8, True)
+    if multi_tile(tables):
+        return cuda_jobs.shadow(tables, rays8)
+    return full_sweep(tables, rays8, True)

@@ -16,7 +16,16 @@ left to right in separately rounded f32 operations, which the CUDA kernel
 reproduces exactly, so kernel and plain version agree bit for bit.
 
 Chunked over 128-triangle tiles, so memory stays bounded at any triangle
-count.
+count. `closest_plain` / `shadow_plain` walk every tile, as the CUDA
+`dense_sweep.cu` does. `jobs_closest_plain` / `jobs_shadow_plain` are the
+plain versions of the job-stream kernel (`csrc/job_sweep.cu`): over a
+coherence-sorted ray stack, each g-lane group walks only the tiles on its
+cull worklist (`ops/cluster_cull.py`), in ascending order, with the same
+per-triangle arithmetic (`_chunk_t`). As the cull only drops tiles that
+no lane of the group can hit inside its interval, they give the full
+walk's t and idx bit for bit. (The kernel also skips, lane by lane, a
+tile whose sphere the lane's segment cannot touch; that changes no
+result, so the plain versions walk every worklisted tile.)
 """
 
 from __future__ import annotations
@@ -94,6 +103,67 @@ def shadow_plain(tables, rays8: torch.Tensor):
     for feats, c0, c1 in _chunks(tables):
         t, ok = _chunk_t(rays8, feats, c0, c1)
         occ = occ | (ok & (t > T_MIN) & (t < t_max[:, None])).any(dim=1)
+    return occ
+
+
+def worklist_mask(order: torch.Tensor, counts: torch.Tensor,
+                  n_clusters: int) -> torch.Tensor:
+    """(G, Ct) bool: cluster c is on group g's worklist (entries past the
+    count are ignored, whatever they hold)."""
+    G = order.shape[0]
+    pos = torch.arange(order.shape[1], device=order.device)[None, :]
+    ids = torch.where(pos < counts[:, None], order.long(), n_clusters)
+    mask = torch.zeros((G, n_clusters + 1), dtype=torch.bool,
+                       device=order.device)
+    mask.scatter_(1, ids, True)
+    return mask[:, :n_clusters]
+
+
+def _job_tiles(tables, order, counts, g: int):
+    """(feats, c0, c1, lanes) per tile on some group's worklist, in
+    ascending tile order: lanes are the sorted lanes of the groups whose
+    worklist holds tile [c0, c1)."""
+    tw = tables.features.shape[1] // 5
+    feats = tables.features.view(-1, 5, tw)
+    n_tiles = -(-tw // TRI_CHUNK)
+    mask = worklist_mask(order, counts, n_tiles)
+    lane_in_group = torch.arange(g, device=order.device)
+    for c in torch.nonzero(mask.any(0)).flatten().tolist():
+        c0 = c * TRI_CHUNK
+        c1 = min(c0 + TRI_CHUNK, tables.valid_count)
+        if c1 <= c0:
+            continue
+        groups = torch.nonzero(mask[:, c]).flatten()
+        yield feats, c0, c1, (groups[:, None] * g + lane_in_group).flatten()
+
+
+def jobs_closest_plain(tables, rays_s: torch.Tensor, order, counts, g: int):
+    """Closest hit of a sorted (8, rp) stack over each group's worklisted
+    tiles: (t (rp,), idx (rp,) int32) in sorted lane order."""
+    best_t = rays_s[6].clone()
+    best_i = torch.full_like(best_t, -1, dtype=torch.int32)
+    for feats, c0, c1, lanes in _job_tiles(tables, order, counts, g):
+        rays = rays_s[:, lanes]
+        t, ok = _chunk_t(rays, feats, c0, c1)
+        ok = ok & (t > T_MIN) & (t < rays[6][:, None])
+        cmin, carg = torch.min(torch.where(ok, t, float("inf")), dim=1)
+        cur_t, cur_i = best_t[lanes], best_i[lanes]
+        upd = cmin < cur_t
+        best_t[lanes] = torch.where(upd, cmin, cur_t)
+        best_i[lanes] = torch.where(upd, (carg + c0).to(torch.int32), cur_i)
+    return best_t, best_i
+
+
+def jobs_shadow_plain(tables, rays_s: torch.Tensor, order, counts, g: int):
+    """Any-hit occlusion of a sorted (8, rp) stack over each group's
+    worklisted tiles: bool (rp,) in sorted lane order."""
+    occ = torch.zeros(rays_s.shape[1], dtype=torch.bool,
+                      device=rays_s.device)
+    for feats, c0, c1, lanes in _job_tiles(tables, order, counts, g):
+        rays = rays_s[:, lanes]
+        t, ok = _chunk_t(rays, feats, c0, c1)
+        hit = (ok & (t > T_MIN) & (t < rays[6][:, None])).any(dim=1)
+        occ[lanes] = occ[lanes] | hit
     return occ
 
 

@@ -499,6 +499,74 @@ def ray_color_dense(tables: WorldTables, textures, ro: V3, rd: V3,
     return radiance, rng, rays
 
 
+def _initial_state(ro: V3, rd: V3) -> torch.Tensor:
+    """The row-state loop's (20, R) state entering bounce 0."""
+    R = ro.x.shape[0]
+    zeros = torch.zeros(R, dtype=torch.float32, device=ro.x.device)
+    ones = torch.ones(R, dtype=torch.float32, device=ro.x.device)
+    return torch.stack([
+        ones,                                   # 0  active
+        ro.x, ro.y, ro.z, rd.x, rd.y, rd.z,     # 1-6 ray
+        ones, ones, ones,                       # 7-9 throughput
+        zeros, zeros, zeros,                    # 10-12 radiance
+        zeros,                                  # 13 prev_pdf
+        ones,                                   # 14 specular_bounce
+        zeros,                                  # 15 nee_prev
+        zeros, zeros, zeros,                    # 16-18 pending_nee
+        ones,                                   # 19 occluded_prev
+    ])
+
+
+def _sweep_bounce(tables: WorldTables, out, rays8, R: int):
+    """Sweep a bounce's fused (8, 2R) stack: the next (state, idx, rowT)."""
+    _, idx2, rowT = closest_with_row(tables, rays8, row_from_lane=R)
+    # Rows 19-26 (the rays just swept) are spent: row 19 becomes the next
+    # bounce's occluded_prev in place, and rows 0-19 its state.
+    out[19] = (idx2[:R] >= 0).to(torch.float32)
+    return out[:20], idx2[R:], rowT
+
+
+def pinhole_rays(camera24: torch.Tensor, width: int, height: int):
+    """Pixel-center rays (ro, rd) as V3 on the camera's device: no lens and
+    no jitter."""
+    lane = torch.arange(width * height, device=camera24.device)
+    u = ((lane % width).float() + 0.5) / width
+    v = 1.0 - ((lane // width).float() + 0.5) / height
+    c = camera24
+    rd = V3(*(c[4 + k] + u * c[8 + k] + v * c[12 + k] - c[k]
+              for k in range(3)))
+    ro = V3(*(c[k].expand(width * height).contiguous() for k in range(3)))
+    return ro, rd
+
+
+def bounce_inputs(tables: WorldTables, camera24: torch.Tensor, width: int,
+                  height: int, depth: int, max_depth: int):
+    """(state, rng, rowT, idx) entering bounce `depth` of the row-state
+    loop, from `pinhole_rays` and frame 1's rng streams: the inputs at
+    which the tests and `chip_smoke.py` hold the sweeps and the shade
+    kernel."""
+    R = width * height
+    ro, rd = pinhole_rays(camera24, width, height)
+    rng = init_rng(torch.arange(R, device=tables.device), 1)
+    _, idx, rowT = closest_with_row(tables, ray_stack(ro, rd, T_MAX))
+    state = _initial_state(ro, rd)
+    for d in range(depth):
+        out, rng, rays8 = shade(state, rng, rowT, idx, tables.light_rows, d,
+                                tables.light_count, max_depth)
+        state, idx, rowT = _sweep_bounce(tables, out, rays8, R)
+    return state, rng, rowT, idx
+
+
+def bounce_rays(tables: WorldTables, camera24: torch.Tensor, width: int,
+                height: int, depth: int, max_depth: int) -> torch.Tensor:
+    """The fused (8, 2R) ray stack that bounce `depth` sweeps (its R NEE
+    shadow rays, then its R extension rays)."""
+    state, rng, rowT, idx = bounce_inputs(tables, camera24, width, height,
+                                          depth, max_depth)
+    return shade(state, rng, rowT, idx, tables.light_rows, depth,
+                 tables.light_count, max_depth)[2]
+
+
 def ray_color_dense_rows(tables: WorldTables, ro: V3, rd: V3,
                          rng: torch.Tensor, max_depth: int,
                          hit0: Optional[DenseHit] = None):
@@ -511,40 +579,21 @@ def ray_color_dense_rows(tables: WorldTables, ro: V3, rd: V3,
     the EXACT count of rays traced: the R primaries unless seeded, plus, per
     bounce, the NEE shadow lanes and the extension lanes actually swept."""
     R = ro.x.shape[0]
-    dev = ro.x.device
-    f32 = torch.float32
     if hit0 is None:
         _, idx, rowT = closest_with_row(tables, ray_stack(ro, rd, T_MAX))
         primary = float(R)
     else:
         idx, rowT = hit0.wt, hit0.rowT
         primary = 0.0
-    zeros = torch.zeros(R, dtype=f32, device=dev)
-    ones = torch.ones(R, dtype=f32, device=dev)
-    state = torch.stack([
-        ones,                                   # 0  active
-        ro.x, ro.y, ro.z, rd.x, rd.y, rd.z,     # 1-6 ray
-        ones, ones, ones,                       # 7-9 throughput
-        zeros, zeros, zeros,                    # 10-12 radiance
-        zeros,                                  # 13 prev_pdf
-        ones,                                   # 14 specular_bounce
-        zeros,                                  # 15 nee_prev
-        zeros, zeros, zeros,                    # 16-18 pending_nee
-        ones,                                   # 19 occluded_prev
-    ])
-    rays = torch.full((), primary, dtype=torch.float64, device=dev)
+    state = _initial_state(ro, rd)
+    rays = torch.full((), primary, dtype=torch.float64, device=ro.x.device)
 
     for depth in range(max_depth):
         out, rng, rays8 = shade(state, rng, rowT, idx, tables.light_rows,
                                 depth, tables.light_count, max_depth)
-        _, idx2, rowT = closest_with_row(tables, rays8, row_from_lane=R)
+        state, idx, rowT = _sweep_bounce(tables, out, rays8, R)
         rays = rays + out[15].sum(dtype=torch.float64) \
             + out[26].sum(dtype=torch.float64)
-        # Rows 19-26 (the rays just swept) are spent: row 19 becomes the
-        # next bounce's occluded_prev in place, and rows 0-19 its state.
-        out[19] = (idx2[:R] >= 0).to(f32)
-        state = out[:20]
-        idx = idx2[R:]
 
     take = (state[15] > 0.5) & ~(state[19] > 0.5)
     g = torch.where(take, 1.0, 0.0)

@@ -31,7 +31,11 @@ from ..utils.halton import JitterAccumulator
 from ..utils.textures import build_quad_pyramid, decode_world_textures
 from .worldtris import build_world_tables
 
-DENSE_MAX_TRIS = 16384  # the JAX package's dense-backend limit (ops/api.py)
+# The JAX package's dense-path limit off its accelerator (ops/api.py): on
+# the CPU it takes the BVH path above it, which the port does not have. On
+# CUDA the dense path (the job-stream sweep) takes any triangle count, as
+# the JAX package's does on its accelerator.
+DENSE_MAX_TRIS = 16384
 
 
 class Renderer:
@@ -66,10 +70,12 @@ class Renderer:
         self.textures = (None if decoded is None else device_pyramid(
             build_quad_pyramid(decoded), self.device))
         self.reupload_scene(reset=False)
-        if self.tables.valid_count > DENSE_MAX_TRIS:
+        if (self.device.type == "cpu"
+                and self.tables.valid_count > DENSE_MAX_TRIS):
             raise NotImplementedError(
-                f"{self.tables.valid_count} world triangles: scenes over "
-                f"{DENSE_MAX_TRIS} need the BVH path, which is not ported yet")
+                f"{self.tables.valid_count} world triangles: on the CPU, "
+                f"scenes over {DENSE_MAX_TRIS} need the BVH path, which is "
+                "not ported yet")
 
         self.frame_count = 0
         self.last_rays = None

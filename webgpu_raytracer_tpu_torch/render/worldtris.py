@@ -20,9 +20,14 @@ scene update, then
   facts, known when the tables are built, give the same result without
   a host sync.
 
-The TPU-only operands (the bf16x3 `featk3`/`shadek3` layouts, the tile
-bounding spheres, the packed upload) have no counterpart here: the port's
-kernels read the f32 tables directly.
+- `spheres` (n_tiles, 4) f32, one bounding sphere [cx, cy, cz, r] per
+  tile of the sweep (r = -1 for an all-padding tile): the cull of the
+  job-stream path (`ops/cluster_cull.py`) tests rays against them. A tile
+  is 128 triangles, or the whole padded table when it holds 128 or fewer.
+
+The TPU-only operands (the bf16x3 `featk3`/`shadek3` layouts, the packed
+upload) have no counterpart here: the port's kernels read the f32 tables
+directly.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ class WorldTables(NamedTuple):
     light_rows: torch.Tensor   # (Lpad, SHADE_K) f32
     light_count: int
     valid_count: int
+    spheres: torch.Tensor      # (n_tiles, 4) f32 [cx, cy, cz, r]
     tex_slots: tuple = (True, True, True, True)
     light_tex: bool = True
 
@@ -72,6 +78,29 @@ def tri_pad(tw: int) -> int:
     return _round_up(tw, 8) if tw <= 128 else _round_up(tw, 128)
 
 
+def tile_spheres(v0, e1, e2) -> np.ndarray:
+    """Per-tile bounding spheres (n_tiles, 4) f32 [cx, cy, cz, r] of the
+    padded triangles, r = -1 for an all-padding tile: the JAX package's
+    `_np_tile_spheres` rule, bit for bit. Triangles arrive in BLAS-leaf
+    order (spatially coherent), so a tile's sphere is tight enough to
+    cull with."""
+    twp = v0.shape[0]
+    c = twp if twp < 128 else 128
+    n_tiles = twp // c
+    tri_valid = (np.abs(v0).sum(1) + np.abs(e1).sum(1)
+                 + np.abs(e2).sum(1)) > 0
+    pts = np.stack([v0, v0 + e1, v0 + e2], axis=1)  # (Twp, 3, 3)
+    big = np.float32(3e38)
+    vmask = tri_valid[:, None, None]
+    lo = np.where(vmask, pts, big).reshape(n_tiles, -1, 3).min(axis=1)
+    hi = np.where(vmask, pts, -big).reshape(n_tiles, -1, 3).max(axis=1)
+    empty = lo[:, 0] > hi[:, 0]
+    center = np.where(empty[:, None], 0.0, (lo + hi) * 0.5)
+    r = np.where(empty, -1.0, np.linalg.norm(
+        np.where(empty[:, None], 0.0, hi - center), axis=1))
+    return np.concatenate([center, r[:, None]], axis=1).astype(np.float32)
+
+
 def pos_norm(v):
     l = np.linalg.norm(v, axis=-1, keepdims=True)
     return np.where(l > 0, v / np.maximum(l, 1e-20), v)
@@ -81,7 +110,7 @@ def world_tables_np(world) -> dict:
     """Flatten all instances' triangles to world space (numpy).
 
     Returns a dict of numpy arrays: features, shade_table, light_rows,
-    light_count, valid_count."""
+    light_count, valid_count, spheres."""
     topo = np.asarray(world.topology(), np.uint32).reshape(-1, 20)
     tri_v = topo[:, 0:3].astype(np.int64)
     tri_geom = topo[:, 3].astype(np.int64)
@@ -192,7 +221,8 @@ def world_tables_np(world) -> dict:
     light_rows = shade[np.clip(lw_padded, 0, shade.shape[0] - 1)]
 
     return dict(features=features, shade_table=shade, light_rows=light_rows,
-                light_count=np.int32(len(light_wt)), valid_count=np.int32(tw))
+                light_count=np.int32(len(light_wt)), valid_count=np.int32(tw),
+                spheres=tile_spheres(v0, e1, e2))
 
 
 def tables_from_jax(np_dict: dict, device="cpu") -> WorldTables:
@@ -201,9 +231,14 @@ def tables_from_jax(np_dict: dict, device="cpu") -> WorldTables:
 
     `world_tables_np` returns these keys, and so do the JAX tables given as
     numpy (`{k: np.asarray(v) for k, v in wt._asdict().items()}`), which
-    lets both packages compute on the same inputs."""
+    lets both packages compute on the same inputs. The JAX `spheres`
+    (n_tiles, 1, 128) carry their first four columns."""
     def dev(name):
         return torch.from_numpy(np.array(np_dict[name], np.float32)).to(device)
+
+    spheres = np.asarray(np_dict["spheres"], np.float32)
+    if spheres.ndim == 3:
+        spheres = spheres[:, 0, :4]
 
     light_count = int(np_dict["light_count"])
     valid_count = int(np_dict["valid_count"])
@@ -215,6 +250,8 @@ def tables_from_jax(np_dict: dict, device="cpu") -> WorldTables:
                        light_rows=dev("light_rows"),
                        light_count=light_count,
                        valid_count=valid_count,
+                       spheres=torch.from_numpy(
+                           np.array(spheres, np.float32)).to(device),
                        tex_slots=tuple(bool(b) for b in (tex >= 0).any(0)),
                        light_tex=bool((light_tex >= 0).any()))
 
