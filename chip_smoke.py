@@ -18,8 +18,10 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
    level-0 table and its mip with the rows of a 1080p bounce; the
    job-stream path's cull and narrow-phase kernels on the fused bounce-1
    sweep of `spheres` 512^2 (524,288 lanes over 2,009 tiles), the narrow
-   phase bit-equal to the sweep kernel walking every tile. Kernel times
-   are many launches between one pair of CUDA events;
+   phase bit-equal to the sweep kernel walking every tile; the scan path's
+   keyed cull and scan kernel on the same sweep (512 ray tiles of 1,024
+   lanes), bit-equal to that walk too, with the exact and the cone cull.
+   Kernel times are many launches between one pair of CUDA events;
 2. drives every path of the port with the launch counts set to 0 just
    before it and read just after, and asserts each kernel's exact count:
    - cornell 512^2 d8 x 32 and 1920x1080 d8 x 8 (`trace_pixels_dense`, the
@@ -38,6 +40,10 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
      1 + 8 culls and job sweeps and 8 shades a frame, no dense sweep),
      mean within 2% of bench.py's golden, then `Renderer("spheres",
      512x512, d8)`: `render_frame()` + `present()` x 4;
+   - `spheres` 512^2 d8 x 4 through `trace_pixels_dense(narrow="scan")`
+     (1 + 8 keyed culls and scan sweeps and 8 shades a frame, no job sweep
+     and no dense sweep), the same golden, frame 1 bit-equal to the job
+     path's, then `Renderer("spheres", narrow="scan")` x 4;
 3. prints the card's name and power limit, one JSON line of per-kernel
    results, and last `{"ok": true, "device": {...}}`.
 
@@ -60,18 +66,21 @@ import torch
 from webgpu_raytracer_tpu_torch import NativeWorld, Renderer, RenderConfig
 from webgpu_raytracer_tpu_torch import kernels
 from webgpu_raytracer_tpu_torch.ops import (cuda_dense, cuda_fetch, cuda_jobs,
-                                            shade_rows)
+                                            cuda_scan, shade_rows)
 from webgpu_raytracer_tpu_torch.ops.cluster_cull import (CLUSTER_CHUNK,
                                                          LANE_CHUNK,
+                                                         keys_plain,
                                                          lane_terms, pair_ok,
+                                                         sort_keyed,
                                                          worklists_plain)
 from webgpu_raytracer_tpu_torch.ops.coherence import coherence_sort
 from webgpu_raytracer_tpu_torch.ops.dense import (T_MAX, closest_plain,
                                                   jobs_closest_plain,
                                                   ray_stack, rows_plain,
+                                                  scan_closest_plain,
                                                   shadow_plain,
                                                   worklist_mask)
-from webgpu_raytracer_tpu_torch.ops.tune import M_TILE3
+from webgpu_raytracer_tpu_torch.ops.tune import M_TILE2, M_TILE3
 from webgpu_raytracer_tpu_torch.ops.dense_trace import (
     BASE, EMISSIVE, METAL_ROUGH, NORMAL, bounce_inputs, bounce_rays,
     intersect_and_shade, pinhole_rays, texel_rows, trace_pixels_dense)
@@ -103,15 +112,17 @@ F32_OPS_PER_S = 67e12
 SWEEP_OPS = 45   # f32 operations per ray x triangle test (dense_sweep.cu)
 SHADE_OPS = 300  # f32 operations per lane of one bounce (shade_rows.cu)
 CULL_OPS = 25    # f32 operations per lane x cluster test (cluster_cull.cu)
+KEYED_CULL_OPS = 30  # the same test with its root, quotient and key
 JOB_PLAIN_GROUPS = 256  # lane groups the plain job sweep is held on
+SCAN_PLAIN_TILES = 4  # ray tiles per segment the plain scan path is held on
 
 PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
 
-def device_ms(fn, launches: int = KERNEL_LAUNCHES) -> float:
+def device_ms(fn, launches: int = KERNEL_LAUNCHES, warmup: int = 3) -> float:
     """Device ms per call of fn: `launches` calls between one pair of CUDA
-    events, after 3 warm-up calls."""
-    for _ in range(3):
+    events, after `warmup` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -466,6 +477,175 @@ def check_jobs(tables, camera, width, height) -> list[dict]:
                  bound_by=cb_by, **common)]
 
 
+def check_scan(tables, camera, width, height) -> list[dict]:
+    """The scan path's kernels on the fused sweep of bounce 1 (2R lanes, in
+    ray tiles of M_TILE2): the keyed cull against its plain version on the
+    first SCAN_PLAIN_TILES tiles of each segment (shadow lanes, extension
+    lanes); the scan kernel bit-equal to the sweep kernel walking every
+    tile, with the exact and with the cone cull's worklists, and to its
+    plain version (outputs and per-tile stats) on those first tiles. Times
+    the job path again beside the scan path."""
+    R = width * height
+    m = M_TILE2
+    assert R % m == 0
+    dev = tables.device
+    spheres = tables.spheres
+    ct = spheres.shape[0]
+    rays8 = bounce_rays(tables, camera, width, height, 1, DEPTH)
+    rays_s, perm = coherence_sort(rays8, spheres, m, R)
+    T = rays_s.shape[1] // m
+    key_map = cuda_scan.cluster_keys(spheres, rays_s, m)
+    order, keys, counts = sort_keyed(key_map)
+    tiles = (list(range(SCAN_PLAIN_TILES))
+             + list(range(R // m, R // m + SCAN_PLAIN_TILES)))
+    tiles_t = torch.tensor(tiles, device=dev)
+    sub_s = torch.cat([rays_s[:, t * m:(t + 1) * m] for t in tiles], 1)
+    key_map_p = keys_plain(spheres, sub_s, m)
+    torch.cuda.synchronize()
+    assert (counts[tiles_t] > 0).all(), "a checked tile is dead"
+    assert torch.equal(key_map[tiles_t] < 3e38, key_map_p < 3e38), \
+        "keyed cull survivors differ"
+    key_ulps, key_err = 0, 0.0
+    if not torch.equal(key_map[tiles_t], key_map_p):
+        key_ulps = int((key_map[tiles_t].view(torch.int32).long()
+                        - key_map_p.view(torch.int32).long()).abs().max())
+        key_err = float((key_map[tiles_t] - key_map_p).abs().max())
+    assert key_ulps <= 2, f"keyed cull keys differ by {key_ulps} ulp"
+    assert (keys[:, 1:] >= keys[:, :-1]).all(), "keys not ascending"
+    live = int((rays_s[6] > 0).sum())
+    n_entries = int(counts.sum())
+    busy = counts > 0
+    n_busy = max(int(busy.sum()), 1)
+    print(f"keyed cull: {2 * R} lanes ({live} live) x {ct} clusters, {T} "
+          f"tiles of {m} ({int(busy.sum())} non-empty); survivors equal to "
+          f"the plain keyed cull on {len(tiles)} tiles, keys "
+          f"{'bit-equal' if key_ulps == 0 else f'within {key_ulps} ulp'}; "
+          f"worklist length over non-empty tiles mean "
+          f"{n_entries / n_busy:.2f}, max {int(counts.max())}; {n_entries} "
+          f"(tile, cluster) entries")
+
+    def scan(any_hit, lists=(order, keys, counts), stats=False):
+        return cuda_scan.scan_sweep(tables, rays_s, perm, *lists, m, 2 * R,
+                                    any_hit, R, with_stats=stats)
+
+    t, idx, rows, stats = scan(False, stats=True)
+    occ, stats_any = scan(True, stats=True)
+    t_f, idx_f, rows_f = cuda_dense.full_sweep(tables, rays8, False, R)
+    occ_f = cuda_dense.full_sweep(tables, rays8, True)
+    torch.cuda.synchronize()
+    assert bits_equal(idx, idx_f), "scan sweep winners differ"
+    assert bits_equal(t, t_f), "scan sweep t differs"
+    assert bits_equal(rows, rows_f), "scan sweep rows differ"
+    assert torch.equal(occ, occ_f), "scan sweep occlusion differs"
+    for st in (stats, stats_any):
+        assert torch.equal(st[:, 2], counts), "stats: worklist lengths"
+        assert (st[:, 1] <= st[:, 0]).all() and (st[:, 0] <= st[:, 2]).all()
+    sub = (sub_s, order[tiles_t], keys[tiles_t], counts[tiles_t])
+    t_p, i_p, stats_p = scan_closest_plain(tables, *sub, m, with_stats=True)
+    lanes = torch.cat([perm[t * m:(t + 1) * m] for t in tiles]).long()
+    keep = lanes < 2 * R
+    assert bits_equal(i_p[keep], idx[lanes[keep]]), "plain scan winners"
+    assert bits_equal(t_p[keep], t[lanes[keep]]), "plain scan t"
+    assert torch.equal(stats_p, stats[tiles_t].cpu()), "plain scan stats"
+
+    cone = cuda_scan.worklists_keyed(spheres, rays_s, m, "cone")
+    exact_mask = worklist_mask(order, counts, ct)
+    cone_mask = worklist_mask(cone[0], cone[2], ct)
+    assert not (exact_mask & ~cone_mask).any(), \
+        "the cone cull dropped a survivor of the exact cull"
+    t_c, idx_c, rows_c = scan(False, cone)
+    occ_c = scan(True, cone)
+    torch.cuda.synchronize()
+    assert bits_equal(idx_c, idx_f) and bits_equal(t_c, t_f), "cone: hits"
+    assert bits_equal(rows_c, rows_f), "cone: rows differ"
+    assert torch.equal(occ_c, occ_f), "cone: occlusion differs"
+    n_cone = int(cone[2].sum())
+    sc, pr = int(stats[:, 0].sum()), int(stats[:, 1].sum())
+    sc_a, pr_a = int(stats_any[:, 0].sum()), int(stats_any[:, 1].sum())
+    print(f"scan sweep: t, idx, rows bit-equal to dense_sweep over all {ct} "
+          f"tiles, occlusion equal ({int((idx >= 0).sum())} of {live} live "
+          f"lanes hit), with the exact and with the cone cull "
+          f"(cone worklists hold the exact ones: {n_cone} entries, mean "
+          f"{n_cone / max(int((cone[2] > 0).sum()), 1):.2f} a non-empty "
+          f"tile); bit-equal to the plain scan, stats included, on "
+          f"{len(tiles)} tiles; per non-empty tile, closest: scanned "
+          f"{sc / n_busy:.2f}, processed {pr / n_busy:.2f} of "
+          f"{n_entries / n_busy:.2f} entries (max processed "
+          f"{int(stats[:, 1].max())}); any-hit: scanned {sc_a / n_busy:.2f}, "
+          f"processed {pr_a / n_busy:.2f}")
+
+    g = M_TILE3
+    rays_j, perm_j = coherence_sort(rays8, spheres, g, R)
+    order_j, counts_j = cuda_jobs.worklists(spheres, rays_j, g)
+
+    def jobs():
+        return cuda_jobs.job_sweep(tables, rays_j, perm_j, order_j, counts_j,
+                                   g, 2 * R, False, R)
+
+    def path(narrow):
+        return cuda_dense.closest_with_row(tables, rays8, R, narrow=narrow)
+
+    cull_ms = device_ms(lambda: cuda_scan.cluster_keys(spheres, rays_s, m))
+    cull_plain_ms = device_ms(lambda: keys_plain(spheres, sub_s, m),
+                              PLAIN_LAUNCHES)
+    sort_ms = device_ms(lambda: sort_keyed(key_map))
+    cone_ms = device_ms(lambda: cuda_scan.worklists_keyed(
+        spheres, rays_s, m, "cone"), PLAIN_LAUNCHES)
+    job_a = device_ms(jobs, 50)
+    scan_ms = device_ms(lambda: scan(False))
+    scan_any_ms = device_ms(lambda: scan(True))
+    job_b = device_ms(jobs, 50)
+    scan_cone_ms = device_ms(lambda: scan(False, cone), 50)
+    scan_plain_ms = device_ms(lambda: scan_closest_plain(tables, *sub, m),
+                              1, warmup=1)
+    path_jobs_a = device_ms(lambda: path("jobs"), 20)
+    path_ms = device_ms(lambda: path("scan"), 20)
+    path_jobs_b = device_ms(lambda: path("jobs"), 20)
+    # Bounds from this run's data. The keyed cull reads the rays and the
+    # spheres and writes every key. The scan sweep does the job sweep's
+    # work, so it has the job sweep's bound: each lane against the tiles
+    # whose sphere its segment, up to the hit it found, can touch, each
+    # worklisted tile read once; rays, perm, counts, worklist entries and
+    # keys in; t, idx and the extension lanes' rows out.
+    cull_bytes = rays_s.numel() * 4 + ct * 16 + T * ct * 4
+    cb_ms, cb_by = bound(cull_bytes, live * ct * KEYED_CULL_OPS)
+    t_s = torch.where(perm < 2 * R, t[perm.long().clamp(max=2 * R - 1)], 0.0)
+    lane_pairs = needed_pairs(spheres, rays_s, t_s)
+    tiles_read = int(exact_mask.any(0).sum())
+    ext_hits = int((idx[R:] >= 0).sum())
+    scan_bytes = (2 * R * (32 + 4) + T * 4 + n_entries * 8
+                  + tiles_read * 25 * 128 * 4 + 2 * R * 8 + R * 40 * 4
+                  + ext_hits * 40 * 4)
+    sb_ms, sb_by = bound(scan_bytes, lane_pairs * 128 * SWEEP_OPS)
+    print(f"keyed cull: kernel {cull_ms:.4f} ms, plain {cull_plain_ms:.4f} "
+          f"ms on {len(tiles)} tiles ({len(tiles) * m} lanes), bound "
+          f"{cb_ms:.4f} ms ({cb_by}, {live} live lanes x {ct} x "
+          f"{KEYED_CULL_OPS} ops, {cull_bytes / 1e6:.1f} MB); torch.sort of "
+          f"the ({T}, {ct}) keys {sort_ms:.4f} ms; cone cull (plain torch, "
+          f"sort included) {cone_ms:.4f} ms")
+    print(f"scan sweep closest+rows: kernel {scan_ms:.4f} ms (any-hit "
+          f"{scan_any_ms:.4f} ms; on the cone cull's worklists "
+          f"{scan_cone_ms:.4f} ms), plain {scan_plain_ms:.4f} ms on "
+          f"{len(tiles)} tiles, bound {sb_ms:.4f} ms ({sb_by}, {lane_pairs} "
+          f"(lane, tile) pairs a lane's segment up to its hit touches x 128 "
+          f"x {SWEEP_OPS} ops, against {pr * m} in the processed entries "
+          f"and {n_entries * m} in the worklists; {tiles_read} tiles read, "
+          f"{scan_bytes / 1e6:.1f} MB); job sweep in the same call "
+          f"{job_a:.4f} / {job_b:.4f} ms (before / after); whole path (sort "
+          f"+ cull + sweep) scan {path_ms:.4f} ms, jobs {path_jobs_a:.4f} / "
+          f"{path_jobs_b:.4f} ms")
+    return [dict(name="scan_sweep", route="cuda",
+                 source="webgpu_raytracer_tpu_torch/csrc/scan_sweep.cu",
+                 replaces="webgpu_raytracer_tpu/ops/pallas_dense.py:323",
+                 max_abs_err=0.0, ms=scan_ms, plain_ms=scan_plain_ms,
+                 bound_ms=sb_ms, bound_by=sb_by, library_ms=None),
+            dict(name="cluster_cull_keyed", route="cuda",
+                 source="webgpu_raytracer_tpu_torch/csrc/cluster_cull.cu",
+                 replaces="webgpu_raytracer_tpu/ops/cluster_cull.py:26",
+                 max_abs_err=key_err, ms=cull_ms, plain_ms=cull_plain_ms,
+                 bound_ms=cb_ms, bound_by=cb_by, library_ms=None)]
+
+
 def needed_pairs(spheres, rays_s, t_end) -> int:
     """(lane, tile) pairs of a sorted stack whose segment (T_MIN, min(t_clip,
     t_end)) can touch the tile's sphere (the cull's test, lane by lane)."""
@@ -548,12 +728,13 @@ def check_fetch_quad(cases) -> dict:
 
 
 def frames(tables, camera, width, height, n, golden_key, textures=None,
-           seeded=False):
+           seeded=False, narrow="jobs"):
     """n frames of trace_pixels_dense (jitter 0, spp 1, depth 8), traced or
     seeded from a G-buffer rendered each frame: checks the golden mean
     over all n and prints ms/frame and Mrays/s of frames 2..n (frame 1 also
-    pays the allocator's first requests at this size). Returns frame 1's
-    radiance on the host."""
+    pays the allocator's first requests at this size). `narrow` picks a
+    multi-tile scene's narrow phase. Returns frame 1's radiance on the
+    host."""
     jitter = torch.zeros(2, device=tables.device)
     means, rays, first = [], [], []
 
@@ -561,12 +742,13 @@ def frames(tables, camera, width, height, n, golden_key, textures=None,
         seed, gb_rays = None, 0.0
         if seeded:
             gb = render_gbuffer(tables, textures, camera, width, height,
-                                jitter=jitter)
+                                jitter=jitter, narrow=narrow)
             seed = gb.wt_idx.reshape(-1)
             gb_rays = float(width * height)
         col, r = trace_pixels_dense(tables, camera, f, jitter, width, height,
                                     1, DEPTH, with_stats=True,
-                                    textures=textures, seed_wt_idx=seed)
+                                    textures=textures, seed_wt_idx=seed,
+                                    narrow=narrow)
         means.append(col.mean())
         rays.append(r + gb_rays)
         return col
@@ -585,7 +767,9 @@ def frames(tables, camera, width, height, n, golden_key, textures=None,
     ok = abs(mean - golden) <= GOLDEN_TOL * golden
     ms = 1e3 * seconds / (n - 1)
     mrays = timed / seconds / 1e6
-    print(f"{golden_key}{' seeded' if seeded else ''} d{DEPTH}: {n} frames, "
+    tag = (" seeded" if seeded else "") + (
+        f" narrow={narrow}" if narrow != "jobs" else "")
+    print(f"{golden_key}{tag} d{DEPTH}: {n} frames, "
           f"{ms:.3f} ms/frame and {mrays:.2f} Mrays/s over frames 2..{n} "
           f"({timed / (n - 1):.0f} rays/frame), mean {mean:.4f} vs golden "
           f"{golden} (+-{GOLDEN_TOL:.0%}) {'ok' if ok else 'FAIL'}")
@@ -617,19 +801,22 @@ def renderer_frames(r: Renderer, n: int, label: str, per_frame: dict,
           f"{rays / seconds / 1e6:.2f} Mrays/s, image mean {img.mean():.2f}")
 
 
-def sweeps(n: int, multi_tile: bool) -> dict:
-    """n sweeps: a dense sweep each on a single-tile scene, a cull and a job
-    sweep each on a multi-tile one."""
-    return {"dense_sweep": 0 if multi_tile else n,
-            "cluster_cull": n if multi_tile else 0,
-            "job_sweep": n if multi_tile else 0}
+def sweeps(n: int, multi_tile: bool, narrow: str = "jobs") -> dict:
+    """n sweeps: a dense sweep each on a single-tile scene; on a multi-tile
+    one a cull and a job sweep each, or with narrow="scan" a keyed cull and
+    a scan sweep each."""
+    jobs = n if multi_tile and narrow == "jobs" else 0
+    scan = n if multi_tile and narrow == "scan" else 0
+    return {"dense_sweep": 0 if multi_tile else n, "cluster_cull": jobs,
+            "job_sweep": jobs, "cluster_cull_keyed": scan, "scan_sweep": scan}
 
 
-def rows_launches(seeded: bool, multi_tile: bool = False) -> dict:
+def rows_launches(seeded: bool, multi_tile: bool = False,
+                  narrow: str = "jobs") -> dict:
     """Per frame of the row-state loop (untextured scenes): traced, one
     primary sweep; seeded, one G-buffer sweep and one seed-row fetch; then
     per bounce one shade and one fused sweep."""
-    return {**sweeps(1 + DEPTH, multi_tile), "shade_rows": DEPTH,
+    return {**sweeps(1 + DEPTH, multi_tile, narrow), "shade_rows": DEPTH,
             "fetch_rows": int(seeded), "fetch_quad": 0}
 
 
@@ -799,6 +986,7 @@ def main(argv: list[str]) -> int:
         ("level 0 1024^2, 1080p bounce rows", tq_tex[0].flat, rows0)]))
 
     results += check_jobs(sp_tables, sp_cam, width, height)
+    results += check_scan(sp_tables, sp_cam, width, height)
 
     # --- phase 3: every path, counting launches ---
     totals = {k: 0 for k in kernels.launches}
@@ -842,14 +1030,36 @@ def main(argv: list[str]) -> int:
                                   textured_launches(rt.tables, True),
                                   use_gbuffer=True),
           totals)
+    jobs_sp = []
     drive("spheres 512^2 traced", 4, rows_launches(False, True),
-          lambda: frames(sp_tables, sp_cam, width, height, 4, "spheres_512"),
-          totals)
+          lambda: jobs_sp.append(frames(sp_tables, sp_cam, width, height, 4,
+                                        "spheres_512")), totals)
     rs = Renderer("spheres", RenderConfig(width=width, height=height,
                                           max_depth=DEPTH), device=dev)
     drive("Renderer spheres 512^2", 4, rows_launches(False, True),
           lambda: renderer_frames(rs, 4, f"spheres {width}x{height} "
                                   f"d{DEPTH}", rows_launches(False, True)),
+          totals)
+    scan_launches = rows_launches(False, True, "scan")
+    assert scan_launches == {
+        "dense_sweep": 0, "cluster_cull": 0, "job_sweep": 0,
+        "cluster_cull_keyed": 9, "scan_sweep": 9, "shade_rows": 8,
+        "fetch_rows": 0, "fetch_quad": 0}
+    scan_sp = []
+    drive("spheres 512^2 traced narrow=scan", 4, scan_launches,
+          lambda: scan_sp.append(frames(sp_tables, sp_cam, width, height, 4,
+                                        "spheres_512", narrow="scan")),
+          totals)
+    assert bits_equal(scan_sp[0], jobs_sp[0]), \
+        "spheres: the scan path's frame 1 differs from the job path's"
+    print("spheres 512^2: narrow=scan frame 1 bit-equal to the narrow=jobs "
+          "frame 1")
+    rsc = Renderer("spheres", RenderConfig(width=width, height=height,
+                                           max_depth=DEPTH), device=dev,
+                   narrow="scan")
+    drive("Renderer spheres 512^2 narrow=scan", 4, scan_launches,
+          lambda: renderer_frames(rsc, 4, f"spheres {width}x{height} "
+                                  f"d{DEPTH} narrow=scan", scan_launches),
           totals)
     print(f"launches on the main paths (all of the above): {totals}")
 
@@ -858,6 +1068,9 @@ def main(argv: list[str]) -> int:
         profile_paths([
             ("spheres 512^2 d8", lambda: trace_pixels_dense(
                 sp_tables, sp_cam, 1, jit0, width, height, 1, DEPTH)),
+            ("spheres 512^2 d8 narrow=scan", lambda: trace_pixels_dense(
+                sp_tables, sp_cam, 1, jit0, width, height, 1, DEPTH,
+                narrow="scan")),
             ("textured quad 1080p d8", lambda: trace_pixels_dense(
                 tq_tables, tq_cam, 1, jit0, *hd, 1, DEPTH, textures=tq_tex)),
             ("cornell 1080p d8 seeded", lambda: trace_pixels_dense(

@@ -6,8 +6,8 @@ is present. On a machine with one:
     python -m pytest tests/test_torch_cuda.py -m cuda
 
 `python3 chip_smoke.py` runs the same checks at the full 512^2 shapes
-(cornell for the single-tile kernels, spheres for the job-stream path);
-these use small frames.
+(cornell for the single-tile kernels, spheres for the job-stream and scan
+paths); these use small frames.
 """
 
 import numpy as np
@@ -19,11 +19,14 @@ import chip_smoke
 from webgpu_raytracer_tpu_torch import NativeWorld, Renderer, RenderConfig
 from webgpu_raytracer_tpu_torch import kernels
 from webgpu_raytracer_tpu_torch.ops import (cuda_dense, cuda_fetch, cuda_jobs,
-                                            shade_rows)
-from webgpu_raytracer_tpu_torch.ops.cluster_cull import worklists_plain
+                                            cuda_scan, shade_rows)
+from webgpu_raytracer_tpu_torch.ops.cluster_cull import (keys_plain,
+                                                         worklists_plain)
 from webgpu_raytracer_tpu_torch.ops.dense import (T_MAX, closest_plain,
                                                   jobs_closest_plain,
                                                   ray_stack, rows_plain,
+                                                  scan_closest_plain,
+                                                  scan_shadow_plain,
                                                   shadow_plain, worklist_mask)
 from webgpu_raytracer_tpu_torch.ops.coherence import coherence_sort
 from webgpu_raytracer_tpu_torch.ops.dense_trace import (bounce_rays,
@@ -149,7 +152,8 @@ def test_renderer_on_card_counts_launches(cuda):
     assert img.shape == (RES, RES, 3) and np.isfinite(r.radiance()).all()
     assert r.launches == {"dense_sweep": 2 * 6, "shade_rows": 2 * 5,
                           "fetch_rows": 0, "fetch_quad": 0,
-                          "cluster_cull": 0, "job_sweep": 0}
+                          "cluster_cull": 0, "job_sweep": 0,
+                          "cluster_cull_keyed": 0, "scan_sweep": 0}
 
 
 @pytest.mark.parametrize("n,k", [(1, 40), (40, 40), (1408, 40), (300, 3)])
@@ -215,7 +219,8 @@ def test_textured_renderer_on_card_counts_launches(cuda):
     assert img.shape == (RES, RES, 3) and np.isfinite(r.radiance()).all()
     assert r.launches == {"dense_sweep": 2 * 6, "shade_rows": 0,
                           "fetch_rows": 2 * 6, "fetch_quad": 2 * 6,
-                          "cluster_cull": 0, "job_sweep": 0}
+                          "cluster_cull": 0, "job_sweep": 0,
+                          "cluster_cull_keyed": 0, "scan_sweep": 0}
 
 
 # --- the job-stream path (multi-tile scenes) ---------------------------------
@@ -302,4 +307,113 @@ def test_renderer_spheres_on_card_counts_launches(cuda):
     assert img.shape == (RES, RES, 3) and np.isfinite(r.radiance()).all()
     assert r.launches == {"dense_sweep": 0, "cluster_cull": 2 * 4,
                           "job_sweep": 2 * 4, "shade_rows": 2 * 3,
+                          "fetch_rows": 0, "fetch_quad": 0,
+                          "cluster_cull_keyed": 0, "scan_sweep": 0}
+
+
+# --- the scan path (narrow="scan") -------------------------------------------
+
+
+@pytest.mark.parametrize("m", [512, 1024])
+@pytest.mark.parametrize("scene", ["mixed", "spheres"])
+def test_keyed_cull_kernel_matches_plain(cuda, bounce_stacks, scene, m):
+    """Survivors equal and keys within 2 ulp (bit-equal where both take
+    the correctly rounded root and quotient) of the plain keyed cull."""
+    tables, rays8, R = bounce_stacks[scene]
+    rays_s, _ = coherence_sort(rays8, tables.spheres, m, R)
+    before = kernels.launches["cluster_cull_keyed"]
+    keys = cuda_scan.cluster_keys(tables.spheres, rays_s, m)
+    assert kernels.launches["cluster_cull_keyed"] == before + 1
+    keys_p = keys_plain(tables.spheres, rays_s, m)
+    assert torch.equal(keys < 3e38, keys_p < 3e38)
+    ulps = (keys.view(torch.int32).long()
+            - keys_p.view(torch.int32).long()).abs().max()
+    assert int(ulps) <= 2, int(ulps)
+    assert 0 < int((keys < 3e38).sum(1).max()) <= tables.spheres.shape[0]
+
+
+@pytest.mark.parametrize("cull", ["exact", "cone"])
+@pytest.mark.parametrize("scene", ["mixed", "spheres"])
+def test_scan_kernel_bit_equal_to_full_sweep(cuda, bounce_stacks, scene,
+                                             cull):
+    """t, idx and rows bit-equal to dense_sweep.cu walking every tile and
+    to the job path; occlusion equal; outputs and per-tile stats equal to
+    the plain scan's."""
+    tables, rays8, R = bounce_stacks[scene]
+    m = 1024
+    before = dict(kernels.launches)
+    t, idx, rows = cuda_scan.closest_with_row(tables, rays8, R, cull=cull)
+    occ = cuda_scan.shadow(tables, rays8, cull=cull)
+    n_cull = 2 if cull == "exact" else 0
+    assert kernels.launches["scan_sweep"] == before["scan_sweep"] + 2
+    assert kernels.launches["cluster_cull_keyed"] == \
+        before["cluster_cull_keyed"] + n_cull
+    for k in ("dense_sweep", "job_sweep", "cluster_cull"):
+        assert kernels.launches[k] == before[k]
+    t_f, idx_f, rows_f = cuda_dense.full_sweep(tables, rays8, False, R)
+    occ_f = cuda_dense.full_sweep(tables, rays8, True)
+    assert torch.equal(idx, idx_f)
+    assert torch.equal(t.view(torch.int32), t_f.view(torch.int32))
+    assert torch.equal(rows.view(torch.int32), rows_f.view(torch.int32))
+    assert torch.equal(occ, occ_f)
+    t_j, idx_j, rows_j = cuda_dense.closest_with_row(tables, rays8, R)
+    assert torch.equal(idx, idx_j)
+    assert torch.equal(t.view(torch.int32), t_j.view(torch.int32))
+    assert torch.equal(rows.view(torch.int32), rows_j.view(torch.int32))
+
+    # One sorted stack and its worklists through the kernel and the plain
+    # version, both modes: outputs and per-tile stats.
+    rays_s, perm = coherence_sort(rays8, tables.spheres, m, R)
+    lists = cuda_scan.worklists_keyed(tables.spheres, rays_s, m, cull)
+    t_k, idx_k, _, stats = cuda_scan.scan_sweep(
+        tables, rays_s, perm, *lists, m, 2 * R, False, R, with_stats=True)
+    occ_k, stats_any = cuda_scan.scan_sweep(
+        tables, rays_s, perm, *lists, m, 2 * R, True, with_stats=True)
+    assert torch.equal(idx_k, idx_f) and torch.equal(occ_k, occ_f)
+    t_s, i_s, stats_p = scan_closest_plain(tables, rays_s, *lists, m,
+                                           with_stats=True)
+    occ_s, stats_any_p = scan_shadow_plain(tables, rays_s, *lists, m,
+                                           with_stats=True)
+    keep = perm.long() < 2 * R
+    assert torch.equal(i_s[keep], idx_k[perm.long()[keep]])
+    assert torch.equal(t_s[keep], t_k[perm.long()[keep]])
+    assert torch.equal(occ_s[keep], occ_k[perm.long()[keep]])
+    assert torch.equal(stats.cpu(), stats_p)
+    assert torch.equal(stats_any.cpu(), stats_any_p)
+    assert int(stats[:, 1].sum()) > 0
+
+
+@pytest.mark.parametrize("scene", ["viewer", "mixed"])
+def test_scan_frames_bit_equal_to_job_frames(cuda, scene):
+    world = NativeWorld(scene)
+    world.update_camera(RES, RES)
+    tables = build_world_tables(world, "cuda")
+    cam = torch.from_numpy(np.asarray(world.camera(), np.float32)).cuda()
+    jit = torch.zeros(2, device=cuda)
+    for f in (1, 2):
+        a = trace_pixels_dense(tables, cam, f, jit, RES, RES, 1, 4,
+                               narrow="scan")
+        b = trace_pixels_dense(tables, cam, f, jit, RES, RES, 1, 4)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.isfinite(a).all() and float(a.mean()) > 0
+
+
+def test_renderer_spheres_scan_on_card_counts_launches(cuda):
+    """spheres through `narrow="scan"`: per frame of depth 3, one primary
+    and three fused sweeps, each a keyed cull and a scan sweep; the
+    accumulator equals the default Renderer's bit for bit."""
+    cfg = dict(width=RES, height=RES, max_depth=3)
+    r = Renderer("spheres", RenderConfig(**cfg), device="cuda",
+                 narrow="scan")
+    ref = Renderer("spheres", RenderConfig(**cfg), device="cuda")
+    for _ in range(2):
+        r.render_frame()
+        ref.render_frame()
+        img = r.present()
+    assert img.shape == (RES, RES, 3) and np.isfinite(r.radiance()).all()
+    assert torch.equal(r.accum.view(torch.int32),
+                       ref.accum.view(torch.int32))
+    assert r.launches == {"dense_sweep": 0, "cluster_cull": 0,
+                          "job_sweep": 0, "cluster_cull_keyed": 2 * 4,
+                          "scan_sweep": 2 * 4, "shade_rows": 2 * 3,
                           "fetch_rows": 0, "fetch_quad": 0}

@@ -101,13 +101,15 @@ def _jax_key(ro, rd, t_max, m_tile, seg_start, sph_flat, tune):
 
 
 def test_tune_constants_are_the_jax_defaults():
-    """The port keeps one sort key and one group size: the JAX package's
-    defaults."""
+    """The port keeps one sort key and one group size per narrow phase:
+    the JAX package's defaults."""
     jt = JaxTune()
     assert (jt.key_mode, jt.narrow) == ("obox", "jobs")
     assert (port_tune.DIR_BITS, port_tune.CELL_BITS,
             port_tune.CELL_FLOOR_BITS, port_tune.M_TILE3) == (jt.dir_bits, jt.cell_bits, jt.cell_floor_bits,
                               jt.m_tile3)
+    # The scan path's tile size and the cone cull's subtile.
+    assert (port_tune.M_TILE2, port_tune.SUBTILE) == (jt.m_tile2, jt.subtile)
 
 
 def _segment_start(split, g):

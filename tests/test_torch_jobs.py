@@ -45,7 +45,8 @@ from tests.glb_fixture import character_glb
 from tests.test_two_level import (drain_world, grid_wt,  # noqa: F401
                                   ladder_world)
 from tests.torch_common import (assert_near_ties, camera_rays,
-                                jax_and_port_tables, job_cases, stack8)
+                                jax_and_port_tables, job_cases, scaled_case,
+                                stack8)
 
 
 @pytest.fixture(scope="module")
@@ -99,18 +100,10 @@ def test_job_path_matches_jax_run3(cases, grid_wt, ladder_world,  # noqa: F811
         assert differ.size <= 15, differ.size  # shared-edge lanes only
 
 
-def _scaled(case_rays):
-    """|d| ~ 10 and every 5th lane's t_max cut to a tenth."""
-    tables, ro, rd, t_max, split = case_rays
-    lane = np.arange(t_max.size)
-    t = np.where(lane % 5 == 1, t_max * 0.01, t_max * 0.1)
-    return tables, ro, rd * 10.0, t.astype(np.float32), split
-
-
 @pytest.mark.parametrize("case", ["grid", "ladder", "drain", "mixed",
                                   "spheres"])
 def test_job_path_bit_equal_to_full_sweep(cases, case):
-    tables, ro, rd, t_max, split = _scaled(cases[case])
+    tables, ro, rd, t_max, split = scaled_case(cases[case])
     rays8 = stack8(ro, rd, t_max)
     before = dict(kernels.launches)
     t, idx, rows = cuda_dense.closest_with_row(tables, rays8, split)
@@ -182,9 +175,9 @@ def test_bounce_rays_are_the_loops_sweeps(monkeypatch, scene, depth):
     swept = []
     closest = dense_trace.closest_with_row
 
-    def spy(tables, rays8, row_from_lane=0):
+    def spy(tables, rays8, row_from_lane=0, narrow="jobs"):
         swept.append(rays8.clone())
-        return closest(tables, rays8, row_from_lane)
+        return closest(tables, rays8, row_from_lane, narrow)
 
     monkeypatch.setattr(dense_trace, "closest_with_row", spy)
     dense_trace.ray_color_dense_rows(

@@ -12,7 +12,10 @@
   G-buffer-seeded cornell at 32^2 d4, each seeded from its own G-buffer.
   The textured quad's mean at 64^2 d8 over 4 frames within 2% of JAX's.
   And on the third slice's: `spheres` (257,136 tris over 2,009 tiles) at
-  16^2 d3, frames 1..2.
+  16^2 d3, frames 1..2. And on the fourth's: mixed (35 tiles) at 32^2 d4
+  through `narrow="scan"`, frames 1..2, bit-equal to the `narrow="jobs"`
+  frames and within the same tolerance of the JAX frames traced with
+  `TuneConfig(narrow="scan")`.
 - goldens: the port's mean radiance of every untextured preset within
   tests/test_golden.py's bounds (cornell 0.2597 +- 0.03, ..., spheres
   0.0382 +- 0.006). Every multi-tile scene (the character GLB, viewer,
@@ -21,10 +24,12 @@
 - present: the port's `postprocess` on the same accum/history: HDR history
   allclose at rtol 1e-5, LDR within 1 code and equal on >= 99%.
 - Renderer: CPU frames are finite, for cornell and for mixed through the
-  job-stream path; "cuda" raises without a card; a textured scene renders
-  and presents, and `render_frame(use_gbuffer=True)` gives the traced
-  frame while counting the G-buffer's W*H rays in place of the primaries;
-  on the CPU a scene over 16384 world tris raises NotImplementedError.
+  job-stream path and, with `narrow="scan"`, the scan path (the same
+  accumulator bit for bit; an unknown narrow phase raises); "cuda" raises
+  without a card; a textured scene renders and presents, and
+  `render_frame(use_gbuffer=True)` gives the traced frame while counting
+  the G-buffer's W*H rays in place of the primaries; on the CPU a scene
+  over 16384 world tris raises NotImplementedError.
 - the package imports no JAX and loads no file of the JAX package: a fresh
   process renders a CPU frame, and its scene compiler is the port's own
   build.
@@ -46,6 +51,7 @@ from webgpu_raytracer_tpu.ops.dense_trace import \
 from webgpu_raytracer_tpu.ops.gbuffer import render_gbuffer as jax_gbuffer
 from webgpu_raytracer_tpu.ops.postprocess import \
     postprocess as jax_postprocess
+from webgpu_raytracer_tpu.ops.tune import TuneConfig as JaxTune
 from webgpu_raytracer_tpu.render.resources import build_device_scene
 from webgpu_raytracer_tpu.utils import textures as jax_textures
 from webgpu_raytracer_tpu_torch import (NativeWorld, Renderer, RenderConfig,
@@ -75,8 +81,11 @@ SLICE2_FRAMES = 4
 # The third slice's: multi-tile scenes through the job-stream path.
 SLICE3 = {"spheres": ("spheres", None, 16, 3, False)}
 SLICE3_FRAMES = 2
+# The fourth slice's: a multi-tile scene through the scan path.
+SLICE4 = {"mixed": ("mixed", None, 32, 4, False)}
+SLICE4_FRAMES = 2
 _jax_trace = jax.jit(jax_trace, static_argnames=(
-    "width", "height", "spp", "max_depth", "with_stats"))
+    "width", "height", "spp", "max_depth", "with_stats", "tune"))
 
 
 @pytest.fixture(scope="module")
@@ -126,9 +135,11 @@ def _both_textures(world):
     return jtex, ptex
 
 
-def _slice2_frames(case, frames, res=None, depth=None):
-    """Per frame: (JAX col, JAX rays, port col, port rays)."""
-    scene_name, glb, res0, depth0, seeded = {**SLICE2, **SLICE3}[case]
+def _slice2_frames(case, frames, res=None, depth=None, narrow="jobs"):
+    """Per frame: (JAX col, JAX rays, port col, port rays), both packages
+    with the narrow phase `narrow`."""
+    scene_name, glb, res0, depth0, seeded = {**SLICE2, **SLICE3,
+                                             **SLICE4}[case]
     res, depth = res or res0, depth or depth0
     world, wt, tables = jax_and_port_tables(scene_name, res,
                                             glb() if glb else None)
@@ -146,10 +157,12 @@ def _slice2_frames(case, frames, res=None, depth=None):
                                    jnp.asarray(f, jnp.int32),
                                    jnp.zeros(2, jnp.float32), width=res,
                                    height=res, spp=1, max_depth=depth,
-                                   with_stats=True, seed_wt_idx=jseed)
+                                   with_stats=True, seed_wt_idx=jseed,
+                                   tune=JaxTune(narrow=narrow))
         col_t, rays_t = trace_pixels_dense(
             tables, torch.from_numpy(cam), f, torch.zeros(2), res, res, 1,
-            depth, with_stats=True, textures=ptex, seed_wt_idx=pseed)
+            depth, with_stats=True, textures=ptex, seed_wt_idx=pseed,
+            narrow=narrow)
         out.append((np.asarray(col_j), float(rays_j), col_t.numpy(),
                     float(rays_t)))
     return out
@@ -184,6 +197,29 @@ def test_spheres_trace_matches_jax(spheres_frames, frame):
     tolerance."""
     a, rays_a, b, rays_b = spheres_frames[frame - 1]
     assert b.shape == a.shape and np.isfinite(b).all()
+    rel = np.abs(a - b).max(1) / np.maximum(np.abs(a).max(1), 1e-3)
+    frac = (rel < 1e-3).mean()
+    assert frac >= 0.95, f"{frac:.3%} lanes match"
+    assert abs(a.mean() - b.mean()) < 0.02 * max(a.mean(), 1e-3)
+    assert abs(rays_a - rays_b) <= 0.02 * rays_a
+
+
+@pytest.fixture(scope="module")
+def scan_frames():
+    return (_slice2_frames("mixed", SLICE4_FRAMES, narrow="scan"),
+            _slice2_frames("mixed", SLICE4_FRAMES, narrow="jobs"))
+
+
+@pytest.mark.parametrize("frame", range(1, SLICE4_FRAMES + 1))
+def test_scan_trace_bit_equal_to_jobs_and_matches_jax(scan_frames, frame):
+    """mixed 32^2 d4 through the scan path: the job path's frame bit for
+    bit (both narrow phases give the full sweep's hits), and the cornell
+    tolerance against JAX."""
+    a, rays_a, b, rays_b = scan_frames[0][frame - 1]
+    _, _, b_jobs, rays_jobs = scan_frames[1][frame - 1]
+    np.testing.assert_array_equal(b.view(np.int32), b_jobs.view(np.int32))
+    assert rays_b == rays_jobs
+    assert b.shape == a.shape and np.isfinite(b).all() and b.mean() > 0.01
     rel = np.abs(a - b).max(1) / np.maximum(np.abs(a).max(1), 1e-3)
     frac = (rel < 1e-3).mean()
     assert frac >= 0.95, f"{frac:.3%} lanes match"
@@ -279,6 +315,32 @@ def test_renderer_multi_tile_cpu_frames():
     assert img.shape == (32, 32, 3) and 0 < img.mean() < 255
     assert np.isfinite(r.radiance()).all()
     assert r.launches == {k: 0 for k in kernels.launches}  # plain on CPU
+
+
+def test_renderer_scan_cpu_frames():
+    """`Renderer(..., narrow="scan")` renders mixed through the scan path's
+    plain versions, to the accumulator of the default Renderer bit for
+    bit; an unknown narrow phase raises at construction."""
+    cfg = dict(width=32, height=32, max_depth=4)
+    scan = Renderer("mixed", RenderConfig(**cfg), device="cpu",
+                    narrow="scan")
+    jobs = Renderer("mixed", RenderConfig(**cfg), device="cpu")
+    assert (scan.narrow, jobs.narrow) == ("scan", "jobs")
+    for _ in range(2):
+        scan.render_frame()
+        jobs.render_frame()
+        img = scan.present()
+    assert img.shape == (32, 32, 3) and 0 < img.mean() < 255
+    assert np.isfinite(scan.radiance()).all()
+    assert torch.equal(scan.accum.view(torch.int32),
+                       jobs.accum.view(torch.int32))
+    assert float(scan.last_rays) == float(jobs.last_rays)
+    assert scan.launches == {k: 0 for k in kernels.launches}  # plain on CPU
+    with pytest.raises(ValueError, match="narrow"):
+        Renderer("mixed", RenderConfig(**cfg), device="cpu", narrow="bogus")
+    with pytest.raises(ValueError, match="narrow"):
+        Renderer("cornell", RenderConfig(**cfg), device="cpu",
+                 narrow="bogus")
 
 
 def test_renderer_cuda_raises_without_card():

@@ -180,3 +180,12 @@ def job_cases(grid_wt, ladder_world, drain_world):
     for name in ("mixed", "spheres"):
         out[name] = bounce_case(name)
     return out
+
+
+def scaled_case(case_rays):
+    """A `job_cases` entry with |d| ~ 10 (primary rays are not unit length)
+    and t_max cut to a tenth, every 5th lane's to a hundredth."""
+    tables, ro, rd, t_max, split = case_rays
+    lane = np.arange(t_max.size)
+    t = np.where(lane % 5 == 1, t_max * 0.01, t_max * 0.1)
+    return tables, ro, rd * 10.0, t.astype(np.float32), split

@@ -1,7 +1,8 @@
-// The per-triangle ray test shared by dense_sweep.cu and job_sweep.cu, so
-// both kernels run the same arithmetic: a 128-triangle tile of the f32
-// features table staged in shared memory, then walked by one thread per ray.
-// And the segment-sphere test shared by cluster_cull.cu and job_sweep.cu.
+// The per-triangle ray test shared by dense_sweep.cu, job_sweep.cu and
+// scan_sweep.cu, so the three kernels run the same arithmetic: a
+// 128-triangle tile of the f32 features table staged in shared memory, then
+// walked by one thread per ray. And the segment-sphere test shared by
+// cluster_cull.cu, job_sweep.cu and scan_sweep.cu.
 //
 // features (16, 5*tw) f32, column groups [s0 | s1 | s2 | tn | td]. Per
 // triangle: s_k = f . [d, o x d] (k = 0, 1, 2), tn = f . [o, 1], td = f . d
@@ -11,7 +12,9 @@
 // (webgpu_raytracer_tpu_torch/ops/dense.py::_chunk_t) evaluates the same
 // expression, so kernels and plain versions agree bit for bit. Inside test
 // inclusive, |td| >= 1e-6, strict t_min < t < t_max; closest mode commits
-// on strict < in ascending index order, so the lowest index wins exact ties.
+// on strict < in ascending index order, so the lowest index wins exact ties
+// when tiles come in ascending id; a kernel that takes them in another
+// order (scan_sweep.cu) also commits an equal t from a lower index.
 
 #pragma once
 
@@ -84,8 +87,10 @@ __device__ __forceinline__ void stage_tile(float (*tri)[kTile],
 }
 
 // Walk a staged tile of cnt triangles (global indices base + j). Closest
-// mode lowers (best_t, best_i) on strict <; any-hit mode sets occ at the
-// first hit inside (t_min, t_max) and stops.
+// mode lowers (best_t, best_i) on strict <, and with kAnyOrder (tiles not
+// in ascending id) also on an equal t from a lower index; any-hit mode sets
+// occ at the first hit inside (t_min, t_max) and stops.
+template <bool kAnyOrder = false>
 __device__ __forceinline__ void walk_tile(float (*tri)[kTile], int cnt,
                                           int base, const Ray& r, float t_min,
                                           float t_max, bool any_hit,
@@ -117,7 +122,8 @@ __device__ __forceinline__ void walk_tile(float (*tri)[kTile], int cnt,
         occ = true;
         return;
       }
-    } else if (t < best_t) {
+    } else if (t < best_t ||
+               (kAnyOrder && t == best_t && base + j < best_i)) {
       best_t = t;
       best_i = base + j;
     }

@@ -6,15 +6,21 @@ occlusion, dispatched by tile count as the JAX package's `_run` does.
   `ops/pallas_dense.py::_kernel` (the single-tile sweep launched by
   `_run`). Its source says what bounds it on the card (instruction issue,
   as measured) and what the design does about that.
-- Every multi-tile scene takes the job-stream path (`ops/cuda_jobs.py`):
-  coherence sort, exact cluster cull, `csrc/job_sweep.cu`, with outputs in
-  the caller's lane order. The rule is the same on both devices.
+- Every multi-tile scene takes one of two narrow phases behind the
+  coherence sort, chosen by the caller's `narrow` as the JAX package's
+  `TuneConfig.narrow` chooses `_run3` or `_run2`: `"jobs"` (the default) is
+  the job-stream path (`ops/cuda_jobs.py`: exact cluster cull,
+  `csrc/job_sweep.cu`), `"scan"` the scan path (`ops/cuda_scan.py`: keyed
+  near-to-far cull, `csrc/scan_sweep.cu`). Both write their outputs in the
+  caller's lane order and give the same t, idx, rows and occlusion bit for
+  bit. The rule is the same on both devices; a single-tile scene ignores
+  `narrow`.
 
-A wrapper takes the plain versions (`ops/dense.py`, and the job path's)
+A wrapper takes the plain versions (`ops/dense.py`, and the two paths')
 only for tensors on the CPU. For CUDA tensors it launches the kernels or
 raises: there is no fallback. `full_sweep` walks every tile with
-`dense_sweep.cu` whatever the tile count: `chip_smoke.py` holds the job
-path against it.
+`dense_sweep.cu` whatever the tile count: `chip_smoke.py` holds both
+multi-tile paths against it.
 """
 
 from __future__ import annotations
@@ -22,14 +28,25 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from . import cuda_jobs
+from . import cuda_jobs, cuda_scan
 from .dense import TRI_CHUNK, T_MIN, closest_plain, rows_plain, shadow_plain
 from ..render.worldtris import FEAT_K, SHADE_K, WorldTables
 
 
+NARROW = {"jobs": cuda_jobs, "scan": cuda_scan}
+
+
 def multi_tile(tables: WorldTables) -> bool:
-    """More than one 128-triangle tile: the job-stream path's scenes."""
+    """More than one 128-triangle tile: the scenes of the job-stream and
+    scan paths."""
     return tables.features.shape[-1] // 5 > TRI_CHUNK
+
+
+def _narrow_phase(narrow: str):
+    """The module of a multi-tile narrow phase; raises on an unknown one."""
+    if narrow not in NARROW:
+        raise ValueError(f"narrow {narrow!r}: one of {sorted(NARROW)}")
+    return NARROW[narrow]
 
 
 def _check_tables(tables: WorldTables, device) -> int:
@@ -89,19 +106,22 @@ def full_sweep(tables: WorldTables, rays8: torch.Tensor, any_hit: bool,
 
 
 def closest_with_row(tables: WorldTables, rays8: torch.Tensor,
-                     row_from_lane: int = 0):
+                     row_from_lane: int = 0, narrow: str = "jobs"):
     """Closest hit plus winner rows: (t (R,), idx (R,) int32,
     rows (SHADE_K, R - row_from_lane)).
 
     Rows cover lanes [row_from_lane:] only: the fused per-bounce call packs
-    the shadow lanes first, and they never read rows."""
+    the shadow lanes first, and they never read rows. `narrow` ("jobs" |
+    "scan") picks a multi-tile scene's narrow phase."""
+    phase = _narrow_phase(narrow)
     if multi_tile(tables):
-        return cuda_jobs.closest_with_row(tables, rays8, row_from_lane)
+        return phase.closest_with_row(tables, rays8, row_from_lane)
     return full_sweep(tables, rays8, False, row_from_lane)
 
 
-def shadow(tables: WorldTables, rays8: torch.Tensor):
+def shadow(tables: WorldTables, rays8: torch.Tensor, narrow: str = "jobs"):
     """Any-hit occlusion: bool (R,)."""
+    phase = _narrow_phase(narrow)
     if multi_tile(tables):
-        return cuda_jobs.shadow(tables, rays8)
+        return phase.shadow(tables, rays8)
     return full_sweep(tables, rays8, True)

@@ -39,7 +39,7 @@ from .tune import M_TILE3
 from ..render.worldtris import FEAT_K, SHADE_K, WorldTables
 
 
-def _check_sorted(rays_s: torch.Tensor, g: int):
+def check_sorted(rays_s: torch.Tensor, g: int):
     kernels.check(rays_s, "rays_s", torch.float32)
     if rays_s.dim() != 2 or rays_s.shape[0] != 8 or rays_s.shape[1] % g:
         raise ValueError(f"rays_s: shape {tuple(rays_s.shape)}, expected "
@@ -49,7 +49,7 @@ def _check_sorted(rays_s: torch.Tensor, g: int):
     return rays_s.shape[1]
 
 
-def _check_spheres(spheres: torch.Tensor, dev) -> int:
+def check_spheres(spheres: torch.Tensor, dev) -> int:
     kernels.check(spheres, "spheres", torch.float32, device=dev)
     if spheres.dim() != 2 or spheres.shape[1] != 4 or spheres.shape[0] < 1:
         raise ValueError(f"spheres: shape {tuple(spheres.shape)}, expected "
@@ -59,6 +59,24 @@ def _check_spheres(spheres: torch.Tensor, dev) -> int:
     return spheres.shape[0]
 
 
+def check_tables(tables: WorldTables, dev) -> tuple[int, int]:
+    """Raise unless the tables fit the narrow-phase kernels; returns (padded
+    triangle count, tile count)."""
+    tw = tables.features.shape[-1] // 5
+    kernels.check(tables.features, "features", torch.float32,
+                  (FEAT_K, 5 * tw), dev)
+    kernels.check(tables.shade_table, "shade_table", torch.float32,
+                  (tw, SHADE_K), dev)
+    ct = check_spheres(tables.spheres, dev)
+    if ct != -(-tw // TRI_CHUNK):
+        raise ValueError(f"spheres: {ct} tiles, the tables have "
+                         f"{-(-tw // TRI_CHUNK)}")
+    if not 0 <= tables.valid_count <= tw:
+        raise ValueError(f"valid_count {tables.valid_count} outside "
+                         f"[0, {tw}]")
+    return tw, ct
+
+
 def worklists(spheres: torch.Tensor, rays_s: torch.Tensor, g: int):
     """(order (G, Ct) int32, counts (G,) int32) of a sorted (8, rp) stack:
     row g of `order` starts with its counts[g] surviving tile ids in
@@ -66,9 +84,9 @@ def worklists(spheres: torch.Tensor, rays_s: torch.Tensor, g: int):
     written."""
     if rays_s.device.type == "cpu":
         return worklists_plain(spheres, rays_s, g)
-    rp = _check_sorted(rays_s, g)
+    rp = check_sorted(rays_s, g)
     dev = rays_s.device
-    ct = _check_spheres(spheres, dev)
+    ct = check_spheres(spheres, dev)
     order = torch.empty((rp // g, ct), dtype=torch.int32, device=dev)
     counts = torch.empty(rp // g, dtype=torch.int32, device=dev)
     lib = kernels.library()
@@ -82,7 +100,8 @@ def worklists(spheres: torch.Tensor, rays_s: torch.Tensor, g: int):
     return order, counts
 
 
-def _unpermute(x_s: torch.Tensor, perm: torch.Tensor, R: int):
+def unpermute(x_s: torch.Tensor, perm: torch.Tensor, R: int):
+    """Sorted lanes back to the caller's order, the padding dropped."""
     out = torch.empty_like(x_s)
     out[perm.long()] = x_s
     return out[:R]
@@ -96,25 +115,14 @@ def job_sweep(tables: WorldTables, rays_s: torch.Tensor, perm, order,
     if rays_s.device.type == "cpu":
         if any_hit:
             occ = jobs_shadow_plain(tables, rays_s, order, counts, g)
-            return _unpermute(occ, perm, R)
+            return unpermute(occ, perm, R)
         t_s, i_s = jobs_closest_plain(tables, rays_s, order, counts, g)
-        idx = _unpermute(i_s, perm, R)
-        return (_unpermute(t_s, perm, R), idx,
+        idx = unpermute(i_s, perm, R)
+        return (unpermute(t_s, perm, R), idx,
                 rows_plain(tables.shade_table, idx[row_from_lane:]))
-    rp = _check_sorted(rays_s, g)
+    rp = check_sorted(rays_s, g)
     dev = rays_s.device
-    tw = tables.features.shape[-1] // 5
-    kernels.check(tables.features, "features", torch.float32,
-                  (FEAT_K, 5 * tw), dev)
-    kernels.check(tables.shade_table, "shade_table", torch.float32,
-                  (tw, SHADE_K), dev)
-    ct = _check_spheres(tables.spheres, dev)
-    if ct != -(-tw // TRI_CHUNK):
-        raise ValueError(f"spheres: {ct} tiles, the tables have "
-                         f"{-(-tw // TRI_CHUNK)}")
-    if not 0 <= tables.valid_count <= tw:
-        raise ValueError(f"valid_count {tables.valid_count} outside "
-                         f"[0, {tw}]")
+    tw, ct = check_tables(tables, dev)
     kernels.check(perm, "perm", torch.int32, (rp,), dev)
     kernels.check(order, "order", torch.int32, (rp // g, ct), dev)
     kernels.check(counts, "counts", torch.int32, (rp // g,), dev)

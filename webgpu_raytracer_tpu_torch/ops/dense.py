@@ -26,6 +26,12 @@ no lane of the group can hit inside its interval, they give the full
 walk's t and idx bit for bit. (The kernel also skips, lane by lane, a
 tile whose sphere the lane's segment cannot touch; that changes no
 result, so the plain versions walk every worklisted tile.)
+`scan_closest_plain` / `scan_shadow_plain` are the plain versions of the
+scan kernel (`csrc/scan_sweep.cu`): each m-lane tile walks its keyed
+worklist near to far, stops at the first key beyond every lane's reach,
+skips an entry that no lane's open interval touches, and commits ties to
+the lowest triangle index, so they too give the full walk's t and idx bit
+for bit, whatever the order of the worklist.
 """
 
 from __future__ import annotations
@@ -165,6 +171,83 @@ def jobs_shadow_plain(tables, rays_s: torch.Tensor, order, counts, g: int):
         hit = (ok & (t > T_MIN) & (t < rays[6][:, None])).any(dim=1)
         occ[lanes] = occ[lanes] | hit
     return occ
+
+
+def _scan_plain(tables, rays_s, order, keys, counts, m: int, any_hit: bool):
+    """The scan narrow phase over a sorted (8, rp) stack, tile by tile:
+    (best_t, best_i, occ, stats), stats (T, 3) int32 [entries scanned,
+    entries processed, worklist length] per tile."""
+    # cluster_cull imports this module's T_MIN, so it is imported here.
+    from .cluster_cull import HI_NUDGE, pair_ok, reach_terms
+
+    tw = tables.features.shape[1] // 5
+    feats = tables.features.view(-1, 5, tw)
+    spheres = tables.spheres
+    rp = rays_s.shape[1]
+    t_max = rays_s[6]
+    best_t = t_max.clone()
+    best_i = torch.full_like(t_max, -1, dtype=torch.int32)
+    occ = torch.zeros(rp, dtype=torch.bool, device=rays_s.device)
+    d = rays_s[0:3]
+    dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    dlen, wcap = reach_terms(rays_s, spheres)
+    stats = torch.zeros((rp // m, 3), dtype=torch.int32)
+    stats[:, 2] = counts.cpu()
+    for tile, count in enumerate(stats[:, 2].tolist()):
+        lanes = slice(tile * m, (tile + 1) * m)
+        rays = rays_s[:, lanes]
+        for k in range(count):
+            # A lane's open interval: up to its best hit so far; closed
+            # once occluded in any-hit mode. Dead lanes have t_max 0.
+            open_t = (torch.where(occ[lanes], 0.0, t_max[lanes]) if any_hit
+                      else best_t[lanes])
+            reach = torch.minimum(open_t * dlen[lanes], wcap[lanes])
+            # Sorted early exit: no lane reaches this key, nor any later.
+            if not bool(((open_t > 0.0)
+                         & (keys[tile, k] <= reach * HI_NUDGE)).any()):
+                break
+            stats[tile, 0] += 1
+            c = int(order[tile, k])
+            touch = pair_ok(rays, dd[lanes], open_t, spheres[c:c + 1])[0]
+            if not bool(touch.any()):
+                continue
+            stats[tile, 1] += 1
+            c0 = c * TRI_CHUNK
+            c1 = min(c0 + TRI_CHUNK, tables.valid_count)
+            if c1 <= c0:
+                continue
+            t, ok = _chunk_t(rays, feats, c0, c1)
+            ok = ok & touch[:, None] & (t > T_MIN) & (t < t_max[lanes, None])
+            if any_hit:
+                occ[lanes] |= ok.any(dim=1)
+                continue
+            cmin, carg = torch.min(torch.where(ok, t, float("inf")), dim=1)
+            cidx = (carg + c0).to(torch.int32)
+            cur_t, cur_i = best_t[lanes], best_i[lanes]
+            upd = (cmin < cur_t) | ((cmin == cur_t) & (cidx < cur_i))
+            best_t[lanes] = torch.where(upd, cmin, cur_t)
+            best_i[lanes] = torch.where(upd, cidx, cur_i)
+    return best_t, best_i, occ, stats
+
+
+def scan_closest_plain(tables, rays_s: torch.Tensor, order, keys, counts,
+                       m: int, with_stats: bool = False):
+    """Closest hit of a sorted (8, rp) stack, each m-lane tile scanning its
+    near-to-far worklist: (t (rp,), idx (rp,) int32) in sorted lane order;
+    with_stats appends the (T, 3) int32 [scanned, processed, count] rows.
+    On an exact-t tie the lowest triangle index wins."""
+    t, idx, _, stats = _scan_plain(tables, rays_s, order, keys, counts, m,
+                                   False)
+    return (t, idx, stats) if with_stats else (t, idx)
+
+
+def scan_shadow_plain(tables, rays_s: torch.Tensor, order, keys, counts,
+                      m: int, with_stats: bool = False):
+    """Any-hit occlusion of a sorted (8, rp) stack over each tile's
+    near-to-far worklist: bool (rp,) in sorted lane order."""
+    _, _, occ, stats = _scan_plain(tables, rays_s, order, keys, counts, m,
+                                   True)
+    return (occ, stats) if with_stats else occ
 
 
 def rows_plain(shade_table: torch.Tensor, idx: torch.Tensor):

@@ -16,6 +16,11 @@ The port of the JAX package's `ops/dense_trace.py`:
   (`shade_from_rowT`), light rows come through the row fetch kernel and
   texels through the quad fetch kernel (`ops/cuda_fetch.py`).
 
+Every sweep takes the caller's `narrow` ("jobs", the default, or "scan"),
+threaded explicitly from `Renderer` down as the JAX package threads its
+`tune`: the narrow phase of a multi-tile scene (`ops/cuda_dense.py`). Both
+give the same hits bit for bit; a single-tile scene ignores it.
+
 Both loops use the same estimator and the same RNG streams as the JAX
 package. Differences of mechanism, not of result:
 - every one of `max_depth` bounces runs; there is no host sync for JAX's
@@ -216,11 +221,13 @@ def _mt_refine_t(rowT, ro: V3, rd: V3):
 
 
 def intersect_and_shade(tables: WorldTables, textures, ro: V3, rd: V3,
-                        active=None, level: int = 0) -> DenseHit:
+                        active=None, level: int = 0,
+                        narrow: str = "jobs") -> DenseHit:
     """Closest hit (one sweep launch) and its shading attributes. `active`
     None means every lane."""
     t_max = T_MAX if active is None else torch.where(active, T_MAX, 0.0)
-    t, idx, rowT = closest_with_row(tables, ray_stack(ro, rd, t_max))
+    t, idx, rowT = closest_with_row(tables, ray_stack(ro, rd, t_max),
+                                    narrow=narrow)
     t = torch.where(idx >= 0, _mt_refine_t(rowT, ro, rd), t)
     tex_u, tex_v, normal, geom_n, albedo = shade_from_rowT(
         textures, rowT, ro, rd, valid=idx >= 0, level=level,
@@ -310,13 +317,16 @@ def light_pdf_from_rowT(tables: WorldTables, rowT, t, l_dir: V3):
     return torch.where(cos_theta_l >= 1e-4, pdf, 0.0)
 
 
-def shadow_query(tables: WorldTables, ro: V3, rd: V3, t_max, active):
+def shadow_query(tables: WorldTables, ro: V3, rd: V3, t_max, active,
+                 narrow: str = "jobs"):
     """Any-hit occlusion of R lanes (one sweep launch): bool (R,)."""
-    return shadow(tables, ray_stack(ro, rd, torch.where(active, t_max, 0.0)))
+    return shadow(tables, ray_stack(ro, rd, torch.where(active, t_max, 0.0)),
+                  narrow=narrow)
 
 
 def fused_shadow_and_next(tables: WorldTables, textures, sro: V3, srd: V3,
-                          s_tmax, s_active, cro: V3, crd: V3, c_active):
+                          s_tmax, s_active, cro: V3, crd: V3, c_active,
+                          narrow: str = "jobs"):
     """One sweep launch for both per-bounce ray sets: the NEE shadow rays
     (lanes [0, R)) and the extension rays (lanes [R, 2R)), with winner rows
     for the extension lanes only. Occlusion is `closest hit exists`.
@@ -330,7 +340,8 @@ def fused_shadow_and_next(tables: WorldTables, textures, sro: V3, srd: V3,
     rays8[6, :R] = torch.where(s_active, s_tmax, 0.0)
     rays8[6, R:] = torch.where(c_active, T_MAX, 0.0)
     rays8[7] = 0.0
-    t, idx, rowT = closest_with_row(tables, rays8, row_from_lane=R)
+    t, idx, rowT = closest_with_row(tables, rays8, row_from_lane=R,
+                                    narrow=narrow)
     occluded = idx[:R] >= 0
     nt, nidx = t[R:], idx[R:]
     nt = torch.where(nidx >= 0, _mt_refine_t(rowT, cro, crd), nt)
@@ -343,7 +354,7 @@ def fused_shadow_and_next(tables: WorldTables, textures, sro: V3, srd: V3,
 
 def ray_color_dense(tables: WorldTables, textures, ro: V3, rd: V3,
                     rng: torch.Tensor, max_depth: int,
-                    hit0: Optional[DenseHit] = None):
+                    hit0: Optional[DenseHit] = None, narrow: str = "jobs"):
     """Returns (radiance V3, rng, rays): `rays` is a float64 device scalar,
     the EXACT count of rays traced (primaries unless seeded, plus per
     bounce the NEE shadow lanes and the extension lanes actually swept).
@@ -361,7 +372,7 @@ def ray_color_dense(tables: WorldTables, textures, ro: V3, rd: V3,
 
     primary = 0.0 if hit0 is not None else float(R)
     if hit0 is None:
-        hit0 = intersect_and_shade(tables, textures, ro, rd)
+        hit0 = intersect_and_shade(tables, textures, ro, rd, narrow=narrow)
     active = hit0.wt >= 0
     hit = hit0
     throughput = V3(ones, ones, ones)
@@ -474,13 +485,14 @@ def ray_color_dense(tables: WorldTables, textures, ro: V3, rd: V3,
         sro = hit_p + geom_n * eps
         s_tmax = ldist - 2.0 * end_eps
         if last:
-            occluded = shadow_query(tables, sro, ldir, s_tmax, nee_lane)
+            occluded = shadow_query(tables, sro, ldir, s_tmax, nee_lane,
+                                    narrow)
             do_next = torch.zeros_like(active)
         else:
             do_next = active
             occluded, hit = fused_shadow_and_next(
                 tables, textures, sro, ldir, s_tmax, nee_lane, ro, rd,
-                do_next)
+                do_next, narrow)
         take = nee_lane & ~occluded & (bsdf_pdf > 0.0)
         wgt = torch.where(
             take,
@@ -517,9 +529,11 @@ def _initial_state(ro: V3, rd: V3) -> torch.Tensor:
     ])
 
 
-def _sweep_bounce(tables: WorldTables, out, rays8, R: int):
+def _sweep_bounce(tables: WorldTables, out, rays8, R: int,
+                  narrow: str = "jobs"):
     """Sweep a bounce's fused (8, 2R) stack: the next (state, idx, rowT)."""
-    _, idx2, rowT = closest_with_row(tables, rays8, row_from_lane=R)
+    _, idx2, rowT = closest_with_row(tables, rays8, row_from_lane=R,
+                                     narrow=narrow)
     # Rows 19-26 (the rays just swept) are spent: row 19 becomes the next
     # bounce's occluded_prev in place, and rows 0-19 its state.
     out[19] = (idx2[:R] >= 0).to(torch.float32)
@@ -569,7 +583,8 @@ def bounce_rays(tables: WorldTables, camera24: torch.Tensor, width: int,
 
 def ray_color_dense_rows(tables: WorldTables, ro: V3, rd: V3,
                          rng: torch.Tensor, max_depth: int,
-                         hit0: Optional[DenseHit] = None):
+                         hit0: Optional[DenseHit] = None,
+                         narrow: str = "jobs"):
     """Row-state bounce loop: one shade launch and one fused 2R-lane sweep
     a bounce, estimator-identical to ray_color_dense for the 1x1 white
     texel. `hit0` (only its rowT and wt are read) seeds bounce 0 from a
@@ -580,7 +595,8 @@ def ray_color_dense_rows(tables: WorldTables, ro: V3, rd: V3,
     bounce, the NEE shadow lanes and the extension lanes actually swept."""
     R = ro.x.shape[0]
     if hit0 is None:
-        _, idx, rowT = closest_with_row(tables, ray_stack(ro, rd, T_MAX))
+        _, idx, rowT = closest_with_row(tables, ray_stack(ro, rd, T_MAX),
+                                        narrow=narrow)
         primary = float(R)
     else:
         idx, rowT = hit0.wt, hit0.rowT
@@ -591,7 +607,7 @@ def ray_color_dense_rows(tables: WorldTables, ro: V3, rd: V3,
     for depth in range(max_depth):
         out, rng, rays8 = shade(state, rng, rowT, idx, tables.light_rows,
                                 depth, tables.light_count, max_depth)
-        state, idx, rowT = _sweep_bounce(tables, out, rays8, R)
+        state, idx, rowT = _sweep_bounce(tables, out, rays8, R, narrow)
         rays = rays + out[15].sum(dtype=torch.float64) \
             + out[26].sum(dtype=torch.float64)
 
@@ -606,7 +622,8 @@ def trace_pixels_dense(tables: WorldTables, camera24: torch.Tensor,
                        frame_count: int, jitter: torch.Tensor, width: int,
                        height: int, spp: int, max_depth: int,
                        with_stats: bool = False, textures=None,
-                       seed_wt_idx: Optional[torch.Tensor] = None):
+                       seed_wt_idx: Optional[torch.Tensor] = None,
+                       narrow: str = "jobs"):
     """One progressive frame over the whole image: thin-lens primaries
     (the JAX package's `_trace_lanes`), traced by `ray_color_dense_rows`
     when `textures` is None (the 1x1 white placeholder) and by
@@ -617,7 +634,9 @@ def trace_pixels_dense(tables: WorldTables, camera24: torch.Tensor,
     JAX package. `seed_wt_idx` ((H*W,) int32, -1 = miss, a G-buffer's
     wt_idx): seed every sample's bounce 0 from it instead of tracing
     primaries; each sample rebuilds the hit with its own ray, so at lens
-    radius 0 the radiance is bit-identical to the traced path.
+    radius 0 the radiance is bit-identical to the traced path. `narrow`
+    ("jobs" | "scan") picks the narrow phase of a multi-tile scene's
+    sweeps (`ops/cuda_dense.py`); both give the same frame bit for bit.
 
     Returns (H*W, 3) radiance averaged over spp; with with_stats=True,
     (radiance, rays) with rays the exact float64 device count (seeded
@@ -654,14 +673,14 @@ def trace_pixels_dense(tables: WorldTables, camera24: torch.Tensor,
         if rows_path:
             hit0 = None if seed_wt_idx is None else seed_rows
             col, _, r = ray_color_dense_rows(tables, ro, d, rng, max_depth,
-                                             hit0=hit0)
+                                             hit0=hit0, narrow=narrow)
         else:
             hit0 = None
             if seed_wt_idx is not None:
                 hit0 = seed_hit_from_wt_idx(tables, textures, seed_wt_idx,
                                             ro, d)
             col, _, r = ray_color_dense(tables, textures, ro, d, rng,
-                                        max_depth, hit0=hit0)
+                                        max_depth, hit0=hit0, narrow=narrow)
         cx, cy, cz = cx + col.x, cy + col.y, cz + col.z
         rays = rays + r
     inv = 1.0 / spp

@@ -55,9 +55,11 @@ def unpack_normal_oct(ox, oy) -> V3:
 
 def render_gbuffer(tables: WorldTables, textures, camera24: torch.Tensor,
                    width: int, height: int, jitter=None,
-                   z_near: float = 0.01, z_far: float = 100.0) -> GBuffer:
+                   z_near: float = 0.01, z_far: float = 100.0,
+                   narrow: str = "jobs") -> GBuffer:
     """Cast pinhole primary rays (the same rays `trace_pixels_dense` makes
-    at lens radius 0) and emit the G-buffer set."""
+    at lens radius 0) and emit the G-buffer set. `narrow` picks a
+    multi-tile scene's narrow phase, as in `trace_pixels_dense`."""
     R = width * height
     lane = torch.arange(R, dtype=torch.int64, device=tables.device)
     px = (lane % width).to(torch.float32)
@@ -73,7 +75,7 @@ def render_gbuffer(tables: WorldTables, textures, camera24: torch.Tensor,
             c[5] + u * c[9] + v * c[13] - c[1],
             c[6] + u * c[10] + v * c[14] - c[2])
 
-    hit = intersect_and_shade(tables, textures, ro, rd)
+    hit = intersect_and_shade(tables, textures, ro, rd, narrow=narrow)
     found = hit.wt >= 0
 
     rowT = hit.rowT

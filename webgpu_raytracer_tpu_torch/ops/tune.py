@@ -1,19 +1,29 @@
-"""The tuning constants that the port's job-stream path reads.
+"""The tuning constants that the port's multi-tile paths read.
 
 The port's own copy of the fields of the JAX package's
-`ops/tune.TuneConfig` that its default multi-tile sweep uses, at the JAX
-defaults (measured there on a TPU; the port has not re-tuned them):
+`ops/tune.TuneConfig` that its multi-tile sweeps use, at the JAX defaults
+(measured there on a TPU; the port has not re-tuned them):
 
 - `DIR_BITS`, `CELL_BITS`, `CELL_FLOOR_BITS`: the coherence sort's key
   (`ops/coherence.py`), over the live ray origins' box (`key_mode="obox"`);
-- `M_TILE3`: lanes per ray group, the granularity of the cull's worklists
-  and the job kernel's block size.
+- `M_TILE3`: lanes per ray group of the job-stream path (`narrow="jobs"`,
+  the default), the granularity of its cull's worklists and its kernel's
+  block size;
+- `M_TILE2`: lanes per ray tile of the scan path (`narrow="scan"`), one
+  near-to-far worklist and one CUDA block each;
+- `SUBTILE`: lanes per cone of the cone cull (`ops/cluster_cull.
+  cone_worklists_plain`), which the scan path takes with `cull="cone"`.
 
-The other key modes (`key_mode="sbox"`, sign octants at `dir_bits=1`), the
-scan kernel's knobs (`m_tile2`, `prefetch_depth`, `proc_batch`,
-`scan_batch`), the measured-negative `seed_k` and `cull_sub`, the cone cull
-(`exact_cull=False`), `debug2` and the band and tail knobs are not carried
-over.
+The narrow phase itself is chosen per call (`narrow="jobs"` | `"scan"`,
+threaded from `Renderer` down to `ops/cuda_dense.py`), not here.
+
+Not carried over: the scan kernel's `prefetch_depth`, `proc_batch` and
+`scan_batch` (a DMA queue, a stacked MXU matmul and Mosaic's loop overhead:
+the TPU's mechanism, over which the JAX package's own tests show its
+outputs bit-identical); the measured-negative `seed_k` (with the scan
+kernel's seeded start) and `cull_sub`; the measurement-only `debug2`; the
+other key modes (`key_mode="sbox"`, sign octants at `dir_bits=1`); the band
+and tail knobs.
 """
 
 # Direction bins: DIR_BITS bits per normalised direction component.
@@ -25,5 +35,10 @@ CELL_BITS = 5
 CELL_FLOOR_BITS = 11
 # Lanes per ray group: one worklist and one CUDA block (a thread per lane).
 M_TILE3 = 128
+# Lanes per scan tile: one keyed worklist and one CUDA block.
+M_TILE2 = 1024
+# Lanes per direction cone of the cone cull.
+SUBTILE = 32
 
 assert M_TILE3 % 32 == 0 and M_TILE3 <= 1024
+assert M_TILE2 % 32 == 0 and M_TILE2 <= 1024 and M_TILE2 % SUBTILE == 0

@@ -7,9 +7,12 @@ the post-process chain. A scene's textures are decoded, packed into the
 (level 0, mip) quad-table pyramid and uploaded once, at construction.
 Untextured scenes take the row-state loop (the shade kernel); textured
 ones `ray_color_dense`. `render_frame(use_gbuffer=True)` renders the
-G-buffer first and seeds bounce 0 from it. PyTorch runs eagerly, so there
-is no compiled step: `build_pipeline(depth, spp)` only changes the
-parameters and resets the accumulation.
+G-buffer first and seeds bounce 0 from it. `narrow` ("jobs", the default,
+or "scan") picks the narrow phase of a multi-tile scene's sweeps, as the
+JAX package's `tune.narrow` does; the image is the same bit for bit.
+PyTorch runs eagerly, so there is no compiled step:
+`build_pipeline(depth, spp)` only changes the parameters and resets the
+accumulation.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from .. import kernels
 from ..config import RenderConfig
 from ..models.native import NativeWorld
+from ..ops.cuda_dense import NARROW
 from ..ops.dense_trace import trace_pixels_dense
 from ..ops.fetch import device_pyramid
 from ..ops.gbuffer import render_gbuffer
@@ -45,8 +49,12 @@ class Renderer:
     def __init__(self, scene_name: str = "cornell",
                  config: Optional[RenderConfig] = None, *,
                  obj_source: Optional[str] = None,
-                 glb_data: Optional[bytes] = None, device="cuda"):
+                 glb_data: Optional[bytes] = None, device="cuda",
+                 narrow: str = "jobs"):
         self.device = torch.device(device)
+        if narrow not in NARROW:
+            raise ValueError(f"narrow {narrow!r}: one of {sorted(NARROW)}")
+        self.narrow = narrow
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Renderer(device='cuda'): CUDA is not "
                                "available; pass device='cpu'")
@@ -139,13 +147,14 @@ class Renderer:
         seed, gb_rays = None, 0.0
         if use_gbuffer:
             gb = render_gbuffer(self.tables, self.textures, self.camera,
-                                self.width, self.height, jitter=jitter)
+                                self.width, self.height, jitter=jitter,
+                                narrow=self.narrow)
             seed = gb.wt_idx.reshape(-1)
             gb_rays = float(self.width * self.height)
         col, rays = trace_pixels_dense(
             self.tables, self.camera, self.frame_count, jitter, self.width,
             self.height, self.spp, self.max_depth, with_stats=True,
-            textures=self.textures, seed_wt_idx=seed)
+            textures=self.textures, seed_wt_idx=seed, narrow=self.narrow)
         self.last_rays = rays + gb_rays
         self.accum = accumulate(self.accum, col, self.frame_count)
         for k, v in kernels.launches.items():
