@@ -21,6 +21,10 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
    phase bit-equal to the sweep kernel walking every tile; the scan path's
    keyed cull and scan kernel on the same sweep (512 ray tiles of 1,024
    lanes), bit-equal to that walk too, with the exact and the cone cull.
+   Both narrow-phase kernels are launched twice and must repeat themselves
+   bit for bit (their lane queues fill in an order that varies), and the
+   tiles and (lane, tile) pairs they report walking must equal the plain
+   count.
    Kernel times are many launches between one pair of CUDA events;
 2. drives every path of the port with the launch counts set to 0 just
    before it and read just after, and asserts each kernel's exact count:
@@ -76,6 +80,7 @@ from webgpu_raytracer_tpu_torch.ops.cluster_cull import (CLUSTER_CHUNK,
 from webgpu_raytracer_tpu_torch.ops.coherence import coherence_sort
 from webgpu_raytracer_tpu_torch.ops.dense import (T_MAX, closest_plain,
                                                   jobs_closest_plain,
+                                                  jobs_stats_plain,
                                                   ray_stack, rows_plain,
                                                   scan_closest_plain,
                                                   shadow_plain,
@@ -114,6 +119,7 @@ SHADE_OPS = 300  # f32 operations per lane of one bounce (shade_rows.cu)
 CULL_OPS = 25    # f32 operations per lane x cluster test (cluster_cull.cu)
 KEYED_CULL_OPS = 30  # the same test with its root, quotient and key
 JOB_PLAIN_GROUPS = 256  # lane groups the plain job sweep is held on
+JOB_STATS_GROUPS = 32  # lane groups the job kernel's stats are held on
 SCAN_PLAIN_TILES = 4  # ray tiles per segment the plain scan path is held on
 
 PNG_SIG = b"\x89PNG\r\n\x1a\n"
@@ -393,12 +399,12 @@ def check_jobs(tables, camera, width, height) -> list[dict]:
           f"{n_pairs / max(int(busy.sum()), 1):.2f}), max "
           f"{int(counts.max())}; {n_pairs} (group, cluster) jobs")
 
-    def jobs(any_hit):
+    def jobs(any_hit, stats=False):
         return cuda_jobs.job_sweep(tables, rays_s, perm, order, counts, g,
-                                   2 * R, any_hit, R)
+                                   2 * R, any_hit, R, with_stats=stats)
 
-    t, idx, rows = jobs(False)
-    occ = jobs(True)
+    t, idx, rows, stats = jobs(False, stats=True)
+    occ, stats_any = jobs(True, stats=True)
     t_f, idx_f, rows_f = cuda_dense.full_sweep(tables, rays8, False, R)
     occ_f = cuda_dense.full_sweep(tables, rays8, True)
     torch.cuda.synchronize()
@@ -406,6 +412,21 @@ def check_jobs(tables, camera, width, height) -> list[dict]:
     assert bits_equal(t, t_f), "job sweep t differs"
     assert bits_equal(rows, rows_f), "job sweep rows differ"
     assert torch.equal(occ, occ_f), "job sweep occlusion differs"
+    # The queue's order varies from launch to launch; no output may.
+    again = jobs(False)
+    assert all(bits_equal(a, b) for a, b in zip(again, (t, idx, rows))), \
+        "job sweep differs between two launches"
+    assert torch.equal(jobs(True), occ), "job sweep occlusion, two launches"
+    for st in (stats, stats_any):
+        assert torch.equal(st[:, 2], counts), "stats: worklist lengths"
+        assert (st[:, 0] <= st[:, 2]).all() and (st[:, 1] >= st[:, 0]).all()
+        assert (st[:, 1] <= g * st[:, 0]).all()
+    sub_st = (rays_s[:, :JOB_STATS_GROUPS * g], order[:JOB_STATS_GROUPS],
+              counts[:JOB_STATS_GROUPS])
+    assert int(sub_st[2].sum()) > 0, "the groups held on stats are empty"
+    for any_hit, st in ((False, stats), (True, stats_any)):
+        assert torch.equal(jobs_stats_plain(tables, *sub_st, g, any_hit),
+                           st[:JOB_STATS_GROUPS].cpu()), "plain job stats"
     hits = float((idx >= 0).float().mean())
     assert 0.05 < hits < 1.0, f"implausible hit fraction {hits}"
     L = JOB_PLAIN_GROUPS * g
@@ -419,7 +440,9 @@ def check_jobs(tables, camera, width, height) -> list[dict]:
     print(f"job sweep: t, idx, rows bit-equal to dense_sweep over all {ct} "
           f"tiles, occlusion equal; hits {hits:.3f}, occluded "
           f"{float(occ.float().mean()):.3f}; bit-equal to the plain job "
-          f"sweep on the first {JOB_PLAIN_GROUPS} groups")
+          f"sweep on the first {JOB_PLAIN_GROUPS} groups, stats equal to "
+          f"the plain count on the first {JOB_STATS_GROUPS}; two launches "
+          f"bit-equal")
 
     sort_ms = device_ms(lambda: coherence_sort(rays8, spheres, g, R),
                         PLAIN_LAUNCHES)
@@ -460,8 +483,11 @@ def check_jobs(tables, camera, width, height) -> list[dict]:
           f"{job_any_ms:.4f} ms), plain {job_plain_ms:.4f} ms on the first "
           f"{JOB_PLAIN_GROUPS} groups, bound {jb_ms:.4f} ms ({jb_by}, "
           f"{lane_pairs} (lane, tile) pairs a lane's segment up to its hit "
-          f"touches x 128 x {SWEEP_OPS} ops, against {n_pairs * g} in the "
-          f"groups' worklists; {tiles_read} tiles read, "
+          f"touches x 128 x {SWEEP_OPS} ops; walked: "
+          f"{int(stats[:, 1].sum())} pairs in {int(stats[:, 0].sum())} of "
+          f"the {n_pairs} jobs (any-hit {int(stats_any[:, 1].sum())} in "
+          f"{int(stats_any[:, 0].sum())}), against {n_pairs * g} pairs in "
+          f"the groups' worklists; {tiles_read} tiles read, "
           f"{job_bytes / 1e6:.1f} MB); whole path (sort + cull + sweep) "
           f"{path_ms:.4f} ms; dense_sweep over every tile {full_ms:.4f} ms")
     common = dict(max_abs_err=0.0, library_ms=None)
@@ -537,9 +563,15 @@ def check_scan(tables, camera, width, height) -> list[dict]:
     assert bits_equal(t, t_f), "scan sweep t differs"
     assert bits_equal(rows, rows_f), "scan sweep rows differ"
     assert torch.equal(occ, occ_f), "scan sweep occlusion differs"
+    # The queue's order varies from launch to launch; no output may.
+    again = scan(False)
+    assert all(bits_equal(a, b) for a, b in zip(again, (t, idx, rows))), \
+        "scan sweep differs between two launches"
+    assert torch.equal(scan(True), occ), "scan sweep occlusion, two launches"
     for st in (stats, stats_any):
         assert torch.equal(st[:, 2], counts), "stats: worklist lengths"
         assert (st[:, 1] <= st[:, 0]).all() and (st[:, 0] <= st[:, 2]).all()
+        assert (st[:, 3] >= st[:, 1]).all() and (st[:, 3] <= m * st[:, 1]).all()
     sub = (sub_s, order[tiles_t], keys[tiles_t], counts[tiles_t])
     t_p, i_p, stats_p = scan_closest_plain(tables, *sub, m, with_stats=True)
     lanes = torch.cat([perm[t * m:(t + 1) * m] for t in tiles]).long()
@@ -568,7 +600,8 @@ def check_scan(tables, camera, width, height) -> list[dict]:
           f"(cone worklists hold the exact ones: {n_cone} entries, mean "
           f"{n_cone / max(int((cone[2] > 0).sum()), 1):.2f} a non-empty "
           f"tile); bit-equal to the plain scan, stats included, on "
-          f"{len(tiles)} tiles; per non-empty tile, closest: scanned "
+          f"{len(tiles)} tiles; two launches bit-equal; per non-empty tile, "
+          f"closest: scanned "
           f"{sc / n_busy:.2f}, processed {pr / n_busy:.2f} of "
           f"{n_entries / n_busy:.2f} entries (max processed "
           f"{int(stats[:, 1].max())}); any-hit: scanned {sc_a / n_busy:.2f}, "
@@ -628,8 +661,10 @@ def check_scan(tables, camera, width, height) -> list[dict]:
           f"{scan_cone_ms:.4f} ms), plain {scan_plain_ms:.4f} ms on "
           f"{len(tiles)} tiles, bound {sb_ms:.4f} ms ({sb_by}, {lane_pairs} "
           f"(lane, tile) pairs a lane's segment up to its hit touches x 128 "
-          f"x {SWEEP_OPS} ops, against {pr * m} in the processed entries "
-          f"and {n_entries * m} in the worklists; {tiles_read} tiles read, "
+          f"x {SWEEP_OPS} ops; walked: {int(stats[:, 3].sum())} pairs "
+          f"(any-hit {int(stats_any[:, 3].sum())}), against {pr * m} in the "
+          f"processed entries and {n_entries * m} in the worklists; "
+          f"{tiles_read} tiles read, "
           f"{scan_bytes / 1e6:.1f} MB); job sweep in the same call "
           f"{job_a:.4f} / {job_b:.4f} ms (before / after); whole path (sort "
           f"+ cull + sweep) scan {path_ms:.4f} ms, jobs {path_jobs_a:.4f} / "

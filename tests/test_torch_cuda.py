@@ -24,6 +24,7 @@ from webgpu_raytracer_tpu_torch.ops.cluster_cull import (keys_plain,
                                                          worklists_plain)
 from webgpu_raytracer_tpu_torch.ops.dense import (T_MAX, closest_plain,
                                                   jobs_closest_plain,
+                                                  jobs_stats_plain,
                                                   ray_stack, rows_plain,
                                                   scan_closest_plain,
                                                   scan_shadow_plain,
@@ -417,3 +418,168 @@ def test_renderer_spheres_scan_on_card_counts_launches(cuda):
                           "job_sweep": 0, "cluster_cull_keyed": 2 * 4,
                           "scan_sweep": 2 * 4, "shade_rows": 2 * 3,
                           "fetch_rows": 0, "fetch_quad": 0}
+
+
+# --- the cooperative walk behind the queue of touching lanes -----------------
+
+
+def _bits(a):
+    return a.view(torch.int32) if a.dtype == torch.float32 else a
+
+
+def _narrow_kernels_agree(tables, rays8, kernel):
+    """One narrow-phase kernel (`"jobs"` at g = 128, `"scan"` at m = 1,024)
+    on a whole stack: t, idx, rows and occlusion bit-equal to
+    `dense_sweep.cu` walking every tile and to the plain versions, the same
+    from a second launch (the queue's order varies), stats equal to the
+    plain count. Returns (idx, stats, stats_any, block size)."""
+    R = rays8.shape[1]
+    t_f, idx_f, rows_f = cuda_dense.full_sweep(tables, rays8, False)
+    occ_f = cuda_dense.full_sweep(tables, rays8, True)
+    t_p, idx_p = closest_plain(tables, rays8)
+    assert torch.equal(idx_f, idx_p) and torch.equal(_bits(t_f), _bits(t_p))
+    assert torch.equal(occ_f, shadow_plain(tables, rays8))
+    name = "job_sweep" if kernel == "jobs" else "scan_sweep"
+    before = kernels.launches[name]
+    if kernel == "jobs":
+        b = 128
+        rays_s, perm = coherence_sort(rays8, tables.spheres, b, 0)
+        lists = cuda_jobs.worklists(tables.spheres, rays_s, b)
+
+        def sweep(any_hit, stats=False):
+            return cuda_jobs.job_sweep(tables, rays_s, perm, *lists, b, R,
+                                       any_hit, with_stats=stats)
+
+        t_s, i_s = jobs_closest_plain(tables, rays_s, *lists, b)
+        plain_stats = [jobs_stats_plain(tables, rays_s, *lists, b, a)
+                       for a in (False, True)]
+    else:
+        b = 1024
+        rays_s, perm = coherence_sort(rays8, tables.spheres, b, 0)
+        lists = cuda_scan.worklists_keyed(tables.spheres, rays_s, b)
+
+        def sweep(any_hit, stats=False):
+            return cuda_scan.scan_sweep(tables, rays_s, perm, *lists, b, R,
+                                        any_hit, with_stats=stats)
+
+        t_s, i_s, st = scan_closest_plain(tables, rays_s, *lists, b,
+                                          with_stats=True)
+        plain_stats = [st, scan_shadow_plain(tables, rays_s, *lists, b,
+                                             with_stats=True)[1]]
+    t, idx, rows, stats = sweep(False, True)
+    occ, stats_any = sweep(True, True)
+    assert kernels.launches[name] == before + 2
+    assert torch.equal(idx, idx_f) and torch.equal(_bits(t), _bits(t_f))
+    assert torch.equal(_bits(rows), _bits(rows_f))
+    assert torch.equal(occ, occ_f)
+    for a, b2 in zip(sweep(False), (t, idx, rows)):
+        assert torch.equal(_bits(a), _bits(b2))
+    assert torch.equal(sweep(True), occ)
+    keep = perm.long() < R
+    assert torch.equal(i_s[keep], idx[perm.long()[keep]])
+    assert torch.equal(_bits(t_s[keep]), _bits(t[perm.long()[keep]]))
+    assert torch.equal(stats.cpu(), plain_stats[0])
+    assert torch.equal(stats_any.cpu(), plain_stats[1])
+    return idx, stats, stats_any, b
+
+
+def _pairs_and_tiles(stats, kernel):
+    """(pairs walked, tiles walked) per block, from either kernel's stats."""
+    return (stats[:, 1], stats[:, 0]) if kernel == "jobs" \
+        else (stats[:, 3], stats[:, 1])
+
+
+@pytest.mark.parametrize("kernel", ["jobs", "scan"])
+def test_narrow_kernels_in_tile_tie_goes_to_the_lowest_index(
+        cuda, bounce_stacks, kernel):
+    """The eight most-hit triangles of mixed get a copy inside their own
+    tile, alternately one index up (the same thread of the cooperative
+    walk, or its neighbour) and 32 up (another thread): every lane that hit
+    an original ties with its copy bit for bit, and the original wins."""
+    tables, rays8, _ = bounce_stacks["mixed"]
+    _, idx0, _ = cuda_dense.full_sweep(tables, rays8, False)
+    hist = torch.bincount(idx0[idx0 >= 0].long(),
+                          minlength=tables.valid_count).cpu()
+    pairs, used = [], set()
+    for j in torch.argsort(hist, descending=True).tolist():
+        off = 1 if len(pairs) % 2 == 0 else 32
+        if (j % 128 + off < 128 and j + off < tables.valid_count
+                and not {j, j + off} & used):
+            pairs.append((j, j + off))
+            used |= {j, j + off}
+        if len(pairs) == 8:
+            break
+    src = torch.tensor([a for a, _ in pairs], device=cuda)
+    dst = torch.tensor([b for _, b in pairs], device=cuda)
+    tw = tables.features.shape[1] // 5
+    feats = tables.features.clone().view(-1, 5, tw)
+    feats[:, :, dst] = feats[:, :, src]
+    shade = tables.shade_table.clone()
+    shade[dst] = shade[src]
+    tied = tables._replace(features=feats.view(-1, 5 * tw).contiguous(),
+                           shade_table=shade)
+    idx, *_ = _narrow_kernels_agree(tied, rays8, kernel)
+    on_src = torch.isin(idx, src.int())
+    assert int(on_src.sum()) >= 50 and not torch.isin(idx, dst.int()).any()
+    # The ties are real: with the originals gone, the same lanes hit the
+    # copies at the same t.
+    gone = feats.clone()
+    gone[:, :, src] = 0.0
+    t_c, idx_c, _ = cuda_dense.full_sweep(
+        tied._replace(features=gone.view(-1, 5 * tw).contiguous()), rays8,
+        False)
+    t_f, _, _ = cuda_dense.full_sweep(tied, rays8, False)
+    assert torch.isin(idx_c[on_src], dst.int()).all()
+    assert torch.equal(_bits(t_c[on_src]), _bits(t_f[on_src]))
+
+
+@pytest.mark.parametrize("kernel", ["jobs", "scan"])
+def test_narrow_kernels_every_lane_touches_the_same_tiles(cuda, kernel):
+    """2,048 copies of one ray through the middle of mixed: every lane of a
+    block touches the tiles that any does, so each walked tile queues the
+    whole block (128 lanes for 4 warps, 1,024 for 32)."""
+    tables, ro, rd = _scene("mixed", cuda)
+    mid = RES * (RES // 2) + RES // 2
+    one = ray_stack(ro, rd, torch.full((RES * RES,), T_MAX,
+                                       device=cuda))[:, mid:mid + 1]
+    rays8 = one.expand(8, 2048).contiguous()
+    idx, stats, stats_any, b = _narrow_kernels_agree(tables, rays8, kernel)
+    assert int(idx[0]) >= 0 and (idx == idx[0]).all()
+    for st in (stats, stats_any):
+        pairs, tiles = _pairs_and_tiles(st, kernel)
+        assert int(tiles.sum()) > 0 and torch.equal(pairs, b * tiles)
+
+
+@pytest.mark.parametrize("kernel", ["jobs", "scan"])
+def test_narrow_kernels_one_live_lane(cuda, bounce_stacks, kernel):
+    """A stack with exactly one live lane: its block queues one lane a tile
+    and every other block is empty."""
+    tables, rays8, R = bounce_stacks["mixed"]
+    live = torch.nonzero(cuda_dense.full_sweep(tables, rays8, False)[1][R:]
+                         >= 0)[0] + R
+    rays8 = rays8.clone()
+    keep = torch.zeros(2 * R, dtype=torch.bool, device=cuda)
+    keep[live] = True
+    rays8[6] = torch.where(keep, rays8[6], 0.0)
+    idx, stats, stats_any, _ = _narrow_kernels_agree(tables, rays8, kernel)
+    assert int((idx >= 0).sum()) == 1
+    for st in (stats, stats_any):
+        pairs, tiles = _pairs_and_tiles(st, kernel)
+        assert int((tiles > 0).sum()) == 1 and torch.equal(pairs, tiles)
+
+
+@pytest.mark.parametrize("kernel", ["jobs", "scan"])
+def test_narrow_kernels_ragged_last_tile(cuda, kernel):
+    """special has 564 triangles: its fifth and last tile holds 52, and the
+    bounce-1 stack hits them; the staged copy brings the padding along and
+    the walk masks it."""
+    world = NativeWorld("special")
+    world.update_camera(RES, RES)
+    tables = build_world_tables(world, "cuda")
+    assert tables.valid_count % 128 != 0
+    last = tables.valid_count // 128 * 128
+    cam = torch.from_numpy(np.asarray(world.camera(), np.float32)).cuda()
+    rays8 = bounce_rays(tables, cam, RES, RES, 1, 8)
+    idx, *_ = _narrow_kernels_agree(tables, rays8, kernel)
+    assert int((idx >= last).sum()) > 100
+    assert int(idx.max()) < tables.valid_count

@@ -31,10 +31,14 @@ mixed (35 tiles) and spheres (2,009 tiles) at 16^2.
   both culls.
 - Stats: the ladder's one 512-lane tile processes 7 clusters, as
   tests/test_two_level.py asserts of the JAX kernel; entries scanned never
-  exceed the worklist length, nor entries processed the scanned.
+  exceed the worklist length, nor entries processed the scanned; a
+  processed entry walks between one lane and all.
 - Ties: a cluster duplicated under a higher index and scanned first gives
   every lane that hits it an exact-t tie across two tiles; the lowest
   index wins in the scan path, the job path and the full sweep.
+- Ties inside one tile (`torch_common.tie_case`: copies one and 32 indices
+  up): the lowest index wins with both culls, occlusion is that of the
+  full sweep, and the JAX `_run2` agrees but for the tied winners.
 """
 
 import numpy as np
@@ -60,7 +64,7 @@ from tests.test_torch_cull import _near_threshold
 from tests.test_two_level import (drain_world, grid_wt,  # noqa: F401
                                   ladder_world)
 from tests.torch_common import (assert_near_ties, job_cases, scaled_case,
-                                stack8)
+                                stack8, tie_case)
 
 CASES = ("grid", "ladder", "drain", "mixed", "spheres")
 CULLS = ("exact", "cone")
@@ -221,8 +225,10 @@ def test_scan_path_bit_equal_to_full_sweep_and_job_path(cases, case, cull):
     assert torch.equal(_bits(rows), _bits(rows_j))
     assert torch.equal(occ, cuda_jobs.shadow(tables, rays8))
     for s in (stats, stats_any):
-        assert s.shape == (-(-rays8.shape[1] // 512), 3)
+        assert s.shape == (-(-rays8.shape[1] // 512), 4)
         assert (s[:, 1] <= s[:, 0]).all() and (s[:, 0] <= s[:, 2]).all()
+        # Every processed entry walks at least one lane, at most all.
+        assert (s[:, 3] >= s[:, 1]).all() and (s[:, 3] <= 512 * s[:, 1]).all()
     assert int(stats[:, 1].sum()) > 0
 
 
@@ -259,8 +265,9 @@ def test_ladder_stats_match_the_jax_kernels(cases, ladder_world):  # noqa: F811
                                    with_stats=True)[-1])
     *_, stats = cuda_scan.closest_with_row(tables, stack8(ro, rd, t_max),
                                            m=512, with_stats=True)
-    assert stats.shape == (1, 3)
-    assert stats[0].tolist() == [7, 7, 7]
+    assert stats.shape == (1, 4)
+    assert stats[0, :3].tolist() == [7, 7, 7]
+    assert 7 <= int(stats[0, 3]) <= 7 * 384  # pairs walked, 384 live lanes
     assert int(stats_j[0, 1]) == 7 and int(stats_j[0, 2]) == 7
 
 
@@ -321,3 +328,40 @@ def test_exact_tie_across_tiles_goes_to_the_lowest_index(cases, cull):
     assert torch.equal(idx, idx_f) and torch.equal(_bits(t), _bits(t_f))
     t_j, idx_j, _ = cuda_jobs.closest_with_row(tied, rays8)
     assert torch.equal(idx_j, idx_f) and torch.equal(_bits(t_j), _bits(t_f))
+
+
+@pytest.mark.parametrize("cull", CULLS)
+def test_exact_tie_inside_a_tile_goes_to_the_lowest_index(grid_wt,  # noqa: F811
+                                                          cull):
+    """Copies of a triangle one and 32 indices up in its own tile tie with it
+    exactly on every lane that hits it: through the scan path the original
+    wins, as in the full sweep; occlusion is unchanged; and the JAX `_run2`
+    agrees on hits, t and occlusion, its winners differing only between a
+    triangle and its copy or on other f64 near-ties."""
+    wt, tables, copies, ro, rd, t_max = tie_case(grid_wt)
+    rays8 = stack8(ro, rd, t_max)
+    t_f, idx_f = closest_plain(tables, rays8)
+    hit = (idx_f >= 0).numpy()
+    tied = np.zeros_like(hit)
+    tied[hit] = np.isin(idx_f.numpy()[hit], np.nonzero(copies)[0] - 1) \
+        | np.isin(idx_f.numpy()[hit], np.nonzero(copies)[0] - 32)
+    assert int(tied.sum()) > 300 and not copies[idx_f.numpy()[hit]].any()
+
+    t, idx, rows = cuda_scan.closest_with_row(tables, rays8, m=512,
+                                              cull=cull)
+    assert torch.equal(idx, idx_f) and torch.equal(_bits(t), _bits(t_f))
+    assert torch.equal(_bits(rows), _bits(rows_plain(tables.shade_table,
+                                                     idx_f)))
+    occ = cuda_scan.shadow(tables, rays8, m=512, cull=cull)
+    assert torch.equal(occ, shadow_plain(tables, rays8))
+
+    t_j, i_j, _ = (np.asarray(a) for a in _jax_run2(wt, ro, rd, t_max,
+                                                     False))
+    np.testing.assert_array_equal(i_j >= 0, hit)
+    differ = np.nonzero(hit & (idx.numpy() != i_j))[0]
+    assert_near_ties(tables.shade_table.numpy(), ro.T, rd.T, i_j,
+                     idx.numpy(), differ)
+    np.testing.assert_allclose(t.numpy()[hit], t_j[hit], rtol=2e-3,
+                               atol=2e-4)
+    np.testing.assert_array_equal(
+        occ.numpy(), np.asarray(_jax_run2(wt, ro, rd, t_max, True)))

@@ -8,7 +8,8 @@ import numpy as np
 import torch
 
 from webgpu_raytracer_tpu.models.native import NativeWorld
-from webgpu_raytracer_tpu.render.worldtris import build_world_tris
+from webgpu_raytracer_tpu.render.worldtris import (_np_kernel_tables,
+                                                   build_world_tris)
 from webgpu_raytracer_tpu_torch.ops.dense_trace import bounce_rays
 from webgpu_raytracer_tpu_torch.render.worldtris import (build_world_tables,
                                                          tables_from_jax)
@@ -189,3 +190,40 @@ def scaled_case(case_rays):
     lane = np.arange(t_max.size)
     t = np.where(lane % 5 == 1, t_max * 0.01, t_max * 0.1)
     return tables, ro, rd * 10.0, t.astype(np.float32), split
+
+
+TIE_NEXT = [0, 4, 8]
+TIE_STRIDE = [2, 3, 10, 11]
+
+
+def tie_case(grid_wt):
+    """The grid fixture with exact-t ties inside its first tile: (JAX
+    WorldTris, port tables, copies (bool per triangle), ro (3, R), rd,
+    t_max). Triangle j + 1 becomes a copy of triangle j for j in TIE_NEXT,
+    and triangle j + 32 a copy of triangle j for j in TIE_STRIDE (the large
+    triangles at the head of the table, which many lanes hit): in a walk
+    that gives triangles 4w to 4w + 3 to thread w of a warp, the first kind
+    of pair sits on one thread and the second on two. A lane that
+    hits an original hits its copy at the same t, bit for bit. Both
+    packages' tables are rebuilt from the edited features, shade rows and
+    corners, the tile's sphere included."""
+    import jax.numpy as jnp
+
+    host = {k: np.array(v) for k, v in grid_wt._asdict().items()}
+    tw = host["shade_table"].shape[0]
+    src = np.array(TIE_NEXT + TIE_STRIDE)
+    dst = np.array([j + 1 for j in TIE_NEXT] + [j + 32 for j in TIE_STRIDE])
+    feats = host["features"].reshape(-1, 5, tw)
+    feats[:, :, dst] = feats[:, :, src]
+    for name in ("shade_table", "v0", "e1", "e2"):
+        host[name][dst] = host[name][src]
+    host["featk3"], host["spheres"], host["shadek3"] = _np_kernel_tables(
+        host["features"], host["shade_table"], host["v0"], host["e1"],
+        host["e2"])
+    copies = np.zeros(tw, bool)
+    copies[dst] = True
+    wt = grid_wt._replace(**{k: jnp.asarray(host[k]) for k in (
+        "features", "shade_table", "v0", "e1", "e2", "featk3", "spheres",
+        "shadek3")})
+    ro, rd, act, tmax = _rays(2000)
+    return (wt, tables_from_jax(host), copies, *np_rays(ro, rd, act, tmax))

@@ -14,8 +14,9 @@ it; `ops/cuda_dense.py` does the same here):
    worklists_plain` on the CPU. It replaces XLA in the JAX package
    (`ops/cluster_cull.py::tile_cluster_worklist_exact`);
 3. the narrow phase sweeps each group's worklist: `csrc/job_sweep.cu`
-   (`job_sweep`, replacing `_kernel3`), or `ops/dense.jobs_closest_plain`
-   / `jobs_shadow_plain` on the CPU;
+   (`job_sweep`, replacing `_kernel3`: per tile the lanes whose segment
+   touches it queue up and one warp walks the tile for one lane), or
+   `ops/dense.jobs_closest_plain` / `jobs_shadow_plain` on the CPU;
 4. outputs come back in the caller's lane order: the kernel writes them
    there through the permutation, the plain path scatters them.
 
@@ -34,7 +35,7 @@ from .. import kernels
 from .cluster_cull import A_LO_SCALE, HI_NUDGE, worklists_plain
 from .coherence import coherence_sort
 from .dense import (TRI_CHUNK, T_MIN, jobs_closest_plain, jobs_shadow_plain,
-                    rows_plain)
+                    jobs_stats_plain, rows_plain)
 from .tune import M_TILE3
 from ..render.worldtris import FEAT_K, SHADE_K, WorldTables
 
@@ -67,6 +68,10 @@ def check_tables(tables: WorldTables, dev) -> tuple[int, int]:
                   (FEAT_K, 5 * tw), dev)
     kernels.check(tables.shade_table, "shade_table", torch.float32,
                   (tw, SHADE_K), dev)
+    if tw % 4 or tables.features.data_ptr() % 16:
+        raise ValueError("features: the tiles are staged as 16-byte copies, "
+                         "so the storage must be 16-byte aligned and the "
+                         f"padded triangle count ({tw}) a multiple of 4")
     ct = check_spheres(tables.spheres, dev)
     if ct != -(-tw // TRI_CHUNK):
         raise ValueError(f"spheres: {ct} tiles, the tables have "
@@ -108,18 +113,26 @@ def unpermute(x_s: torch.Tensor, perm: torch.Tensor, R: int):
 
 
 def job_sweep(tables: WorldTables, rays_s: torch.Tensor, perm, order,
-              counts, g: int, R: int, any_hit: bool, row_from_lane: int = 0):
+              counts, g: int, R: int, any_hit: bool, row_from_lane: int = 0,
+              with_stats: bool = False):
     """The narrow phase over a sorted stack, outputs in the caller's order
     of R lanes: occlusion bool (R,) when any_hit, else (t (R,), idx (R,)
-    int32, rows (SHADE_K, R - row_from_lane))."""
+    int32, rows (SHADE_K, R - row_from_lane)). with_stats appends the
+    (G, 3) int32 rows [tiles walked, (lane, tile) pairs walked, worklist
+    length] per group."""
     if rays_s.device.type == "cpu":
         if any_hit:
             occ = jobs_shadow_plain(tables, rays_s, order, counts, g)
-            return unpermute(occ, perm, R)
-        t_s, i_s = jobs_closest_plain(tables, rays_s, order, counts, g)
-        idx = unpermute(i_s, perm, R)
-        return (unpermute(t_s, perm, R), idx,
-                rows_plain(tables.shade_table, idx[row_from_lane:]))
+            out = [unpermute(occ, perm, R)]
+        else:
+            t_s, i_s = jobs_closest_plain(tables, rays_s, order, counts, g)
+            idx = unpermute(i_s, perm, R)
+            out = [unpermute(t_s, perm, R), idx,
+                   rows_plain(tables.shade_table, idx[row_from_lane:])]
+        if with_stats:
+            out.append(jobs_stats_plain(tables, rays_s, order, counts, g,
+                                        any_hit))
+        return out[0] if len(out) == 1 else tuple(out)
     rp = check_sorted(rays_s, g)
     dev = rays_s.device
     tw, ct = check_tables(tables, dev)
@@ -129,7 +142,7 @@ def job_sweep(tables: WorldTables, rays_s: torch.Tensor, perm, order,
     if not 0 <= R <= rp or not 0 <= row_from_lane <= R:
         raise ValueError(f"R {R} / row_from_lane {row_from_lane} outside "
                          f"[0, {rp}]")
-    t = idx = rows = occ = None
+    t = idx = rows = occ = stats = None
     if any_hit:
         occ = torch.empty(R, dtype=torch.bool, device=dev)
     else:
@@ -137,6 +150,8 @@ def job_sweep(tables: WorldTables, rays_s: torch.Tensor, perm, order,
         idx = torch.empty(R, dtype=torch.int32, device=dev)
         rows = torch.empty((SHADE_K, R - row_from_lane), dtype=torch.float32,
                            device=dev)
+    if with_stats:
+        stats = torch.empty((rp // g, 3), dtype=torch.int32, device=dev)
     lib = kernels.library()
     with torch.cuda.device(dev):
         code = lib.wrt_job_sweep(
@@ -146,10 +161,13 @@ def job_sweep(tables: WorldTables, rays_s: torch.Tensor, perm, order,
             kernels.ptr(tables.spheres), ct, T_MIN, A_LO_SCALE, HI_NUDGE,
             int(any_hit), row_from_lane, kernels.ptr(t),
             kernels.ptr(idx), kernels.ptr(rows), kernels.ptr(occ),
-            kernels.stream(dev))
+            kernels.ptr(stats), kernels.stream(dev))
     kernels.raise_on_error(code, "job_sweep")
     kernels.launches["job_sweep"] += 1
-    return occ if any_hit else (t, idx, rows)
+    out = [occ] if any_hit else [t, idx, rows]
+    if with_stats:
+        out.append(stats)
+    return out[0] if len(out) == 1 else tuple(out)
 
 
 def _sort_and_cull(tables: WorldTables, rays8: torch.Tensor, seg_start: int):

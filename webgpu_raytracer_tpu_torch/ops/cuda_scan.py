@@ -89,8 +89,8 @@ def scan_sweep(tables: WorldTables, rays_s: torch.Tensor, perm, order, keys,
     """The narrow phase over a sorted stack, outputs in the caller's order
     of R lanes: occlusion bool (R,) when any_hit, else (t (R,), idx (R,)
     int32, rows (SHADE_K, R - row_from_lane)). with_stats appends the
-    (T, 3) int32 rows [entries scanned, entries processed, worklist
-    length] per tile."""
+    (T, 4) int32 rows [entries scanned, entries processed, worklist
+    length, (lane, cluster) pairs walked] per tile."""
     if rays_s.device.type == "cpu":
         plain = scan_shadow_plain if any_hit else scan_closest_plain
         *sorted_out, stats = plain(tables, rays_s, order, keys, counts, m,
@@ -120,7 +120,7 @@ def scan_sweep(tables: WorldTables, rays_s: torch.Tensor, perm, order, keys,
             rows = torch.empty((SHADE_K, R - row_from_lane),
                                dtype=torch.float32, device=dev)
         if with_stats:
-            stats = torch.empty((n_tiles, 3), dtype=torch.int32, device=dev)
+            stats = torch.empty((n_tiles, 4), dtype=torch.int32, device=dev)
         lib = kernels.library()
         with torch.cuda.device(dev):
             code = lib.wrt_scan_sweep(

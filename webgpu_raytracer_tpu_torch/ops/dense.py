@@ -25,7 +25,8 @@ per-triangle arithmetic (`_chunk_t`). As the cull only drops tiles that
 no lane of the group can hit inside its interval, they give the full
 walk's t and idx bit for bit. (The kernel also skips, lane by lane, a
 tile whose sphere the lane's segment cannot touch; that changes no
-result, so the plain versions walk every worklisted tile.)
+result, so the plain versions walk every worklisted tile.
+`jobs_stats_plain` replays that skip to count what the kernel counts.)
 `scan_closest_plain` / `scan_shadow_plain` are the plain versions of the
 scan kernel (`csrc/scan_sweep.cu`): each m-lane tile walks its keyed
 worklist near to far, stops at the first key beyond every lane's reach,
@@ -173,10 +174,26 @@ def jobs_shadow_plain(tables, rays_s: torch.Tensor, order, counts, g: int):
     return occ
 
 
+def jobs_stats_plain(tables, rays_s: torch.Tensor, order, counts, g: int,
+                     any_hit: bool):
+    """What `csrc/job_sweep.cu` counts per group, (G, 3) int32 [tiles
+    walked, (lane, tile) pairs walked, worklist length]: a lane is walked
+    against a tile when its open interval (up to its best hit so far; up
+    to t_max until occluded in any-hit mode) touches the tile's sphere, a
+    tile when some lane is. That is the scan's walk over the job worklist
+    with every key 0, where the early exit fires exactly when no lane is
+    open, as the kernel's does."""
+    keys = torch.zeros(order.shape, dtype=torch.float32, device=order.device)
+    stats = _scan_plain(tables, rays_s, order, keys, counts, g, any_hit)[3]
+    return stats[:, [1, 3, 2]]
+
+
 def _scan_plain(tables, rays_s, order, keys, counts, m: int, any_hit: bool):
     """The scan narrow phase over a sorted (8, rp) stack, tile by tile:
-    (best_t, best_i, occ, stats), stats (T, 3) int32 [entries scanned,
-    entries processed, worklist length] per tile."""
+    (best_t, best_i, occ, stats), stats (T, 4) int32 [entries scanned,
+    entries processed, worklist length, (lane, cluster) pairs walked] per
+    tile: a pair is walked when the lane's open interval touches the
+    cluster's sphere."""
     # cluster_cull imports this module's T_MIN, so it is imported here.
     from .cluster_cull import HI_NUDGE, pair_ok, reach_terms
 
@@ -191,7 +208,7 @@ def _scan_plain(tables, rays_s, order, keys, counts, m: int, any_hit: bool):
     d = rays_s[0:3]
     dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
     dlen, wcap = reach_terms(rays_s, spheres)
-    stats = torch.zeros((rp // m, 3), dtype=torch.int32)
+    stats = torch.zeros((rp // m, 4), dtype=torch.int32)
     stats[:, 2] = counts.cpu()
     for tile, count in enumerate(stats[:, 2].tolist()):
         lanes = slice(tile * m, (tile + 1) * m)
@@ -212,6 +229,7 @@ def _scan_plain(tables, rays_s, order, keys, counts, m: int, any_hit: bool):
             if not bool(touch.any()):
                 continue
             stats[tile, 1] += 1
+            stats[tile, 3] += int(touch.sum())
             c0 = c * TRI_CHUNK
             c1 = min(c0 + TRI_CHUNK, tables.valid_count)
             if c1 <= c0:
@@ -234,7 +252,8 @@ def scan_closest_plain(tables, rays_s: torch.Tensor, order, keys, counts,
                        m: int, with_stats: bool = False):
     """Closest hit of a sorted (8, rp) stack, each m-lane tile scanning its
     near-to-far worklist: (t (rp,), idx (rp,) int32) in sorted lane order;
-    with_stats appends the (T, 3) int32 [scanned, processed, count] rows.
+    with_stats appends the (T, 4) int32 [scanned, processed, count, pairs
+    walked] rows.
     On an exact-t tie the lowest triangle index wins."""
     t, idx, _, stats = _scan_plain(tables, rays_s, order, keys, counts, m,
                                    False)
