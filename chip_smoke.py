@@ -21,10 +21,14 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
    phase bit-equal to the sweep kernel walking every tile; the scan path's
    keyed cull and scan kernel on the same sweep (512 ray tiles of 1,024
    lanes), bit-equal to that walk too, with the exact and the cone cull.
-   Both narrow-phase kernels are launched twice and must repeat themselves
-   bit for bit (their lane queues fill in an order that varies), and the
-   tiles and (lane, tile) pairs they report walking must equal the plain
-   count.
+   Both culls are held to their plain versions on all 524,288 lanes
+   (counts, survivors in ascending id, keys bit for bit), and again on a
+   stack whose first group is half dead and on one that is all dead.
+   Culls and narrow-phase kernels are launched twice and must repeat
+   themselves bit for bit (the culls' warps merge through shared-memory
+   atomics, the sweeps' lane queues fill in an order that varies), and the
+   tiles and (lane, tile) pairs the sweeps report walking must equal the
+   plain count.
    Kernel times are many launches between one pair of CUDA events;
 2. drives every path of the port with the launch counts set to 0 just
    before it and read just after, and asserts each kernel's exact count:
@@ -77,7 +81,7 @@ from webgpu_raytracer_tpu_torch.ops.cluster_cull import (CLUSTER_CHUNK,
                                                          lane_terms, pair_ok,
                                                          sort_keyed,
                                                          worklists_plain)
-from webgpu_raytracer_tpu_torch.ops.coherence import coherence_sort
+from webgpu_raytracer_tpu_torch.ops.coherence import box6, coherence_sort
 from webgpu_raytracer_tpu_torch.ops.dense import (T_MAX, closest_plain,
                                                   jobs_closest_plain,
                                                   jobs_stats_plain,
@@ -114,10 +118,15 @@ DEVICE = "cuda"
 # and f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# The same peak counts a fused multiply-add as two operations. A kernel
+# that rounds every product and sum on its own (the culls, for bit equality
+# with their plain versions) does one operation an instruction: its floor.
+F32_ROUNDED_OPS_PER_S = F32_OPS_PER_S / 2
 SWEEP_OPS = 45   # f32 operations per ray x triangle test (dense_sweep.cu)
 SHADE_OPS = 300  # f32 operations per lane of one bounce (shade_rows.cu)
 CULL_OPS = 25    # f32 operations per lane x cluster test (cluster_cull.cu)
 KEYED_CULL_OPS = 30  # the same test with its root, quotient and key
+CULL_EDGE_GROUPS = 64  # lane groups of the culls' dead-lane stacks
 JOB_PLAIN_GROUPS = 256  # lane groups the plain job sweep is held on
 JOB_STATS_GROUPS = 32  # lane groups the job kernel's stats are held on
 SCAN_PLAIN_TILES = 4  # ray tiles per segment the plain scan path is held on
@@ -371,6 +380,26 @@ def check_shade(tables, camera, width, height) -> dict:
                 bound_by=b_by, library_ms=None)
 
 
+def same_worklists(a, b, ct) -> bool:
+    """Two (order, counts) pairs hold the same lists: equal counts, and
+    equal entries ahead of the count (the kernel writes no others)."""
+    pos = torch.arange(ct, device=a[1].device)[None, :] < a[1][:, None]
+    return torch.equal(a[1], b[1]) and torch.equal(
+        torch.where(pos, a[0], -1), torch.where(pos, b[0], -1))
+
+
+def dead_lane_stacks(rays_s, g):
+    """(label, stack) of the first CULL_EDGE_GROUPS groups of a sorted
+    stack: with the first group's even lanes and second half dead (out of
+    the sort's order), and with every lane dead."""
+    half = rays_s[:, :CULL_EDGE_GROUPS * g].clone()
+    half[6, 0:g:2] = 0.0
+    half[6, g // 2:g] = 0.0
+    dead = half.clone()
+    dead[6] = 0.0
+    return [("first group half dead", half), ("all dead", dead)]
+
+
 def check_jobs(tables, camera, width, height) -> list[dict]:
     """The job-stream path's kernels on the fused sweep of bounce 1 (2R
     lanes): the cull against its plain version, the narrow phase bit-equal
@@ -381,20 +410,39 @@ def check_jobs(tables, camera, width, height) -> list[dict]:
     spheres = tables.spheres
     ct = spheres.shape[0]
     rays8 = bounce_rays(tables, camera, width, height, 1, DEPTH)
-    rays_s, perm = coherence_sort(rays8, spheres, g, R)
-    order, counts = cuda_jobs.worklists(spheres, rays_s, g)
-    order_p, counts_p = worklists_plain(spheres, rays_s, g)
+    rays_s, perm = coherence_sort(rays8, tables.box, g, R)
+    box_plain = box6(spheres)  # the plain versions' box, reduced here
+
+    def cull(stack=rays_s):
+        return cuda_jobs.worklists(spheres, stack, g, tables.box)
+
+    order, counts = cull()
+    order_p, counts_p = worklists_plain(spheres, rays_s, g, box_plain)
     torch.cuda.synchronize()
-    assert torch.equal(counts, counts_p), "worklist counts differ"
-    pos = torch.arange(ct, device=order.device)[None, :] < counts[:, None]
-    assert torch.equal(torch.where(pos, order, -1),
-                       torch.where(pos, order_p, -1)), "worklists differ"
+    assert same_worklists((order, counts), (order_p, counts_p), ct), \
+        "worklists differ from the plain cull's"
+    ids = torch.arange(ct, device=counts.device)
+    placed = ids[None, :] < counts_p[:, None]
+    cull_err = max(max_abs_diff(counts, counts_p),
+                   max_abs_diff(torch.where(placed, order, -1),
+                                torch.where(placed, order_p, -1)))
+    # The warps OR their votes into shared memory in an order that varies.
+    assert same_worklists(cull(), (order, counts), ct), \
+        "cull differs between two launches"
+    for label, stack in dead_lane_stacks(rays_s, g):
+        lists = cull(stack)
+        assert same_worklists(
+            lists, worklists_plain(spheres, stack, g, box_plain),
+            ct), f"cull, {label}: differs from plain"
+        assert (int(lists[1].sum()) == 0) == (label == "all dead"), label
     live = int((rays_s[6] > 0).sum())
     n_pairs = int(counts.sum())
     G = counts.shape[0]
     busy = counts > 0
     print(f"cull: {2 * R} lanes ({live} live) x {ct} clusters, {G} groups "
-          f"of {g}; worklists equal to the plain cull; length mean "
+          f"of {g}; worklists equal to the plain cull, from a second launch, "
+          f"and on {CULL_EDGE_GROUPS} groups with the first half dead and "
+          f"with all dead; length mean "
           f"{n_pairs / G:.2f} (over non-empty groups "
           f"{n_pairs / max(int(busy.sum()), 1):.2f}), max "
           f"{int(counts.max())}; {n_pairs} (group, cluster) jobs")
@@ -444,11 +492,11 @@ def check_jobs(tables, camera, width, height) -> list[dict]:
           f"the plain count on the first {JOB_STATS_GROUPS}; two launches "
           f"bit-equal")
 
-    sort_ms = device_ms(lambda: coherence_sort(rays8, spheres, g, R),
+    sort_ms = device_ms(lambda: coherence_sort(rays8, tables.box, g, R),
                         PLAIN_LAUNCHES)
-    cull_ms = device_ms(lambda: cuda_jobs.worklists(spheres, rays_s, g))
+    cull_ms = device_ms(cull)
     cull_plain_ms = device_ms(lambda: worklists_plain(
-        spheres, rays_s[:, :L], g), PLAIN_LAUNCHES)
+        spheres, rays_s[:, :L], g, box_plain), PLAIN_LAUNCHES)
     job_ms = device_ms(lambda: jobs(False))
     job_any_ms = device_ms(lambda: jobs(True))
     job_plain_ms = device_ms(lambda: jobs_closest_plain(tables, *sub, g), 3)
@@ -465,8 +513,9 @@ def check_jobs(tables, camera, width, height) -> list[dict]:
     # rows in.
     cull_bytes = rays_s.numel() * 4 + ct * 16 + n_pairs * 4 + G * 4
     cb_ms, cb_by = bound(cull_bytes, live * ct * CULL_OPS)
+    cull_floor_ms = 1e3 * live * ct * CULL_OPS / F32_ROUNDED_OPS_PER_S
     t_s = torch.where(perm < 2 * R, t[perm.long().clamp(max=2 * R - 1)], 0.0)
-    lane_pairs = needed_pairs(spheres, rays_s, t_s)
+    lane_pairs = needed_pairs(tables, rays_s, t_s)
     tiles_read = int(worklist_mask(order, counts, ct).any(0).sum())
     ext_hits = int((idx[R:] >= 0).sum())
     job_bytes = (2 * R * (32 + 4) + G * 4 + n_pairs * 4
@@ -478,7 +527,8 @@ def check_jobs(tables, camera, width, height) -> list[dict]:
     print(f"cull: kernel {cull_ms:.4f} ms, plain {cull_plain_ms:.4f} ms on "
           f"the first {JOB_PLAIN_GROUPS} groups ({L} lanes), bound "
           f"{cb_ms:.4f} ms ({cb_by}, {live} live lanes x {ct} x {CULL_OPS} "
-          f"ops, {cull_bytes / 1e6:.1f} MB)")
+          f"ops, {cull_bytes / 1e6:.1f} MB), floor of separately rounded "
+          f"operations {cull_floor_ms:.4f} ms")
     print(f"job sweep closest+rows: kernel {job_ms:.4f} ms (any-hit "
           f"{job_any_ms:.4f} ms), plain {job_plain_ms:.4f} ms on the first "
           f"{JOB_PLAIN_GROUPS} groups, bound {jb_ms:.4f} ms ({jb_by}, "
@@ -490,27 +540,27 @@ def check_jobs(tables, camera, width, height) -> list[dict]:
           f"the groups' worklists; {tiles_read} tiles read, "
           f"{job_bytes / 1e6:.1f} MB); whole path (sort + cull + sweep) "
           f"{path_ms:.4f} ms; dense_sweep over every tile {full_ms:.4f} ms")
-    common = dict(max_abs_err=0.0, library_ms=None)
     return [dict(name="job_sweep", route="cuda",
                  source="webgpu_raytracer_tpu_torch/csrc/job_sweep.cu",
                  replaces="webgpu_raytracer_tpu/ops/pallas_dense.py:991",
+                 max_abs_err=max_abs_diff(t_p[keep], t[lanes[keep]]),
                  ms=job_ms, plain_ms=job_plain_ms, bound_ms=jb_ms,
-                 bound_by=jb_by, **common),
+                 bound_by=jb_by, library_ms=None),
             dict(name="cluster_cull", route="cuda",
                  source="webgpu_raytracer_tpu_torch/csrc/cluster_cull.cu",
                  replaces="webgpu_raytracer_tpu/ops/cluster_cull.py:26",
-                 ms=cull_ms, plain_ms=cull_plain_ms, bound_ms=cb_ms,
-                 bound_by=cb_by, **common)]
+                 max_abs_err=cull_err, ms=cull_ms, plain_ms=cull_plain_ms,
+                 bound_ms=cb_ms, bound_by=cb_by, library_ms=None)]
 
 
 def check_scan(tables, camera, width, height) -> list[dict]:
     """The scan path's kernels on the fused sweep of bounce 1 (2R lanes, in
-    ray tiles of M_TILE2): the keyed cull against its plain version on the
-    first SCAN_PLAIN_TILES tiles of each segment (shadow lanes, extension
-    lanes); the scan kernel bit-equal to the sweep kernel walking every
+    ray tiles of M_TILE2): the keyed cull bit-equal to its plain version on
+    every tile; the scan kernel bit-equal to the sweep kernel walking every
     tile, with the exact and with the cone cull's worklists, and to its
-    plain version (outputs and per-tile stats) on those first tiles. Times
-    the job path again beside the scan path."""
+    plain version (outputs and per-tile stats) on the first
+    SCAN_PLAIN_TILES tiles of each segment (shadow lanes, extension lanes).
+    Times the job path again beside the scan path."""
     R = width * height
     m = M_TILE2
     assert R % m == 0
@@ -518,35 +568,44 @@ def check_scan(tables, camera, width, height) -> list[dict]:
     spheres = tables.spheres
     ct = spheres.shape[0]
     rays8 = bounce_rays(tables, camera, width, height, 1, DEPTH)
-    rays_s, perm = coherence_sort(rays8, spheres, m, R)
+    rays_s, perm = coherence_sort(rays8, tables.box, m, R)
+    box_plain = box6(spheres)  # the plain versions' box, reduced here
     T = rays_s.shape[1] // m
-    key_map = cuda_scan.cluster_keys(spheres, rays_s, m)
+
+    def cull(stack=rays_s):
+        return cuda_scan.cluster_keys(spheres, stack, m, tables.box)
+
+    key_map = cull()
     order, keys, counts = sort_keyed(key_map)
     tiles = (list(range(SCAN_PLAIN_TILES))
              + list(range(R // m, R // m + SCAN_PLAIN_TILES)))
     tiles_t = torch.tensor(tiles, device=dev)
     sub_s = torch.cat([rays_s[:, t * m:(t + 1) * m] for t in tiles], 1)
-    key_map_p = keys_plain(spheres, sub_s, m)
+    keys_p = keys_plain(spheres, rays_s, m, box_plain)
     torch.cuda.synchronize()
     assert (counts[tiles_t] > 0).all(), "a checked tile is dead"
-    assert torch.equal(key_map[tiles_t] < 3e38, key_map_p < 3e38), \
-        "keyed cull survivors differ"
-    key_ulps, key_err = 0, 0.0
-    if not torch.equal(key_map[tiles_t], key_map_p):
-        key_ulps = int((key_map[tiles_t].view(torch.int32).long()
-                        - key_map_p.view(torch.int32).long()).abs().max())
-        key_err = float((key_map[tiles_t] - key_map_p).abs().max())
-    assert key_ulps <= 2, f"keyed cull keys differ by {key_ulps} ulp"
+    assert bits_equal(key_map, keys_p), \
+        "keyed cull: keys differ from the plain cull's"
+    key_err = max_abs_diff(key_map, keys_p)
+    # The warps take their minima into shared memory in an order that
+    # varies.
+    assert bits_equal(cull(), key_map), \
+        "keyed cull differs between two launches"
+    for label, stack in dead_lane_stacks(rays_s, m):
+        got = cull(stack)
+        assert bits_equal(got, keys_plain(spheres, stack, m, box_plain)), \
+            f"keyed cull, {label}: differs from plain"
+        assert bool((got == 3e38).all()) == (label == "all dead"), label
     assert (keys[:, 1:] >= keys[:, :-1]).all(), "keys not ascending"
     live = int((rays_s[6] > 0).sum())
     n_entries = int(counts.sum())
     busy = counts > 0
     n_busy = max(int(busy.sum()), 1)
     print(f"keyed cull: {2 * R} lanes ({live} live) x {ct} clusters, {T} "
-          f"tiles of {m} ({int(busy.sum())} non-empty); survivors equal to "
-          f"the plain keyed cull on {len(tiles)} tiles, keys "
-          f"{'bit-equal' if key_ulps == 0 else f'within {key_ulps} ulp'}; "
-          f"worklist length over non-empty tiles mean "
+          f"tiles of {m} ({int(busy.sum())} non-empty); keys bit-equal to "
+          f"the plain keyed cull on every tile, from a second launch, and "
+          f"on {CULL_EDGE_GROUPS} tiles with the first half dead and with "
+          f"all dead; worklist length over non-empty tiles mean "
           f"{n_entries / n_busy:.2f}, max {int(counts.max())}; {n_entries} "
           f"(tile, cluster) entries")
 
@@ -580,7 +639,7 @@ def check_scan(tables, camera, width, height) -> list[dict]:
     assert bits_equal(t_p[keep], t[lanes[keep]]), "plain scan t"
     assert torch.equal(stats_p, stats[tiles_t].cpu()), "plain scan stats"
 
-    cone = cuda_scan.worklists_keyed(spheres, rays_s, m, "cone")
+    cone = cuda_scan.worklists_keyed(spheres, rays_s, m, tables.box, "cone")
     exact_mask = worklist_mask(order, counts, ct)
     cone_mask = worklist_mask(cone[0], cone[2], ct)
     assert not (exact_mask & ~cone_mask).any(), \
@@ -608,8 +667,8 @@ def check_scan(tables, camera, width, height) -> list[dict]:
           f"processed {pr_a / n_busy:.2f}")
 
     g = M_TILE3
-    rays_j, perm_j = coherence_sort(rays8, spheres, g, R)
-    order_j, counts_j = cuda_jobs.worklists(spheres, rays_j, g)
+    rays_j, perm_j = coherence_sort(rays8, tables.box, g, R)
+    order_j, counts_j = cuda_jobs.worklists(spheres, rays_j, g, tables.box)
 
     def jobs():
         return cuda_jobs.job_sweep(tables, rays_j, perm_j, order_j, counts_j,
@@ -618,12 +677,12 @@ def check_scan(tables, camera, width, height) -> list[dict]:
     def path(narrow):
         return cuda_dense.closest_with_row(tables, rays8, R, narrow=narrow)
 
-    cull_ms = device_ms(lambda: cuda_scan.cluster_keys(spheres, rays_s, m))
-    cull_plain_ms = device_ms(lambda: keys_plain(spheres, sub_s, m),
+    cull_ms = device_ms(cull)
+    cull_plain_ms = device_ms(lambda: keys_plain(spheres, sub_s, m, box_plain),
                               PLAIN_LAUNCHES)
     sort_ms = device_ms(lambda: sort_keyed(key_map))
     cone_ms = device_ms(lambda: cuda_scan.worklists_keyed(
-        spheres, rays_s, m, "cone"), PLAIN_LAUNCHES)
+        spheres, rays_s, m, tables.box, "cone"), PLAIN_LAUNCHES)
     job_a = device_ms(jobs, 50)
     scan_ms = device_ms(lambda: scan(False))
     scan_any_ms = device_ms(lambda: scan(True))
@@ -642,8 +701,9 @@ def check_scan(tables, camera, width, height) -> list[dict]:
     # keys in; t, idx and the extension lanes' rows out.
     cull_bytes = rays_s.numel() * 4 + ct * 16 + T * ct * 4
     cb_ms, cb_by = bound(cull_bytes, live * ct * KEYED_CULL_OPS)
+    cull_floor_ms = 1e3 * live * ct * KEYED_CULL_OPS / F32_ROUNDED_OPS_PER_S
     t_s = torch.where(perm < 2 * R, t[perm.long().clamp(max=2 * R - 1)], 0.0)
-    lane_pairs = needed_pairs(spheres, rays_s, t_s)
+    lane_pairs = needed_pairs(tables, rays_s, t_s)
     tiles_read = int(exact_mask.any(0).sum())
     ext_hits = int((idx[R:] >= 0).sum())
     scan_bytes = (2 * R * (32 + 4) + T * 4 + n_entries * 8
@@ -653,8 +713,9 @@ def check_scan(tables, camera, width, height) -> list[dict]:
     print(f"keyed cull: kernel {cull_ms:.4f} ms, plain {cull_plain_ms:.4f} "
           f"ms on {len(tiles)} tiles ({len(tiles) * m} lanes), bound "
           f"{cb_ms:.4f} ms ({cb_by}, {live} live lanes x {ct} x "
-          f"{KEYED_CULL_OPS} ops, {cull_bytes / 1e6:.1f} MB); torch.sort of "
-          f"the ({T}, {ct}) keys {sort_ms:.4f} ms; cone cull (plain torch, "
+          f"{KEYED_CULL_OPS} ops, {cull_bytes / 1e6:.1f} MB), floor of "
+          f"separately rounded operations {cull_floor_ms:.4f} ms; torch.sort "
+          f"of the ({T}, {ct}) keys {sort_ms:.4f} ms; cone cull (plain torch, "
           f"sort included) {cone_ms:.4f} ms")
     print(f"scan sweep closest+rows: kernel {scan_ms:.4f} ms (any-hit "
           f"{scan_any_ms:.4f} ms; on the cone cull's worklists "
@@ -672,7 +733,8 @@ def check_scan(tables, camera, width, height) -> list[dict]:
     return [dict(name="scan_sweep", route="cuda",
                  source="webgpu_raytracer_tpu_torch/csrc/scan_sweep.cu",
                  replaces="webgpu_raytracer_tpu/ops/pallas_dense.py:323",
-                 max_abs_err=0.0, ms=scan_ms, plain_ms=scan_plain_ms,
+                 max_abs_err=max_abs_diff(t_p[keep], t[lanes[keep]]),
+                 ms=scan_ms, plain_ms=scan_plain_ms,
                  bound_ms=sb_ms, bound_by=sb_by, library_ms=None),
             dict(name="cluster_cull_keyed", route="cuda",
                  source="webgpu_raytracer_tpu_torch/csrc/cluster_cull.cu",
@@ -681,10 +743,11 @@ def check_scan(tables, camera, width, height) -> list[dict]:
                  bound_ms=cb_ms, bound_by=cb_by, library_ms=None)]
 
 
-def needed_pairs(spheres, rays_s, t_end) -> int:
+def needed_pairs(tables, rays_s, t_end) -> int:
     """(lane, tile) pairs of a sorted stack whose segment (T_MIN, min(t_clip,
     t_end)) can touch the tile's sphere (the cull's test, lane by lane)."""
-    dd, t_clip = lane_terms(rays_s, spheres)
+    spheres = tables.spheres
+    dd, t_clip = lane_terms(rays_s, tables.box)
     t_clip = torch.minimum(t_clip, t_end)
     n = torch.zeros((), dtype=torch.int64, device=rays_s.device)
     for l0 in range(0, rays_s.shape[1], LANE_CHUNK):
@@ -693,6 +756,14 @@ def needed_pairs(spheres, rays_s, t_end) -> int:
             n += pair_ok(rays_s[:, lanes], dd[lanes], t_clip[lanes],
                          spheres[c0:c0 + CLUSTER_CHUNK]).sum()
     return int(n)
+
+
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| over the entries that differ; 0.0 when a == b
+    everywhere (equal infinities and the 3e38 of a dropped cluster
+    included)."""
+    a, b = a.double(), b.double()
+    return float(torch.where(a == b, 0.0, (a - b).abs()).max())
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -723,20 +794,21 @@ def check_fetch_rows(cases) -> dict:
         out_p = fetch_rows_plain(table, idx)
         torch.cuda.synchronize()
         assert bits_equal(out_k, out_p), f"{label}: rows differ"
+        err = max_abs_diff(out_k, out_p)
         n, k = table.shape
         r = idx.shape[0]
         clipped = idx.clamp(0, n - 1)
         print(f"fetch_rows {label}: N {n}, K {k}, R {r}, bit-equal")
-        results.append(time_fetch(
+        results.append(dict(max_abs_err=err, **time_fetch(
             f"fetch_rows {label}",
             lambda: cuda_fetch.fetch_rows_t(table, idx),
             lambda: fetch_rows_plain(table, idx),
             lambda: table.index_select(0, clipped).T.contiguous(),
-            r * 4 + k * r * 4 + n * k * 4))
+            r * 4 + k * r * 4 + n * k * 4)))
     return dict(name="fetch_rows", route="cuda",
                 source="webgpu_raytracer_tpu_torch/csrc/fetch_rows.cu",
                 replaces="webgpu_raytracer_tpu/ops/pallas_dense.py:1381",
-                max_abs_err=0.0, **results[0])
+                **results[0])
 
 
 def check_fetch_quad(cases) -> dict:
@@ -748,18 +820,19 @@ def check_fetch_quad(cases) -> dict:
         out_p = fetch_quad_plain(flat, rows)
         torch.cuda.synchronize()
         assert bits_equal(out_k, out_p), f"{label}: words differ"
+        err = max_abs_diff(out_k, out_p)
         n, r = flat.shape[0], rows.shape[0]
         print(f"fetch_quad {label}: N {n}, R {r}, bit-equal")
-        results.append(time_fetch(
+        results.append(dict(max_abs_err=err, **time_fetch(
             f"fetch_quad {label}",
             lambda: cuda_fetch.fetch_quad(flat, rows),
             lambda: fetch_quad_plain(flat, rows),
             lambda: flat.index_select(0, rows),
-            r * 4 + r * 16 + n * 16))
+            r * 4 + r * 16 + n * 16)))
     return dict(name="fetch_quad", route="cuda",
                 source="webgpu_raytracer_tpu_torch/csrc/fetch_rows.cu",
                 replaces="webgpu_raytracer_tpu/ops/pallas_dense.py:1438",
-                max_abs_err=0.0, **results[0])
+                **results[0])
 
 
 def frames(tables, camera, width, height, n, golden_key, textures=None,
@@ -1033,7 +1106,7 @@ def main(argv: list[str]) -> int:
           lambda: traced_hd.append(frames(tables, cam_hd, *hd, 8,
                                           "cornell_1080p")), totals)
 
-    r = Renderer("cornell", RenderConfig(width=width, height=height,
+    r = Renderer("cornell", config=RenderConfig(width=width, height=height,
                                          max_depth=DEPTH), device=dev)
     drive("Renderer cornell 512^2", 16, rows_launches(False),
           lambda: renderer_frames(r, 16, f"cornell {width}x{height} "
@@ -1054,7 +1127,7 @@ def main(argv: list[str]) -> int:
         "seeded frame 1 differs from the traced frame 1"
     print("cornell 1080p: seeded frame 1 bit-equal to the traced frame 1")
 
-    rt = Renderer("viewer", RenderConfig(width=width, height=height,
+    rt = Renderer("viewer", config=RenderConfig(width=width, height=height,
                                          max_depth=DEPTH),
                   glb_data=glb, device=dev)
     assert rt.textures is not None and rt.textures[1].shape == (1, 128, 128)
@@ -1069,7 +1142,7 @@ def main(argv: list[str]) -> int:
     drive("spheres 512^2 traced", 4, rows_launches(False, True),
           lambda: jobs_sp.append(frames(sp_tables, sp_cam, width, height, 4,
                                         "spheres_512")), totals)
-    rs = Renderer("spheres", RenderConfig(width=width, height=height,
+    rs = Renderer("spheres", config=RenderConfig(width=width, height=height,
                                           max_depth=DEPTH), device=dev)
     drive("Renderer spheres 512^2", 4, rows_launches(False, True),
           lambda: renderer_frames(rs, 4, f"spheres {width}x{height} "
@@ -1089,7 +1162,7 @@ def main(argv: list[str]) -> int:
         "spheres: the scan path's frame 1 differs from the job path's"
     print("spheres 512^2: narrow=scan frame 1 bit-equal to the narrow=jobs "
           "frame 1")
-    rsc = Renderer("spheres", RenderConfig(width=width, height=height,
+    rsc = Renderer("spheres", config=RenderConfig(width=width, height=height,
                                            max_depth=DEPTH), device=dev,
                    narrow="scan")
     drive("Renderer spheres 512^2 narrow=scan", 4, scan_launches,

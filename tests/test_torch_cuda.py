@@ -29,7 +29,7 @@ from webgpu_raytracer_tpu_torch.ops.dense import (T_MAX, closest_plain,
                                                   scan_closest_plain,
                                                   scan_shadow_plain,
                                                   shadow_plain, worklist_mask)
-from webgpu_raytracer_tpu_torch.ops.coherence import coherence_sort
+from webgpu_raytracer_tpu_torch.ops.coherence import box6, coherence_sort
 from webgpu_raytracer_tpu_torch.ops.dense_trace import (bounce_rays,
                                                         trace_pixels_dense)
 from webgpu_raytracer_tpu_torch.ops.fetch import (fetch_quad_plain,
@@ -145,7 +145,8 @@ def test_golden_mean_radiance_on_card(cuda, scene_name):
 
 
 def test_renderer_on_card_counts_launches(cuda):
-    r = Renderer("cornell", RenderConfig(width=RES, height=RES, max_depth=5),
+    r = Renderer("cornell",
+                 config=RenderConfig(width=RES, height=RES, max_depth=5),
                  device="cuda")
     for _ in range(2):
         r.render_frame()
@@ -212,7 +213,8 @@ def test_textured_renderer_on_card_counts_launches(cuda):
     per frame of depth 5, seeded from the G-buffer: 6 sweeps, 6 row fetches
     (5 light, 1 seed) and 6 quad fetches (G-buffer, seed, 4 extension
     hits)."""
-    r = Renderer("viewer", RenderConfig(width=RES, height=RES, max_depth=5),
+    r = Renderer("viewer",
+                 config=RenderConfig(width=RES, height=RES, max_depth=5),
                  glb_data=chip_smoke.textured_quad_glb(), device="cuda")
     for _ in range(2):
         r.render_frame(use_gbuffer=True)
@@ -247,8 +249,9 @@ def bounce_stacks():
 
 def _sort_and_cull(tables, rays8, R, g=128):
     """The fused sweep's sort (segments split at R) and the cull kernel."""
-    rays_s, perm = coherence_sort(rays8, tables.spheres, g, R)
-    order, counts = cuda_jobs.worklists(tables.spheres, rays_s, g)
+    rays_s, perm = coherence_sort(rays8, tables.box, g, R)
+    order, counts = cuda_jobs.worklists(tables.spheres, rays_s, g,
+                                        tables.box)
     return rays_s, perm, order, counts
 
 
@@ -258,7 +261,8 @@ def test_cull_kernel_matches_plain(cuda, bounce_stacks, scene):
     g = 128
     rays_s, perm, order, counts = _sort_and_cull(tables, rays8, R)
     assert kernels.launches["cluster_cull"] > 0
-    order_p, counts_p = worklists_plain(tables.spheres, rays_s, g)
+    order_p, counts_p = worklists_plain(tables.spheres, rays_s, g,
+                                        box6(tables.spheres))
     assert torch.equal(counts, counts_p)
     ct = tables.spheres.shape[0]
     assert torch.equal(worklist_mask(order, counts, ct),
@@ -300,7 +304,8 @@ def test_job_kernel_bit_equal_to_full_sweep(cuda, bounce_stacks, scene):
 def test_renderer_spheres_on_card_counts_launches(cuda):
     """spheres (257k tris) through the job path: per frame of depth 3, one
     primary and three fused sweeps, each a cull and a job sweep."""
-    r = Renderer("spheres", RenderConfig(width=RES, height=RES, max_depth=3),
+    r = Renderer("spheres",
+                 config=RenderConfig(width=RES, height=RES, max_depth=3),
                  device="cuda")
     for _ in range(2):
         r.render_frame()
@@ -321,16 +326,88 @@ def test_keyed_cull_kernel_matches_plain(cuda, bounce_stacks, scene, m):
     """Survivors equal and keys within 2 ulp (bit-equal where both take
     the correctly rounded root and quotient) of the plain keyed cull."""
     tables, rays8, R = bounce_stacks[scene]
-    rays_s, _ = coherence_sort(rays8, tables.spheres, m, R)
+    rays_s, _ = coherence_sort(rays8, tables.box, m, R)
     before = kernels.launches["cluster_cull_keyed"]
-    keys = cuda_scan.cluster_keys(tables.spheres, rays_s, m)
+    keys = cuda_scan.cluster_keys(tables.spheres, rays_s, m, tables.box)
     assert kernels.launches["cluster_cull_keyed"] == before + 1
-    keys_p = keys_plain(tables.spheres, rays_s, m)
+    keys_p = keys_plain(tables.spheres, rays_s, m, box6(tables.spheres))
     assert torch.equal(keys < 3e38, keys_p < 3e38)
     ulps = (keys.view(torch.int32).long()
             - keys_p.view(torch.int32).long()).abs().max()
     assert int(ulps) <= 2, int(ulps)
     assert 0 < int((keys < 3e38).sum(1).max()) <= tables.spheres.shape[0]
+
+
+def _assert_culls_equal_plain(spheres, rays_s, g):
+    """Both cull kernels on a sorted stack: worklists (counts, survivors in
+    ascending id) and keys bit-equal to the plain versions, and to
+    themselves from a second launch."""
+    ct = spheres.shape[0]
+    box = box6(spheres)
+    before = dict(kernels.launches)
+    order, counts = cuda_jobs.worklists(spheres, rays_s, g, box)
+    keys = cuda_scan.cluster_keys(spheres, rays_s, g, box)
+    assert kernels.launches["cluster_cull"] == before["cluster_cull"] + 1
+    assert kernels.launches["cluster_cull_keyed"] == \
+        before["cluster_cull_keyed"] + 1
+    order_p, counts_p = worklists_plain(spheres, rays_s, g, box)
+    keys_p = keys_plain(spheres, rays_s, g, box)
+    pos = torch.arange(ct, device=rays_s.device)[None, :] < counts_p[:, None]
+    assert torch.equal(counts, counts_p)
+    assert torch.equal(torch.where(pos, order, -1),
+                       torch.where(pos, order_p, -1))
+    assert torch.equal(_bits(keys), _bits(keys_p))
+    order2, counts2 = cuda_jobs.worklists(spheres, rays_s, g, box)
+    assert torch.equal(counts2, counts)
+    assert torch.equal(torch.where(pos, order2, -1),
+                       torch.where(pos, order, -1))
+    assert torch.equal(_bits(cuda_scan.cluster_keys(spheres, rays_s, g, box)),
+                       _bits(keys))
+    return counts, keys
+
+
+@pytest.mark.parametrize("g", [32, 128, 256, 1024])
+@pytest.mark.parametrize("ct", [1, 31, 33, 2009])
+def test_cull_kernels_bit_equal_to_plain(cuda, bounce_stacks, ct, g):
+    """Every lanes-per-thread and warps-per-block layout of the kernels
+    (g), at cluster counts around their 32-cluster blocks' edge (the first
+    ct spheres of the spheres scene, whose box then is theirs)."""
+    tables, rays8, R = bounce_stacks["spheres"]
+    spheres = tables.spheres[:ct].contiguous()
+    rays_s, _ = coherence_sort(rays8, box6(spheres), g, R)
+    counts, keys = _assert_culls_equal_plain(spheres, rays_s, g)
+    # The unkeyed test's ends are nudged outward, the keyed test's are not.
+    assert int(counts.sum()) >= int((keys < 3e38).sum())
+    assert ct == 1 or int((keys < 3e38).sum()) > 0
+
+
+@pytest.mark.parametrize("g", [128, 1024])
+def test_cull_kernels_dead_lanes_and_padding(cuda, bounce_stacks, g):
+    """A group whose lanes are half dead, out of the sort's order; a stack
+    that is all dead; a sphere table that is all padding."""
+    tables, rays8, R = bounce_stacks["spheres"]
+    spheres = tables.spheres
+    ct = spheres.shape[0]
+    rays_s, _ = coherence_sort(rays8, tables.box, g, R)
+    full, _ = _assert_culls_equal_plain(spheres, rays_s, g)
+    assert int(full[0]) > 0
+
+    half = rays_s.clone()
+    half[6, 0:g:2] = 0.0
+    half[6, g // 2:g] = 0.0
+    counts, _ = _assert_culls_equal_plain(spheres, half, g)
+    assert 0 < int(counts[0]) <= int(full[0])
+
+    dead = rays_s.clone()
+    dead[6] = 0.0
+    counts, keys = _assert_culls_equal_plain(spheres, dead, g)
+    assert int(counts.sum()) == 0 and bool((keys == 3e38).all())
+
+    padding = spheres.clone()
+    padding[:, 3] = -1.0
+    counts, keys = _assert_culls_equal_plain(padding, rays_s, g)
+    assert int(counts.sum()) == 0 and bool((keys == 3e38).all())
+    assert keys.shape == (rays_s.shape[1] // g, ct)
 
 
 @pytest.mark.parametrize("cull", ["exact", "cone"])
@@ -364,8 +441,9 @@ def test_scan_kernel_bit_equal_to_full_sweep(cuda, bounce_stacks, scene,
 
     # One sorted stack and its worklists through the kernel and the plain
     # version, both modes: outputs and per-tile stats.
-    rays_s, perm = coherence_sort(rays8, tables.spheres, m, R)
-    lists = cuda_scan.worklists_keyed(tables.spheres, rays_s, m, cull)
+    rays_s, perm = coherence_sort(rays8, tables.box, m, R)
+    lists = cuda_scan.worklists_keyed(tables.spheres, rays_s, m, tables.box,
+                                      cull)
     t_k, idx_k, _, stats = cuda_scan.scan_sweep(
         tables, rays_s, perm, *lists, m, 2 * R, False, R, with_stats=True)
     occ_k, stats_any = cuda_scan.scan_sweep(
@@ -404,9 +482,9 @@ def test_renderer_spheres_scan_on_card_counts_launches(cuda):
     and three fused sweeps, each a keyed cull and a scan sweep; the
     accumulator equals the default Renderer's bit for bit."""
     cfg = dict(width=RES, height=RES, max_depth=3)
-    r = Renderer("spheres", RenderConfig(**cfg), device="cuda",
+    r = Renderer("spheres", config=RenderConfig(**cfg), device="cuda",
                  narrow="scan")
-    ref = Renderer("spheres", RenderConfig(**cfg), device="cuda")
+    ref = Renderer("spheres", config=RenderConfig(**cfg), device="cuda")
     for _ in range(2):
         r.render_frame()
         ref.render_frame()
@@ -443,8 +521,8 @@ def _narrow_kernels_agree(tables, rays8, kernel):
     before = kernels.launches[name]
     if kernel == "jobs":
         b = 128
-        rays_s, perm = coherence_sort(rays8, tables.spheres, b, 0)
-        lists = cuda_jobs.worklists(tables.spheres, rays_s, b)
+        rays_s, perm = coherence_sort(rays8, tables.box, b, 0)
+        lists = cuda_jobs.worklists(tables.spheres, rays_s, b, tables.box)
 
         def sweep(any_hit, stats=False):
             return cuda_jobs.job_sweep(tables, rays_s, perm, *lists, b, R,
@@ -455,8 +533,9 @@ def _narrow_kernels_agree(tables, rays8, kernel):
                        for a in (False, True)]
     else:
         b = 1024
-        rays_s, perm = coherence_sort(rays8, tables.spheres, b, 0)
-        lists = cuda_scan.worklists_keyed(tables.spheres, rays_s, b)
+        rays_s, perm = coherence_sort(rays8, tables.box, b, 0)
+        lists = cuda_scan.worklists_keyed(tables.spheres, rays_s, b,
+                                          tables.box)
 
         def sweep(any_hit, stats=False):
             return cuda_scan.scan_sweep(tables, rays_s, perm, *lists, b, R,

@@ -21,6 +21,12 @@ port's plain path.
   test sits within 1e-5 relative of its threshold, and on every fixture
   the cluster of each lane's `closest_plain` winner is on its group's
   worklist. The ladder's worklists are as short as JAX's.
+- The plain helpers beside the CUDA culls: the tables' `box` is
+  `scene_box(spheres)` bit for bit, and the sort and both plain culls give
+  the same with it as with a box reduced anew; `place_survivors` (the
+  unkeyed kernel's bit-mask placement, restated here in plain PyTorch)
+  gives `worklists_plain`'s lists, on every fixture and on random maps at
+  ragged cluster counts.
 """
 
 import numpy as np
@@ -32,10 +38,12 @@ from webgpu_raytracer_tpu.ops.cluster_cull import tile_cluster_worklist_exact
 from webgpu_raytracer_tpu.ops.pallas_dense import (_coherence_sort,
                                                    rayf_from_components)
 from webgpu_raytracer_tpu.ops.tune import TuneConfig as JaxTune
-from webgpu_raytracer_tpu_torch.ops.cluster_cull import (lane_terms,
+from webgpu_raytracer_tpu_torch.ops.cluster_cull import (keys_plain,
+                                                         lane_terms,
                                                          worklists_plain)
 from webgpu_raytracer_tpu_torch.ops import tune as port_tune
-from webgpu_raytracer_tpu_torch.ops.coherence import coherence_sort, sort_key
+from webgpu_raytracer_tpu_torch.ops.coherence import (box6, coherence_sort,
+                                                      scene_box, sort_key)
 from webgpu_raytracer_tpu_torch.ops.dense import (T_MIN, closest_plain,
                                                   worklist_mask)
 
@@ -141,7 +149,7 @@ def _assert_keys_match(case_rays, g, seg):
     rays8 = stack8(ro, rd, t_max)
     rp = want.size
     padded = torch.nn.functional.pad(rays8, (0, rp - rays8.shape[1]))
-    got = sort_key(padded, tables.spheres, seg).numpy()
+    got = sort_key(padded, tables.box, seg).numpy()
     live = padded[6].numpy() > 0
     assert live.any() and (~live).any()
     np.testing.assert_array_equal(got[~live], want[~live])
@@ -158,7 +166,7 @@ def test_sort_key_matches_jax(cases, case, g):
     rays8, rp = _assert_keys_match(cases[case], g, seg)
 
     # Dead and padded lanes at the end of their segment, in both packages.
-    rays_s, perm = coherence_sort(rays8, tables.spheres, g, seg)
+    rays_s, perm = coherence_sort(rays8, tables.box, g, seg)
     assert rays_s.shape[1] == rp and rp % g == 0
     _live_prefix(rays_s[6].numpy(), seg, rp)
     t_j, _ = _jax_sort(tables, ro, rd, t_max, g, seg)
@@ -183,7 +191,7 @@ def test_inverse_permutation_matches_jax_on_equal_keys(cases, seg):
     t_max = np.where((lane % 7 == 3) | (lane % 11 == 0), 0.0,
                      1e30).astype(np.float32)
     _, inv_j = _jax_sort(tables, ro, rd, t_max, 128, seg)
-    _, perm = coherence_sort(stack8(ro, rd, t_max), tables.spheres, 128,
+    _, perm = coherence_sort(stack8(ro, rd, t_max), tables.box, 128,
                              seg)
     inv = torch.argsort(perm.long()).numpy()
     np.testing.assert_array_equal(inv, inv_j)
@@ -193,7 +201,7 @@ def test_inverse_permutation_matches_jax_on_equal_keys(cases, seg):
 def _sorted_case(cases, case, g=128):
     tables, ro, rd, t_max, split = cases[case]
     seg = _segment_start(split, g)
-    rays_s, _ = coherence_sort(stack8(ro, rd, t_max), tables.spheres, g, seg)
+    rays_s, _ = coherence_sort(stack8(ro, rd, t_max), tables.box, g, seg)
     return tables, rays_s
 
 
@@ -232,7 +240,7 @@ def _near_threshold(rays_s, t_clip, sphere, lanes, rel=1e-5):
 def test_cull_matches_jax(cases, case):
     g = 128
     tables, rays_s = _sorted_case(cases, case, g)
-    order, counts = worklists_plain(tables.spheres, rays_s, g)
+    order, counts = worklists_plain(tables.spheres, rays_s, g, tables.box)
     order_j, counts_j = _jax_worklists(tables, rays_s, g)
     ct = tables.spheres.shape[0]
     assert order.shape == order_j.shape == (rays_s.shape[1] // g, ct)
@@ -244,7 +252,7 @@ def test_cull_matches_jax(cases, case):
     assert torch.equal(torch.where(pos, order, -1),
                        torch.where(pos, torch.sort(
                            torch.where(pos, order, ct), 1).values, -1))
-    _, t_clip = lane_terms(rays_s, tables.spheres)
+    _, t_clip = lane_terms(rays_s, tables.box)
     for grp, cl in torch.nonzero(theirs & ~mine).tolist():
         lanes = np.arange(grp * g, (grp + 1) * g)
         assert _near_threshold(rays_s, t_clip, tables.spheres[cl], lanes), \
@@ -258,7 +266,7 @@ def test_cull_keeps_every_winners_cluster(cases, case):
     sweep) lies in a cluster on its group's worklist."""
     g = 128
     tables, rays_s = _sorted_case(cases, case, g)
-    order, counts = worklists_plain(tables.spheres, rays_s, g)
+    order, counts = worklists_plain(tables.spheres, rays_s, g, tables.box)
     _, idx = closest_plain(tables, rays_s)
     hit = torch.nonzero(idx >= 0).flatten()
     assert hit.numel() > 0
@@ -276,7 +284,7 @@ def test_ladder_worklists_as_short_as_jax(cases, g):
     more than the 7 clusters of the JAX test's one 512-lane tile, and the
     groups together cover all 7; a group of dead lanes lists nothing."""
     tables, rays_s = _sorted_case(cases, "ladder", g)
-    order, counts = worklists_plain(tables.spheres, rays_s, g)
+    order, counts = worklists_plain(tables.spheres, rays_s, g, tables.box)
     _, counts_j = _jax_worklists(tables, rays_s, g)
     np.testing.assert_array_equal(counts.numpy(), counts_j.numpy())
     assert (counts < 7).all()
@@ -284,3 +292,85 @@ def test_ladder_worklists_as_short_as_jax(cases, g):
     assert (counts[dead] == 0).all() and (counts[~dead] > 0).all()
     assert dead.any() == (g == 128)
     assert worklist_mask(order, counts, 7).any(0).all()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_tables_box_is_the_scene_box(cases, case):
+    """`WorldTables.box`, computed once when the tables are built, is
+    `scene_box(spheres)` bit for bit; sort, cull and keyed cull give the
+    same with it as with the box reduced anew on the spot."""
+    tables, ro, rd, t_max, split = cases[case]
+    lo, hi = scene_box(tables.spheres)
+    assert tables.box.shape == (6,) and tables.box.dtype == torch.float32
+    assert torch.equal(tables.box, torch.cat([lo, hi]))
+    assert torch.equal(tables.box, box6(tables.spheres))
+    assert (lo < hi).all()
+    g = 128
+    seg = _segment_start(split, g)
+    rays8 = stack8(ro, rd, t_max)
+    rays_s, perm = coherence_sort(rays8, tables.box, g, seg)
+    anew = box6(tables.spheres.clone())
+    rays_b, perm_b = coherence_sort(rays8, anew, g, seg)
+    assert torch.equal(perm, perm_b) and torch.equal(rays_s, rays_b)
+    for plain in (worklists_plain, keys_plain):
+        a = plain(tables.spheres, rays_s, g, anew)
+        b = plain(tables.spheres, rays_s, g, tables.box)
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), plain.__name__
+
+
+def place_survivors(possible: torch.Tensor):
+    """(order (G, Ct) int32, counts (G,) int32) from a (G, Ct) bool map, the
+    way `csrc/cluster_cull.cu` places them: the map as 32-bit words, an
+    exclusive prefix over the words' popcounts, and each set bit at that
+    prefix plus the count of set bits below it in its word. Row g starts
+    with its counts[g] survivors in ascending id; the rest is -1 here (the
+    kernel leaves it unwritten)."""
+    G, ct = possible.shape
+    nw = -(-ct // 32)
+    bits = torch.zeros((G, nw * 32), dtype=torch.int64)
+    bits[:, :ct] = possible
+    bits = bits.view(G, nw, 32)
+    pop = bits.sum(2)
+    before = pop.cumsum(1) - pop
+    below = bits.cumsum(2) - bits
+    place = (before[:, :, None] + below).view(G, -1)
+    ids = torch.arange(nw * 32).expand(G, -1)
+    order = torch.full((G, ct), -1, dtype=torch.int32)
+    hit = bits.view(G, -1) > 0
+    rows = torch.arange(G)[:, None].expand(G, nw * 32)
+    order[rows[hit], place[hit]] = ids[hit].to(torch.int32)
+    return order, pop.sum(1).to(torch.int32)
+
+
+def _assert_placed(possible, order_want, counts_want):
+    order, counts = place_survivors(possible)
+    ct = possible.shape[1]
+    assert order.dtype == counts.dtype == torch.int32
+    assert torch.equal(counts, counts_want)
+    pos = torch.arange(ct)[None, :] < counts[:, None]
+    assert torch.equal(order, torch.where(pos, order_want, -1))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_place_survivors_matches_the_plain_cull(cases, case):
+    g = 128
+    tables, rays_s = _sorted_case(cases, case, g)
+    order, counts = worklists_plain(tables.spheres, rays_s, g, tables.box)
+    possible = worklist_mask(order, counts, tables.spheres.shape[0])
+    assert possible.any()
+    _assert_placed(possible, order, counts)
+
+
+@pytest.mark.parametrize("ct", [1, 31, 32, 33, 2009])
+def test_place_survivors_on_random_maps(ct):
+    """Rows that are empty, full and random, at cluster counts around the
+    32-bit word's edge: the lists of a stable sort by (dropped, id)."""
+    rs = np.random.default_rng(ct)
+    possible = torch.from_numpy(rs.random((12, ct)) < 0.3)
+    possible[0] = False
+    possible[1] = True
+    ids = torch.arange(ct, dtype=torch.int32)
+    key = torch.where(possible, ids[None, :], ct)
+    order = torch.sort(key, dim=1, stable=True).indices.to(torch.int32)
+    _assert_placed(possible, order, possible.sum(1, dtype=torch.int32))

@@ -72,8 +72,9 @@ def _jax_run3(wt, ro, rd, t_max, g, any_hit):
 def _job_path(tables, rays8, g, any_hit):
     """`cuda_jobs.closest_with_row` / `shadow` (one segment) at group size
     g."""
-    rays_s, perm = coherence_sort(rays8, tables.spheres, g)
-    order, counts = cuda_jobs.worklists(tables.spheres, rays_s, g)
+    rays_s, perm = coherence_sort(rays8, tables.box, g)
+    order, counts = cuda_jobs.worklists(tables.spheres, rays_s, g,
+                                        tables.box)
     return cuda_jobs.job_sweep(tables, rays_s, perm, order, counts, g,
                                rays8.shape[1], any_hit)
 
@@ -188,8 +189,9 @@ def test_job_stats_count_the_touching_lanes(cases, case, any_hit):
     tables, ro, rd, t_max, split = scaled_case(cases[case])
     rays8 = stack8(ro, rd, t_max)
     g = 128
-    rays_s, perm = coherence_sort(rays8, tables.spheres, g)
-    order, counts = cuda_jobs.worklists(tables.spheres, rays_s, g)
+    rays_s, perm = coherence_sort(rays8, tables.box, g)
+    order, counts = cuda_jobs.worklists(tables.spheres, rays_s, g,
+                                        tables.box)
     args = (tables, rays_s, perm, order, counts, g, rays8.shape[1], any_hit)
     plain = cuda_jobs.job_sweep(*args)
     *out, stats = cuda_jobs.job_sweep(*args, with_stats=True)
@@ -203,7 +205,7 @@ def test_job_stats_count_the_touching_lanes(cases, case, any_hit):
 
     ct = tables.spheres.shape[0]
     listed = worklist_mask(order, counts, ct).repeat_interleave(g, 0).T
-    dd = lane_terms(rays_s, tables.spheres)[0]
+    dd = lane_terms(rays_s, tables.box)[0]
 
     def pairs(t_end):
         ok = pair_ok(rays_s, dd, t_end, tables.spheres)

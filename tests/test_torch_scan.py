@@ -55,7 +55,7 @@ from webgpu_raytracer_tpu_torch import kernels
 from webgpu_raytracer_tpu_torch.ops import cuda_dense, cuda_jobs, cuda_scan
 from webgpu_raytracer_tpu_torch.ops.cluster_cull import (
     cone_worklists_plain, lane_terms, worklists_keyed_plain)
-from webgpu_raytracer_tpu_torch.ops.coherence import coherence_sort
+from webgpu_raytracer_tpu_torch.ops.coherence import box6, coherence_sort
 from webgpu_raytracer_tpu_torch.ops.dense import (closest_plain, rows_plain,
                                                   shadow_plain,
                                                   worklist_mask)
@@ -78,7 +78,7 @@ def cases(grid_wt, ladder_world, drain_world):  # noqa: F811
 def _sorted_case(cases, case, m):
     tables, ro, rd, t_max, split = cases[case]
     seg = split if split % m == 0 else 0
-    rays_s, _ = coherence_sort(stack8(ro, rd, t_max), tables.spheres, m, seg)
+    rays_s, _ = coherence_sort(stack8(ro, rd, t_max), tables.box, m, seg)
     return tables, rays_s
 
 
@@ -123,7 +123,8 @@ def _assert_keys_close(mine, theirs):
 def test_keyed_cull_matches_jax(cases, case, m):
     tables, rays_s = _sorted_case(cases, case, m)
     ct = tables.spheres.shape[0]
-    order, keys, counts = worklists_keyed_plain(tables.spheres, rays_s, m)
+    order, keys, counts = worklists_keyed_plain(tables.spheres, rays_s, m,
+                                                 tables.box)
     assert order.shape == keys.shape == (rays_s.shape[1] // m, ct)
     _assert_contract(order, keys, counts, ct)
     order_j, keys_j, counts_j = _jax_worklists(
@@ -131,7 +132,7 @@ def test_keyed_cull_matches_jax(cases, case, m):
     mine = worklist_mask(order, counts, ct)
     theirs = worklist_mask(order_j, counts_j, ct)
     assert int(counts.sum()) > 0
-    _, t_clip = lane_terms(rays_s, tables.spheres)
+    _, t_clip = lane_terms(rays_s, tables.box)
     for tile, cl in torch.nonzero(theirs != mine).tolist():
         lanes = np.arange(tile * m, (tile + 1) * m)
         assert _near_threshold(rays_s, t_clip, tables.spheres[cl], lanes), \
@@ -145,7 +146,8 @@ def test_keyed_cull_matches_jax(cases, case, m):
 def test_cone_cull_matches_jax_and_holds_the_exact_cull(cases, case, m):
     tables, rays_s = _sorted_case(cases, case, m)
     ct = tables.spheres.shape[0]
-    order, keys, counts = cone_worklists_plain(tables.spheres, rays_s, m)
+    order, keys, counts = cone_worklists_plain(tables.spheres, rays_s, m,
+                                               tables.box)
     _assert_contract(order, keys, counts, ct)
     order_j, keys_j, counts_j = _jax_worklists(
         tile_cluster_worklist, tables, rays_s, m, sub=32)
@@ -155,7 +157,7 @@ def test_cone_cull_matches_jax_and_holds_the_exact_cull(cases, case, m):
     _assert_keys_close(_key_map(order, keys, counts),
                        _key_map(order_j, keys_j, counts_j))
     exact = worklist_mask(*worklists_keyed_plain(
-        tables.spheres, rays_s, m)[::2], ct)
+        tables.spheres, rays_s, m, tables.box)[::2], ct)
     assert not (exact & ~mine).any()
     assert int(mine.sum()) >= int(exact.sum()) > 0
 
@@ -287,7 +289,8 @@ def test_exact_tie_across_tiles_goes_to_the_lowest_index(cases, cull):
     spheres = tables.spheres.clone()
     spheres[2] = spheres[0] * torch.tensor([1.0, 1.0, 1.0, 1.05])
     tied = tables._replace(features=feats.view(-1, 5 * tw),
-                           shade_table=shade, spheres=spheres)
+                           shade_table=shade, spheres=spheres,
+                           box=box6(spheres))
     rays8 = stack8(ro, rd, t_max)
 
     t_f, idx_f = closest_plain(tied, rays8)
@@ -304,9 +307,9 @@ def test_exact_tie_across_tiles_goes_to_the_lowest_index(cases, cull):
     assert torch.equal(idx_c[low], idx_f[low] + 256)
     assert torch.equal(_bits(t_c[low]), _bits(t_f[low]))
 
-    rays_s, perm = coherence_sort(rays8, tied.spheres, 512, 0)
+    rays_s, perm = coherence_sort(rays8, tied.box, 512, 0)
     order, keys, counts = cuda_scan.worklists_keyed(tied.spheres, rays_s,
-                                                    512, cull)
+                                                    512, tied.box, cull)
     # Where the two keys are equal (lanes inside both spheres: key 0) the
     # sort leaves the lower id first; equal keys may come in any order, so
     # put the copy first there.

@@ -285,7 +285,8 @@ def test_postprocess_matches_jax(frame_count, jitter):
 
 
 def test_renderer_cpu_frames_and_present():
-    r = Renderer("cornell", RenderConfig(width=32, height=24, max_depth=4),
+    r = Renderer("cornell",
+                 config=RenderConfig(width=32, height=24, max_depth=4),
                  device="cpu")
     for _ in range(4):
         r.render_frame()
@@ -306,7 +307,8 @@ def test_renderer_cpu_frames_and_present():
 def test_renderer_multi_tile_cpu_frames():
     """mixed (35 tiles) renders finite frames through the job-stream
     path's plain versions."""
-    r = Renderer("mixed", RenderConfig(width=32, height=32, max_depth=4),
+    r = Renderer("mixed",
+                 config=RenderConfig(width=32, height=32, max_depth=4),
                  device="cpu")
     assert r.tables.spheres.shape == (35, 4)
     for _ in range(2):
@@ -322,9 +324,9 @@ def test_renderer_scan_cpu_frames():
     plain versions, to the accumulator of the default Renderer bit for
     bit; an unknown narrow phase raises at construction."""
     cfg = dict(width=32, height=32, max_depth=4)
-    scan = Renderer("mixed", RenderConfig(**cfg), device="cpu",
+    scan = Renderer("mixed", config=RenderConfig(**cfg), device="cpu",
                     narrow="scan")
-    jobs = Renderer("mixed", RenderConfig(**cfg), device="cpu")
+    jobs = Renderer("mixed", config=RenderConfig(**cfg), device="cpu")
     assert (scan.narrow, jobs.narrow) == ("scan", "jobs")
     for _ in range(2):
         scan.render_frame()
@@ -337,9 +339,10 @@ def test_renderer_scan_cpu_frames():
     assert float(scan.last_rays) == float(jobs.last_rays)
     assert scan.launches == {k: 0 for k in kernels.launches}  # plain on CPU
     with pytest.raises(ValueError, match="narrow"):
-        Renderer("mixed", RenderConfig(**cfg), device="cpu", narrow="bogus")
+        Renderer("mixed",
+                 config=RenderConfig(**cfg), device="cpu", narrow="bogus")
     with pytest.raises(ValueError, match="narrow"):
-        Renderer("cornell", RenderConfig(**cfg), device="cpu",
+        Renderer("cornell", config=RenderConfig(**cfg), device="cpu",
                  narrow="bogus")
 
 
@@ -347,7 +350,7 @@ def test_renderer_cuda_raises_without_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        Renderer("cornell", RenderConfig(width=8, height=8))
+        Renderer("cornell", config=RenderConfig(width=8, height=8))
 
 
 def test_renderer_textured_frames_and_gbuffer_seeding():
@@ -357,7 +360,7 @@ def test_renderer_textured_frames_and_gbuffer_seeding():
     seeded trace's, in place of the traced frame's primaries."""
     W, H = 32, 24
     glb = textured_quad_glb()
-    traced, seeded = (Renderer("viewer", RenderConfig(width=W, height=H,
+    traced, seeded = (Renderer("viewer", config=RenderConfig(width=W, height=H,
                                                       max_depth=4),
                                glb_data=glb, device="cpu")
                       for _ in range(2))
@@ -394,7 +397,8 @@ def test_renderer_large_scene_not_ported():
     package takes its BVH path, which the port does not have yet. (On
     CUDA the port's dense path takes spheres: tests/test_torch_cuda.py.)"""
     with pytest.raises(NotImplementedError, match="16384"):
-        Renderer("spheres", RenderConfig(width=8, height=8), device="cpu")
+        Renderer("spheres",
+                 config=RenderConfig(width=8, height=8), device="cpu")
 
 
 def test_package_imports_no_jax():
@@ -407,8 +411,9 @@ def test_package_imports_no_jax():
         import webgpu_raytracer_tpu_torch.kernels
         from webgpu_raytracer_tpu_torch.models import native
         world = port.NativeWorld("cornell")
-        r = port.Renderer("cornell", port.RenderConfig(width=8, height=8,
-                                                       max_depth=2),
+        r = port.Renderer("cornell",
+                          config=port.RenderConfig(width=8, height=8,
+                                                   max_depth=2),
                           device="cpu")
         r.render_frame()
         assert r.present().shape == (8, 8, 3)

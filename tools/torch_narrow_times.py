@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's two narrow-phase kernels and the `spheres`
-frames that run on them, for the checkout in the current directory.
+"""Time the PyTorch port's two narrow-phase kernels, the two exact culls
+ahead of them and the `spheres` frames that run on them, for the checkout
+in the current directory.
 
     cd <checkout root> && python3 <this file>
 
@@ -8,12 +9,19 @@ It imports `webgpu_raytracer_tpu_torch` from the current directory, so one
 copy of this script can time two checkouts one after the other on one card
 (parent, change, change, parent), which is how two versions of a kernel are
 compared. It uses only calls that every version since the scan path has:
-`cuda_jobs.job_sweep`, `cuda_scan.scan_sweep`, `trace_pixels_dense(narrow=)`.
+`cuda_jobs.worklists`, `cuda_scan.cluster_keys`, `cuda_jobs.job_sweep`,
+`cuda_scan.scan_sweep`, `trace_pixels_dense(narrow=)`. Where the tables
+carry the spheres' box (`WorldTables.box`), the sort and the culls take it
+as the main path gives it; a version whose tables have none takes the
+spheres and reduces them itself.
 
 Measured, all on `spheres` 512^2 depth 8 (the shapes `chip_smoke.py` times):
 - the job sweep and the scan sweep of the fused bounce-1 sweep (524,288
   lanes), closest + rows and any-hit: device ms per call, 100 launches
   between one pair of CUDA events after 3 warm-ups;
+- the two culls of that sweep (`cluster_cull` over 4,096 groups of 128
+  lanes, `cluster_cull_keyed` over 512 tiles of 1,024), the same way, with
+  the number of survivors each found (two versions must agree on it);
 - the job sweep of the group with the longest worklist alone (one block on
   one SM: what bounds the launch from below), and of that group 132 times
   over (one block on every SM);
@@ -97,12 +105,22 @@ def main() -> int:
     R = W * H
     rays8 = bounce_rays(tables, camera, W, H, 1, DEPTH)
 
+    box = getattr(tables, "box", None)
+    sort_by = tables.spheres if box is None else box
+    with_box = () if box is None else (box,)
+
+    def cull():
+        return cuda_jobs.worklists(tables.spheres, rays_j, g, *with_box)
+
+    def cull_keyed():
+        return cuda_scan.cluster_keys(tables.spheres, rays_s, m, *with_box)
+
     g = M_TILE3
-    rays_j, perm_j = coherence_sort(rays8, tables.spheres, g, R)
-    order_j, counts_j = cuda_jobs.worklists(tables.spheres, rays_j, g)
+    rays_j, perm_j = coherence_sort(rays8, sort_by, g, R)
+    order_j, counts_j = cull()
     m = M_TILE2
-    rays_s, perm_s = coherence_sort(rays8, tables.spheres, m, R)
-    lists = sort_keyed(cuda_scan.cluster_keys(tables.spheres, rays_s, m))
+    rays_s, perm_s = coherence_sort(rays8, sort_by, m, R)
+    lists = sort_keyed(cull_keyed())
 
     def jobs(any_hit):
         return cuda_jobs.job_sweep(tables, rays_j, perm_j, order_j, counts_j,
@@ -128,6 +146,11 @@ def main() -> int:
     assert torch.equal(i_j, i_s) and torch.equal(t_j.view(torch.int32),
                                                  t_s.view(torch.int32))
     out = {"checkout": os.getcwd(),
+           "cull_ms": device_ms(cull),
+           "cull_keyed_ms": device_ms(cull_keyed),
+           "cull_ms_again": device_ms(cull),
+           "cull_survivors": int(counts_j.sum()),
+           "cull_keyed_survivors": int(lists[2].sum()),
            "job_ms": device_ms(lambda: jobs(False)),
            "scan_ms": device_ms(lambda: scan(False)),
            "job_any_ms": device_ms(lambda: jobs(True)),

@@ -121,13 +121,15 @@ def library() -> ctypes.CDLL:
     lib.wrt_fetch_quad.restype = _I
     lib.wrt_fetch_quad.argtypes = [_P, _I, _P, _I, _P, _P]
     lib.wrt_cluster_cull.restype = _I
-    lib.wrt_cluster_cull.argtypes = [_P, _I, _P, _I, _I, _F, _F, _P, _P, _P]
+    lib.wrt_cluster_cull.argtypes = [_P, _I, _P, _I, _I, _P, _F, _F, _P, _P,
+                                     _P]
     lib.wrt_job_sweep.restype = _I
     lib.wrt_job_sweep.argtypes = [_P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P,
                                   _P, _I, _F, _F, _F, _I, _I, _P, _P, _P, _P,
                                   _P, _P]
     lib.wrt_cluster_cull_keyed.restype = _I
-    lib.wrt_cluster_cull_keyed.argtypes = [_P, _I, _P, _I, _I, _F, _P, _P]
+    lib.wrt_cluster_cull_keyed.argtypes = [_P, _I, _P, _I, _I, _P, _F, _P,
+                                           _P]
     lib.wrt_scan_sweep.restype = _I
     lib.wrt_scan_sweep.argtypes = [_P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P,
                                    _P, _P, _I, _F, _F, _F, _I, _I, _P, _P, _P,

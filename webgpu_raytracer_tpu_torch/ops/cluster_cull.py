@@ -43,7 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .coherence import BIG, scene_box
+from .coherence import BIG
 from .dense import T_MIN
 from .tune import SUBTILE
 from .v3 import sqrt_rn
@@ -55,10 +55,11 @@ CLUSTER_CHUNK = 128
 LANE_CHUNK = 32768
 
 
-def box_interval(rays_s: torch.Tensor, spheres: torch.Tensor):
-    """Per lane: (t_enter, t_exit) of the live spheres' box, by slabs."""
+def box_interval(rays_s: torch.Tensor, box: torch.Tensor):
+    """Per lane: (t_enter, t_exit) of the live spheres' box (`box`, their
+    `coherence.box6`), by slabs."""
     d, o = rays_s[0:3], rays_s[3:6]
-    lo, hi = scene_box(spheres)
+    lo, hi = box[0:3], box[3:6]
     t_enter = t_exit = None
     for ax in range(3):
         d_safe = torch.where(torch.abs(d[ax]) > 1e-20, d[ax],
@@ -72,22 +73,22 @@ def box_interval(rays_s: torch.Tensor, spheres: torch.Tensor):
     return t_enter, t_exit
 
 
-def lane_terms(rays_s: torch.Tensor, spheres: torch.Tensor):
+def lane_terms(rays_s: torch.Tensor, box: torch.Tensor):
     """Per lane: (dd = |d|^2, t_clip), t_clip 0 for a dead lane."""
     d, t_max = rays_s[0:3], rays_s[6]
     dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-    _, t_exit = box_interval(rays_s, spheres)
+    _, t_exit = box_interval(rays_s, box)
     t_clip = torch.minimum(t_max, torch.clamp(t_exit, min=0.0))
     return dd, torch.where(t_max > 0.0, t_clip, 0.0)
 
 
-def reach_terms(rays_s: torch.Tensor, spheres: torch.Tensor):
+def reach_terms(rays_s: torch.Tensor, box: torch.Tensor):
     """Per lane: (dlen = |d|, wcap), wcap the scene box's exit in world
     units, 0 for a lane that misses the box: what caps a lane's reach in
     the scan kernel's sorted early exit."""
     d = rays_s[0:3]
     dlen = sqrt_rn(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
-    t_enter, t_exit = box_interval(rays_s, spheres)
+    t_enter, t_exit = box_interval(rays_s, box)
     hit_box = (t_enter <= t_exit) & (t_exit > 0.0)
     return dlen, torch.where(hit_box, t_exit, 0.0) * dlen
 
@@ -136,15 +137,17 @@ def _chunks(rp: int, ct: int, g: int):
             yield slice(l0, l1), l0, l1, c0, min(c0 + CLUSTER_CHUNK, ct)
 
 
-def worklists_plain(spheres: torch.Tensor, rays_s: torch.Tensor, g: int):
+def worklists_plain(spheres: torch.Tensor, rays_s: torch.Tensor, g: int,
+                    box: torch.Tensor):
     """(order (G, Ct) int32, counts (G,) int32) of a sorted (8, rp) stack,
     rp a multiple of g. Row g of `order` holds its `counts[g]` survivors in
-    ascending id, then the other clusters in ascending id."""
+    ascending id, then the other clusters in ascending id. `box` is the
+    spheres' `coherence.box6`, here and below."""
     rp = rays_s.shape[1]
     G = rp // g
     ct = spheres.shape[0]
     dev = rays_s.device
-    dd, t_clip = lane_terms(rays_s, spheres)
+    dd, t_clip = lane_terms(rays_s, box)
     possible = torch.zeros((G, ct), dtype=torch.bool, device=dev)
     for lanes, l0, l1, c0, c1 in _chunks(rp, ct, g):
         ok = pair_ok(rays_s[:, lanes], dd[lanes], t_clip[lanes],
@@ -158,7 +161,6 @@ def worklists_plain(spheres: torch.Tensor, rays_s: torch.Tensor, g: int):
     return order, counts
 
 
-
 def sort_keyed(keys: torch.Tensor):
     """Near-to-far worklists from a (T, Ct) key map that holds 3e38 for a
     dropped cluster: (order (T, Ct) int32, sorted keys (T, Ct), counts
@@ -168,13 +170,14 @@ def sort_keyed(keys: torch.Tensor):
     return order.to(torch.int32), keys_s, counts
 
 
-def keys_plain(spheres: torch.Tensor, rays_s: torch.Tensor, m: int):
+def keys_plain(spheres: torch.Tensor, rays_s: torch.Tensor, m: int,
+               box: torch.Tensor):
     """(T, Ct) f32: per m-lane tile of a sorted (8, rp) stack and cluster,
     the least world distance at which a lane of the tile can touch the
     cluster, 3e38 where none can."""
     rp = rays_s.shape[1]
     ct = spheres.shape[0]
-    dd, t_clip = lane_terms(rays_s, spheres)
+    dd, t_clip = lane_terms(rays_s, box)
     dlen = sqrt_rn(dd)
     keys = torch.empty((rp // m, ct), dtype=torch.float32,
                        device=rays_s.device)
@@ -188,19 +191,19 @@ def keys_plain(spheres: torch.Tensor, rays_s: torch.Tensor, m: int):
 
 
 def worklists_keyed_plain(spheres: torch.Tensor, rays_s: torch.Tensor,
-                          m: int):
+                          m: int, box: torch.Tensor):
     """(order (T, Ct) int32, keys (T, Ct) f32, counts (T,) int32) of a
     sorted (8, rp) stack, rp a multiple of m: row t of `order` holds its
     counts[t] survivors near to far, `keys` their ascending keys (3e38 past
     the count)."""
-    return sort_keyed(keys_plain(spheres, rays_s, m))
+    return sort_keyed(keys_plain(spheres, rays_s, m, box))
 
 
 CONE_CHUNK = 2048  # subtiles per block of the cone cull's pair map
 
 
 def cone_worklists_plain(spheres: torch.Tensor, rays_s: torch.Tensor, m: int,
-                         sub: int = SUBTILE):
+                         box: torch.Tensor, sub: int = SUBTILE):
     """The cone cull: the return contract of `worklists_keyed_plain`, from a
     bounding sphere of the origins and a bounding cone of the directions of
     every `sub`-lane subtile, OR-reduced to the m-lane tile. Conservative:
@@ -232,7 +235,7 @@ def cone_worklists_plain(spheres: torch.Tensor, rays_s: torch.Tensor, m: int,
     tile_live = act.any(1)
 
     # Each lane's reach in world units, capped by its exit of the scene box.
-    dlen_l, wcap = reach_terms(rays_s, spheres)
+    dlen_l, wcap = reach_terms(rays_s, box)
     reach = torch.minimum(rays_s[6] * dlen_l, wcap).view(t, sub)
     tmax_tile = torch.where(act, reach, 0.0).amax(1)
 

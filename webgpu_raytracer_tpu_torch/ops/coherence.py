@@ -44,22 +44,30 @@ def scene_box(spheres: torch.Tensor):
     return lo, hi
 
 
+def box6(spheres: torch.Tensor) -> torch.Tensor:
+    """`scene_box` as one (6,) tensor [lo, hi]: a property of the tables
+    (`WorldTables.box`), computed once when they are built, so that no
+    sweep reduces the spheres again. The sort and the culls take it as
+    their `box`."""
+    return torch.cat(scene_box(spheres))
+
+
 def _bin(x: torch.Tensor, n: int) -> torch.Tensor:
     """clip(int(x), 0, n - 1), clamped in float first (NaN -> 0)."""
     x = torch.where(x > 0.0, x, 0.0)
     return torch.clamp(x, max=float(n - 1)).to(torch.int32)
 
 
-def sort_key(rays8: torch.Tensor, spheres: torch.Tensor,
+def sort_key(rays8: torch.Tensor, box: torch.Tensor,
              seg_start: int) -> torch.Tensor:
     """The int32 sort key of every lane of a padded (8, rp) ray stack, the
-    segment included."""
+    segment included. `box` is the tile spheres' `box6`."""
     rp = rays8.shape[1]
     dev = rays8.device
     d = rays8[0:3]
     o = rays8[3:6]
     t_max = rays8[6]
-    lo, hi = scene_box(spheres)
+    lo, hi = box[0:3], box[3:6]
     sext = torch.clamp(hi - lo, min=1e-20)
     lane_live = t_max > 0.0
     cl = 1 << CELL_BITS
@@ -84,7 +92,7 @@ def sort_key(rays8: torch.Tensor, spheres: torch.Tensor,
     return key + seg * (2 * cell_span * dir_span)
 
 
-def coherence_sort(rays8: torch.Tensor, spheres: torch.Tensor, g: int,
+def coherence_sort(rays8: torch.Tensor, box: torch.Tensor, g: int,
                    seg_start: int = 0):
     """Pad (8, R) to (8, rp), rp a multiple of g, and sort the lanes.
 
@@ -94,6 +102,6 @@ def coherence_sort(rays8: torch.Tensor, spheres: torch.Tensor, g: int,
     rp = -(-R // g) * g
     if rp != R:
         rays8 = F.pad(rays8, (0, rp - R))  # t_max 0: dead
-    key = sort_key(rays8, spheres, seg_start)
+    key = sort_key(rays8, box, seg_start)
     perm = torch.sort(key, stable=True).indices
     return rays8.index_select(1, perm), perm.to(torch.int32)

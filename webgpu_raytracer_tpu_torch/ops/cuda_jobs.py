@@ -82,24 +82,26 @@ def check_tables(tables: WorldTables, dev) -> tuple[int, int]:
     return tw, ct
 
 
-def worklists(spheres: torch.Tensor, rays_s: torch.Tensor, g: int):
+def worklists(spheres: torch.Tensor, rays_s: torch.Tensor, g: int,
+              box: torch.Tensor):
     """(order (G, Ct) int32, counts (G,) int32) of a sorted (8, rp) stack:
     row g of `order` starts with its counts[g] surviving tile ids in
     ascending order; on the card the entries past the count are not
-    written."""
+    written. `box` is the spheres' `box6` (`WorldTables.box`)."""
     if rays_s.device.type == "cpu":
-        return worklists_plain(spheres, rays_s, g)
+        return worklists_plain(spheres, rays_s, g, box)
     rp = check_sorted(rays_s, g)
     dev = rays_s.device
     ct = check_spheres(spheres, dev)
+    kernels.check(box, "box", torch.float32, (6,), dev)
     order = torch.empty((rp // g, ct), dtype=torch.int32, device=dev)
     counts = torch.empty(rp // g, dtype=torch.int32, device=dev)
     lib = kernels.library()
     with torch.cuda.device(dev):
         code = lib.wrt_cluster_cull(
-            kernels.ptr(spheres), ct, kernels.ptr(rays_s), rp, g, A_LO_SCALE,
-            HI_NUDGE, kernels.ptr(order), kernels.ptr(counts),
-            kernels.stream(dev))
+            kernels.ptr(spheres), ct, kernels.ptr(rays_s), rp, g,
+            kernels.ptr(box), A_LO_SCALE, HI_NUDGE, kernels.ptr(order),
+            kernels.ptr(counts), kernels.stream(dev))
     kernels.raise_on_error(code, "cluster_cull")
     kernels.launches["cluster_cull"] += 1
     return order, counts
@@ -176,8 +178,8 @@ def _sort_and_cull(tables: WorldTables, rays8: torch.Tensor, seg_start: int):
         kernels.check(rays8, "rays8", torch.float32)
     if rays8.dim() != 2 or rays8.shape[0] != 8:
         raise ValueError(f"rays8: shape {tuple(rays8.shape)}, expected (8, R)")
-    rays_s, perm = coherence_sort(rays8, tables.spheres, M_TILE3, seg_start)
-    order, counts = worklists(tables.spheres, rays_s, M_TILE3)
+    rays_s, perm = coherence_sort(rays8, tables.box, M_TILE3, seg_start)
+    order, counts = worklists(tables.spheres, rays_s, M_TILE3, tables.box)
     return rays_s, perm, order, counts
 
 

@@ -49,38 +49,41 @@ from .tune import M_TILE2
 from ..render.worldtris import SHADE_K, WorldTables
 
 
-def cluster_keys(spheres: torch.Tensor, rays_s: torch.Tensor, m: int):
+def cluster_keys(spheres: torch.Tensor, rays_s: torch.Tensor, m: int,
+                 box: torch.Tensor):
     """(T, Ct) f32 keys of a sorted (8, rp) stack: per m-lane tile and
     cluster the least world distance at which a lane of the tile can touch
-    the cluster, 3e38 where none can (the exact keyed cull)."""
+    the cluster, 3e38 where none can (the exact keyed cull). `box` as in
+    `cuda_jobs.worklists`."""
     if rays_s.device.type == "cpu":
-        return keys_plain(spheres, rays_s, m)
+        return keys_plain(spheres, rays_s, m, box)
     rp = check_sorted(rays_s, m)
     dev = rays_s.device
     ct = check_spheres(spheres, dev)
+    kernels.check(box, "box", torch.float32, (6,), dev)
     keys = torch.empty((rp // m, ct), dtype=torch.float32, device=dev)
     lib = kernels.library()
     with torch.cuda.device(dev):
         code = lib.wrt_cluster_cull_keyed(
-            kernels.ptr(spheres), ct, kernels.ptr(rays_s), rp, m, T_MIN,
-            kernels.ptr(keys), kernels.stream(dev))
+            kernels.ptr(spheres), ct, kernels.ptr(rays_s), rp, m,
+            kernels.ptr(box), T_MIN, kernels.ptr(keys), kernels.stream(dev))
     kernels.raise_on_error(code, "cluster_cull_keyed")
     kernels.launches["cluster_cull_keyed"] += 1
     return keys
 
 
 def worklists_keyed(spheres: torch.Tensor, rays_s: torch.Tensor, m: int,
-                    cull: str = "exact"):
+                    box: torch.Tensor, cull: str = "exact"):
     """(order (T, Ct) int32, keys (T, Ct) f32, counts (T,) int32) of a
     sorted (8, rp) stack: row t of `order` starts with its counts[t]
     surviving cluster ids near to far, `keys` holds their ascending keys
     (3e38 past the count). `cull` is "exact" (the keyed exact cull: the
     kernel on the card) or "cone"."""
     if cull == "cone":
-        return cone_worklists_plain(spheres, rays_s, m)
+        return cone_worklists_plain(spheres, rays_s, m, box)
     if cull != "exact":
         raise ValueError(f"cull {cull!r}: 'exact' or 'cone'")
-    return sort_keyed(cluster_keys(spheres, rays_s, m))
+    return sort_keyed(cluster_keys(spheres, rays_s, m, box))
 
 
 def scan_sweep(tables: WorldTables, rays_s: torch.Tensor, perm, order, keys,
@@ -146,8 +149,9 @@ def _sort_and_cull(tables: WorldTables, rays8: torch.Tensor, seg_start: int,
         kernels.check(rays8, "rays8", torch.float32)
     if rays8.dim() != 2 or rays8.shape[0] != 8:
         raise ValueError(f"rays8: shape {tuple(rays8.shape)}, expected (8, R)")
-    rays_s, perm = coherence_sort(rays8, tables.spheres, m, seg_start)
-    return (rays_s, perm, *worklists_keyed(tables.spheres, rays_s, m, cull))
+    rays_s, perm = coherence_sort(rays8, tables.box, m, seg_start)
+    return (rays_s, perm, *worklists_keyed(tables.spheres, rays_s, m,
+                                           tables.box, cull))
 
 
 def closest_with_row(tables: WorldTables, rays8: torch.Tensor,

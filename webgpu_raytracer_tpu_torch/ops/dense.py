@@ -207,7 +207,7 @@ def _scan_plain(tables, rays_s, order, keys, counts, m: int, any_hit: bool):
     occ = torch.zeros(rp, dtype=torch.bool, device=rays_s.device)
     d = rays_s[0:3]
     dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-    dlen, wcap = reach_terms(rays_s, spheres)
+    dlen, wcap = reach_terms(rays_s, tables.box)
     stats = torch.zeros((rp // m, 4), dtype=torch.int32)
     stats[:, 2] = counts.cpu()
     for tile, count in enumerate(stats[:, 2].tolist()):

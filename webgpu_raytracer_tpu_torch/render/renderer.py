@@ -44,12 +44,13 @@ DENSE_MAX_TRIS = 16384
 
 class Renderer:
     """End-to-end progressive path tracer over a native World, on one
-    device ("cuda" by default; raises when CUDA is absent)."""
+    device ("cuda" by default; raises when CUDA is absent). The positional
+    arguments are the JAX package's: scene, OBJ text, GLB bytes, config."""
 
     def __init__(self, scene_name: str = "cornell",
-                 config: Optional[RenderConfig] = None, *,
                  obj_source: Optional[str] = None,
-                 glb_data: Optional[bytes] = None, device="cuda",
+                 glb_data: Optional[bytes] = None,
+                 config: Optional[RenderConfig] = None, *, device="cuda",
                  narrow: str = "jobs"):
         self.device = torch.device(device)
         if narrow not in NARROW:
@@ -167,7 +168,15 @@ class Renderer:
         ldr, self.history = postprocess(
             self.accum.view(self.height, self.width, 4), self.history,
             self.frame_count, self._avg_jitter)
-        return ldr.cpu().numpy()
+        self._last_frame = ldr.cpu().numpy()
+        return self._last_frame
+
+    def capture_frame(self) -> np.ndarray:
+        """The last presented LDR image; presents first when no frame was
+        presented yet."""
+        if not hasattr(self, "_last_frame"):
+            return self.present()
+        return self._last_frame
 
     def radiance(self) -> np.ndarray:
         """Mean HDR radiance of the accumulator, (H, W, 3) float32."""

@@ -24,6 +24,9 @@ scene update, then
   tile of the sweep (r = -1 for an all-padding tile): the cull of the
   job-stream path (`ops/cluster_cull.py`) tests rays against them. A tile
   is 128 triangles, or the whole padded table when it holds 128 or fewer.
+- `box` (6,) f32 [lo, hi]: the box of the live spheres
+  (`ops/coherence.box6`), which the coherence sort and the culls read every
+  sweep.
 
 The TPU-only operands (the bf16x3 `featk3`/`shadek3` layouts, the packed
 upload) have no counterpart here: the port's kernels read the f32 tables
@@ -37,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.coherence import box6
 from ..ops.fetch import device_pyramid
 
 FEAT_K = 16
@@ -60,6 +64,7 @@ class WorldTables(NamedTuple):
     light_count: int
     valid_count: int
     spheres: torch.Tensor      # (n_tiles, 4) f32 [cx, cy, cz, r]
+    box: torch.Tensor          # (6,) f32 [lo, hi] of the live spheres
     tex_slots: tuple = (True, True, True, True)
     light_tex: bool = True
 
@@ -245,13 +250,14 @@ def tables_from_jax(np_dict: dict, device="cpu") -> WorldTables:
     lo = SHADE_COLS["tex"][0]
     tex = np.asarray(np_dict["shade_table"])[:valid_count, lo:lo + 4]
     light_tex = np.asarray(np_dict["light_rows"])[:max(light_count, 1), lo]
+    spheres = torch.from_numpy(np.array(spheres, np.float32))
     return WorldTables(features=dev("features"),
                        shade_table=dev("shade_table"),
                        light_rows=dev("light_rows"),
                        light_count=light_count,
                        valid_count=valid_count,
-                       spheres=torch.from_numpy(
-                           np.array(spheres, np.float32)).to(device),
+                       spheres=spheres.to(device),
+                       box=box6(spheres).to(device),
                        tex_slots=tuple(bool(b) for b in (tex >= 0).any(0)),
                        light_tex=bool((light_tex >= 0).any()))
 
