@@ -36,7 +36,8 @@ from webgpu_raytracer_tpu_torch.ops.fetch import (fetch_quad_plain,
                                                   fetch_rows_plain)
 from webgpu_raytracer_tpu_torch.ops.rng import init_rng
 from webgpu_raytracer_tpu_torch.ops.v3 import V3
-from webgpu_raytracer_tpu_torch.render.worldtris import build_world_tables
+from webgpu_raytracer_tpu_torch.render.worldtris import (build_world_tables,
+                                                         tri_pad)
 
 pytestmark = pytest.mark.cuda
 RES = 64
@@ -94,6 +95,168 @@ def test_sweep_wrapper_rejects_bad_tables(cuda):
         cuda_dense.shadow(
             tables._replace(features=tables.features[:10].contiguous()), rays8)
     assert kernels.launches["dense_sweep"] == before
+
+
+def _cut_tables(tables, valid):
+    """The first `valid` triangles of `tables` as tables of their own,
+    padded as the scene compiler pads (tri_pad)."""
+    tw = tables.shade_table.shape[0]
+    tw_new = tri_pad(valid)
+    feats = tables.features.view(-1, 5, tw)[:, :, :tw_new]
+    return tables._replace(
+        features=feats.reshape(-1, 5 * tw_new).contiguous(),
+        shade_table=tables.shade_table[:tw_new].contiguous(),
+        valid_count=valid)
+
+
+def _aimed_stack(tables, R, seed, tri=None):
+    """A fused (8, 2R) stack: R rays from points of the scene's box aimed
+    at random points of the tables' triangles (every 7th with a short
+    t_max, every 5th inactive), or all at triangle `tri`, from in front of
+    it; then R rays in random directions."""
+    rs = np.random.default_rng(seed)
+    st = tables.shade_table.cpu().numpy().astype(np.float64)
+    box = tables.box.cpu().numpy().astype(np.float64)
+    pick = (rs.integers(0, tables.valid_count, R) if tri is None
+            else np.full(R, tri))
+    u, v = rs.uniform(0.05, 0.9, (2, R))
+    flip = u + v > 0.95
+    u, v = np.where(flip, 0.95 - v, u), np.where(flip, 0.95 - u, v)
+    target = st[pick, 0:3] + u[:, None] * st[pick, 3:6] \
+        + v[:, None] * st[pick, 6:9]
+    if tri is None:
+        ro = rs.uniform(box[:3], box[3:], (R, 3))
+    else:
+        n = np.cross(st[tri, 3:6], st[tri, 6:9])
+        ro = target + n / np.linalg.norm(n) + rs.normal(0, 0.05, (R, 3))
+    rd = target - ro
+    lane = np.arange(R)
+    tmax = np.where(lane % 7 == 3, 0.5, T_MAX)
+    tmax[lane % 5 == 1] = 0.0
+    ro2 = rs.uniform(box[:3], box[3:], (R, 3))
+    rd2 = rs.normal(size=(R, 3))
+    stack = np.concatenate([
+        np.concatenate([rd, ro, tmax[:, None], np.zeros((R, 1))], 1),
+        np.concatenate([rd2, ro2, np.full((R, 1), T_MAX),
+                        np.zeros((R, 1))], 1)]).T
+    return torch.from_numpy(stack.astype(np.float32)).cuda().contiguous()
+
+
+def _sweep_bit_equal(tables, rays8, R):
+    """dense_sweep.cu equal to the plain versions bit for bit (t, idx, rows
+    from lanes 0, R and 2R, occlusion), from two launches each; returns
+    (idx, occlusion)."""
+    before = kernels.launches["dense_sweep"]
+    t_p, i_p = closest_plain(tables, rays8)
+    occ_p = shadow_plain(tables, rays8)
+    for row_from in (0, R, 2 * R):
+        rows_p = rows_plain(tables.shade_table, i_p[row_from:])
+        for _ in range(2):
+            t, idx, rows = cuda_dense.full_sweep(tables, rays8, False,
+                                                 row_from)
+            assert torch.equal(_bits(t), _bits(t_p))
+            assert torch.equal(idx, i_p)
+            assert rows.shape == rows_p.shape
+            assert torch.equal(_bits(rows), _bits(rows_p))
+    for _ in range(2):
+        assert torch.equal(cuda_dense.full_sweep(tables, rays8, True), occ_p)
+    assert kernels.launches["dense_sweep"] == before + 8
+    return i_p, occ_p
+
+
+@pytest.mark.parametrize("valid", [1, 36, 127, 128, 129, 300])
+def test_dense_sweep_bit_equal_by_triangle_count(cuda, valid):
+    """One tile (rows staged once a block) up to 128 triangles, tile after
+    tile above (rows from device memory), at 2R = 3,002 lanes: neither a
+    multiple of the block nor of the rays a thread."""
+    world = NativeWorld("mixed")
+    tables = _cut_tables(build_world_tables(world, cuda), valid)
+    R = 1501
+    rays8 = _aimed_stack(tables, R, valid)
+    idx, occ = _sweep_bit_equal(tables, rays8, R)
+    assert int((idx[:R] >= 0).sum()) > R // 2 and int(idx.max()) < valid
+    assert bool(occ.any()) and not bool(occ.all())
+
+
+def test_dense_sweep_all_inactive(cuda):
+    """Every lane inactive: t_max back, no hit, zero rows, no occlusion."""
+    tables, _, _ = _scene("cornell", cuda)
+    R = 1500
+    rays8 = _aimed_stack(tables, R, 1)
+    rays8[6] = 0.0
+    idx, occ = _sweep_bit_equal(tables, rays8, R)
+    assert bool((idx == -1).all()) and not bool(occ.any())
+
+
+def test_dense_sweep_any_hit_all_occluded_by_the_first_triangle(cuda):
+    """Every lane aims at a point inside triangle 0: each is occluded at
+    the walk's first triangle (and leaves the walk there)."""
+    tables, _, _ = _scene("cornell", cuda)
+    R = 1500
+    rays8 = _aimed_stack(tables, R, 2, tri=0)[:, :R].contiguous()
+    rays8[6] = T_MAX
+    _, occ = _sweep_bit_equal(tables, rays8, R // 2)
+    assert bool(occ.all())
+
+
+def test_dense_sweep_exact_tie_goes_to_the_lower_index(cuda):
+    """The two most-hit triangles of cornell's first half copied over a
+    later, little-hit triangle each: every lane that hits an original ties
+    with its copy bit for bit, and the original (the lower index) wins;
+    with the originals gone, the same lanes hit the copies at the same
+    t."""
+    tables, _, _ = _scene("cornell", cuda)
+    R = 1500
+    rays8 = _aimed_stack(tables, R, 3)
+    _, idx0, _ = cuda_dense.full_sweep(tables, rays8, False)
+    hist = torch.bincount(idx0[idx0 >= 0].long(),
+                          minlength=tables.valid_count).cpu()
+    order = torch.argsort(hist, descending=True).tolist()
+    src = sorted([j for j in order if j < tables.valid_count // 2][:2])
+    dst = [j for j in reversed(order) if j > src[1]][:2]
+    src_t = torch.tensor(src, device=cuda, dtype=torch.int32)
+    dst_t = torch.tensor(dst, device=cuda, dtype=torch.int32)
+    tw = tables.shade_table.shape[0]
+    feats = tables.features.clone().view(-1, 5, tw)
+    feats[:, :, dst] = feats[:, :, src]
+    shade = tables.shade_table.clone()
+    shade[dst] = shade[src]
+    tied = tables._replace(features=feats.view(-1, 5 * tw).contiguous(),
+                           shade_table=shade)
+    idx, _ = _sweep_bit_equal(tied, rays8, R)
+    on_src = torch.isin(idx, src_t)
+    assert int(on_src.sum()) >= 50 and not bool(torch.isin(idx, dst_t).any())
+    gone = feats.clone()
+    gone[:, :, src] = 0.0
+    t_c, idx_c, _ = cuda_dense.full_sweep(
+        tied._replace(features=gone.view(-1, 5 * tw).contiguous()), rays8,
+        False)
+    t_f, _, _ = cuda_dense.full_sweep(tied, rays8, False)
+    assert bool(torch.isin(idx_c[on_src], dst_t).all())
+    assert torch.equal(_bits(t_c[on_src]), _bits(t_f[on_src]))
+
+
+def test_max_depth_zero_on_card(cuda):
+    """max_depth=0 runs the last, shadow-only bounce alone: per frame a
+    primary sweep, one light-row fetch and one shadow query, and the
+    frame the plain versions give on the CPU."""
+    world = NativeWorld("cornell")
+    world.update_camera(32, 32)
+    frames = []
+    for dev in ("cpu", "cuda"):
+        tables = build_world_tables(world, dev)
+        cam = torch.from_numpy(np.asarray(world.camera(), np.float32)).to(dev)
+        kernels.reset_launches()
+        frames.append(trace_pixels_dense(tables, cam, 1,
+                                         torch.zeros(2, device=dev), 32, 32,
+                                         1, 0).cpu())
+        counts = dict(kernels.launches)
+    assert counts == {"dense_sweep": 2, "shade_rows": 0, "fetch_rows": 1,
+                      "fetch_quad": 0, "cluster_cull": 0, "job_sweep": 0,
+                      "cluster_cull_keyed": 0, "scan_sweep": 0}
+    assert frames[1].mean() > 0.01
+    close = torch.isclose(frames[1], frames[0], rtol=1e-3, atol=1e-5).all(1)
+    assert close.float().mean() >= 0.95
 
 
 @pytest.mark.parametrize("depth", [0, 4])

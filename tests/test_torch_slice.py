@@ -84,6 +84,10 @@ SLICE3_FRAMES = 2
 # The fourth slice's: a multi-tile scene through the scan path.
 SLICE4 = {"mixed": ("mixed", None, 32, 4, False)}
 SLICE4_FRAMES = 2
+# max_depth 0: a scene of the row-state loop and a textured one.
+DEPTH0 = {"cornell_d0": ("cornell", None, 16, 0, False),
+          "textured_d0": ("viewer", textured_quad_glb, 16, 0, False)}
+DEPTH0_FRAMES = 2
 _jax_trace = jax.jit(jax_trace, static_argnames=(
     "width", "height", "spp", "max_depth", "with_stats", "tune"))
 
@@ -138,8 +142,8 @@ def _both_textures(world):
 def _slice2_frames(case, frames, res=None, depth=None, narrow="jobs"):
     """Per frame: (JAX col, JAX rays, port col, port rays), both packages
     with the narrow phase `narrow`."""
-    scene_name, glb, res0, depth0, seeded = {**SLICE2, **SLICE3,
-                                             **SLICE4}[case]
+    scene_name, glb, res0, depth0, seeded = {**SLICE2, **SLICE3, **SLICE4,
+                                             **DEPTH0}[case]
     res, depth = res or res0, depth or depth0
     world, wt, tables = jax_and_port_tables(scene_name, res,
                                             glb() if glb else None)
@@ -225,6 +229,23 @@ def test_scan_trace_bit_equal_to_jobs_and_matches_jax(scan_frames, frame):
     assert frac >= 0.95, f"{frac:.3%} lanes match"
     assert abs(a.mean() - b.mean()) < 0.02 * max(a.mean(), 1e-3)
     assert abs(rays_a - rays_b) <= 0.02 * rays_a
+
+
+@pytest.mark.parametrize("case", sorted(DEPTH0))
+def test_max_depth_zero_matches_jax(case):
+    """max_depth=0: the JAX loop still runs its last, shadow-only bounce
+    (at depth -1), so lights seen directly and the first hit's NEE light
+    the frame; the port does the same on both loops' scenes (cornell is a
+    row-state scene). The cornell tolerance, frames 1..2, and light
+    there."""
+    for a, rays_a, b, rays_b in _slice2_frames(case, DEPTH0_FRAMES):
+        assert b.shape == a.shape and np.isfinite(b).all()
+        assert a.mean() > 0.01 and rays_a > 16 * 16
+        rel = np.abs(a - b).max(1) / np.maximum(np.abs(a).max(1), 1e-3)
+        frac = (rel < 1e-3).mean()
+        assert frac >= 0.95, f"{frac:.3%} lanes match"
+        assert abs(a.mean() - b.mean()) < 0.02 * max(a.mean(), 1e-3)
+        assert abs(rays_a - rays_b) <= 0.02 * rays_a
 
 
 def test_textured_mean_64_d8_matches_jax():

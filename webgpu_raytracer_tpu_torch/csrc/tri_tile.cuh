@@ -17,23 +17,24 @@
 // rule: the least t wins, and among equal t the lowest triangle index.
 //
 // Two walks of a staged tile evaluate that one expression:
-// - walk_tile: one thread per ray walks the 128 triangles in sequence, every
-//   shared-memory read a warp-wide broadcast. Right where every lane of a
-//   warp needs the tile (dense_sweep.cu: one tile after another, all lanes
-//   live).
+// - dense_sweep.cu's walk: a thread walks the triangles in sequence for a
+//   few rays of its own, every shared-memory read a warp-wide broadcast.
+//   Right where every lane of a warp needs the tile (one-tile scenes, and
+//   the full walk of every tile).
 // - coop_walk: one warp per (ray, tile) pair; thread w tests triangles 4w
 //   to 4w + 3 (one 16-byte load a staged row, consecutive across the warp,
 //   no bank conflict) and two __reduce_min_sync pick the winner by the tie
 //   rule: first over the bits of t (every candidate t exceeds t_min >= 0,
 //   so its f32 pattern orders as an unsigned integer; a miss is
 //   0xFFFFFFFF), then over the index among the threads that hold that t.
-//   The result does not depend on which thread saw which triangle. Right behind a cull, where
-//   few lanes of a warp touch a given tile: in the narrow phase of spheres
-//   512^2 a lane's own segment touches 8% (job groups) or 3% (scan tiles)
-//   of the (lane, tile) pairs its block's worklist offers, so a thread per
-//   ray spends a 128-triangle walk of the whole warp on ~2.5 useful lanes.
-//   On an NVIDIA H100 80GB HBM3 at 700 W the change from walk_tile to
-//   coop_walk behind the queue took that sweep from 13.8 to 1.74 ms in
+//   The result does not depend on which thread saw which triangle. Right
+//   behind a cull, where few lanes of a warp touch a given tile: in the
+//   narrow phase of spheres 512^2 a lane's own segment touches 8% (job
+//   groups) or 3% (scan tiles) of the (lane, tile) pairs its block's
+//   worklist offers, so a thread per ray spends a 128-triangle walk of the
+//   whole warp on ~2.5 useful lanes.
+//   On an NVIDIA H100 80GB HBM3 at 700 W the change from one thread a ray
+//   to coop_walk behind the queue took that sweep from 13.8 to 1.74 ms in
 //   job_sweep.cu and from 24.7 to 2.90 ms in scan_sweep.cu, bit for bit
 //   the same results (2.21 and 3.11 ms with a thread taking triangles w,
 //   w + 32, w + 64, w + 96 in four scalar, branching passes).
@@ -104,64 +105,10 @@ __device__ __forceinline__ Ray make_ray(const float* r) {
   return ray;
 }
 
-// Stage triangles [base, base + cnt) into tri; every thread of the block
-// takes part. The 25 rows are 128 contiguous floats each, so loads
-// coalesce. The caller synchronises before and after.
-__device__ __forceinline__ void stage_tile(float (*tri)[kTile],
-                                           const float* __restrict__ features,
-                                           int tw, int base, int cnt) {
-  for (int e = threadIdx.x; e < kFeat * kTile; e += blockDim.x) {
-    const int q = e / kTile, j = e % kTile;
-    if (j < cnt) tri[q][j] = features[feat_offset(q, tw) + base + j];
-  }
-}
-
-// Walk a staged tile of cnt triangles (global indices base + j), one thread
-// per ray. Closest mode lowers (best_t, best_i) on strict < in ascending
-// index order, so the lowest index wins an exact tie; any-hit mode sets occ
-// at the first hit inside (t_min, t_max) and stops.
-__device__ __forceinline__ void walk_tile(float (*tri)[kTile], int cnt,
-                                          int base, const Ray& r, float t_min,
-                                          float t_max, bool any_hit,
-                                          float& best_t, int& best_i,
-                                          bool& occ) {
-  for (int j = 0; j < cnt; ++j) {
-    float s[3];
-    for (int g = 0; g < 3; ++g) {
-      const int q = 6 * g;
-      s[g] = add(add(add(add(add(mul(r.dx, tri[q][j]),
-                                 mul(r.dy, tri[q + 1][j])),
-                             mul(r.dz, tri[q + 2][j])),
-                         mul(r.mx, tri[q + 3][j])),
-                     mul(r.my, tri[q + 4][j])),
-                 mul(r.mz, tri[q + 5][j]));
-    }
-    const float td = add(add(mul(r.dx, tri[22][j]), mul(r.dy, tri[23][j])),
-                         mul(r.dz, tri[24][j]));
-    const bool inside = fminf(fminf(s[0], s[1]), s[2]) >= 0.f ||
-                        fmaxf(fmaxf(s[0], s[1]), s[2]) <= 0.f;
-    if (!inside || !(fabsf(td) >= 1e-6f)) continue;
-    const float tn = add(add(add(mul(r.ox, tri[18][j]), mul(r.oy, tri[19][j])),
-                             mul(r.oz, tri[20][j])),
-                         tri[21][j]);
-    const float t = __fdiv_rn(tn, td);
-    if (!(t > t_min)) continue;
-    if (any_hit) {
-      if (t < t_max) {
-        occ = true;
-        return;
-      }
-    } else if (t < best_t) {
-      best_t = t;
-      best_i = base + j;
-    }
-  }
-}
-
 constexpr unsigned kMiss = 0xffffffffu;  // t bits of "no hit in this tile"
 
 // One side or denominator term of four neighbouring triangles at once:
-// walk_tile's left-to-right sum, operation for operation, on the float4
+// the header's left-to-right sum, operation for operation, on the float4
 // that thread-contiguous triangles share.
 __device__ __forceinline__ void dot4(const float* coef, int n,
                                      float (*tri)[kTile], int q, int j0,
@@ -186,7 +133,7 @@ __device__ __forceinline__ void dot4(const float* coef, int n,
 // and the sixteen sums (three sides and the denominator of four triangles)
 // are independent chains that keep the warp issuing; numerator and
 // quotient are taken only by a thread that holds a candidate. Each
-// triangle's value is walk_tile's, operation for operation.
+// triangle's value is dense_sweep.cu's, operation for operation.
 __device__ __forceinline__ void coop_walk(float (*tri)[kTile], int cnt,
                                           const Ray& r, float t_min,
                                           unsigned& t_bits, int& j_win) {

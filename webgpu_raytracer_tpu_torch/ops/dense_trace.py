@@ -24,7 +24,10 @@ give the same hits bit for bit; a single-tile scene ignores it.
 Both loops use the same estimator and the same RNG streams as the JAX
 package. Differences of mechanism, not of result:
 - every one of `max_depth` bounces runs; there is no host sync for JAX's
-  `lax.cond(any_live)` skip. A bounce over all-dead lanes adds zero;
+  `lax.cond(any_live)` skip. A bounce over all-dead lanes adds zero. At
+  `max_depth` 0 the JAX loop still runs its last, shadow-only bounce (at
+  depth -1), and so does the port, through `ray_color_dense` on every
+  scene;
 - where JAX skips a texture sample when no lane carries that map
   (`lax.cond(jnp.any(...))`), the port skips the slots that no triangle of
   the scene binds (`WorldTables.tex_slots` / `light_tex`, host facts from
@@ -360,9 +363,10 @@ def ray_color_dense(tables: WorldTables, textures, ro: V3, rd: V3,
     bounce the NEE shadow lanes and the extension lanes actually swept).
 
     `hit0` seeds bounce 0 from a G-buffer (seed_hit_from_wt_idx) instead of
-    tracing primaries. Launches a frame, with D = max_depth: 1 + D sweeps
-    traced (D seeded), D light-row fetches, and one quad fetch per bound
-    texture slot per sample point (see chip_smoke.py)."""
+    tracing primaries. max_depth 0 runs the last bounce alone, at depth -1,
+    as the JAX package does. Launches a frame, with D = max(max_depth, 1):
+    1 + D sweeps traced (D seeded), D light-row fetches, and one quad fetch
+    per bound texture slot per sample point (see chip_smoke.py)."""
     R = ro.x.shape[0]
     dev = ro.x.device
     f32 = torch.float32
@@ -382,7 +386,8 @@ def ray_color_dense(tables: WorldTables, textures, ro: V3, rd: V3,
     rays = torch.full((), primary, dtype=torch.float64, device=dev)
     tex1 = tex_level(textures, 1)
 
-    for depth in range(max_depth):
+    # At max_depth 0 the JAX loop still runs its last bounce, at depth -1.
+    for depth in range(max_depth) if max_depth > 0 else (-1,):
         last = depth == max_depth - 1
         rowT = hit.rowT
         mat = _row_f(rowT, "mat").to(torch.int32)
@@ -627,7 +632,8 @@ def trace_pixels_dense(tables: WorldTables, camera24: torch.Tensor,
     """One progressive frame over the whole image: thin-lens primaries
     (the JAX package's `_trace_lanes`), traced by `ray_color_dense_rows`
     when `textures` is None (the 1x1 white placeholder) and by
-    `ray_color_dense` for a (level0, level1) texture pyramid.
+    `ray_color_dense` for a (level0, level1) texture pyramid, and at
+    max_depth 0 on every scene (its one last bounce).
 
     camera24 (24,) f32 and jitter (2,) f32 live on the tables' device.
     Per-pixel RNG streams depend only on (pixel, frame, sample), as in the
@@ -648,7 +654,7 @@ def trace_pixels_dense(tables: WorldTables, camera24: torch.Tensor,
                          device=tables.device)
     px = (p_idx % width).to(torch.float32)
     py = (p_idx // width).to(torch.float32)
-    rows_path = textures is None
+    rows_path = textures is None and max_depth > 0
     if rows_path and seed_wt_idx is not None:
         seed_rows = seed_rows_from_wt_idx(tables, seed_wt_idx)
 
