@@ -56,7 +56,28 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
      (1 + 8 keyed culls and scan sweeps and 8 shades a frame, no job sweep
      and no dense sweep), the same golden, frame 1 bit-equal to the job
      path's, then `Renderer("spheres", narrow="scan")` x 4;
-3. prints the card's name and power limit, one JSON line of per-kernel
+3. drives the product surface on the card, with exact launch counts
+   where one process renders alone:
+   - bench.py's config 4: the skinned strip GLB (2 triangles) at 512^2 d8,
+     24 frames through the `WorldBridge` overlap (the next tick on the
+     bridge's thread while the frame renders), every frame bit-equal to a
+     second `Renderer` ticked sequentially; prints fps, the sequential
+     tick's split (native update, `reupload_scene`, render, each ending in
+     a sync) and the fps of `update_scene(t)` + render with no sync;
+   - bench.py --soak's check at 16 spp: cornell 1920x1080 d8, 8 frames,
+     `save_checkpoint`, `load_checkpoint` into a fresh `Renderer`, 8
+     frames, bit-identical to 16 uninterrupted frames; prints spp/s;
+   - `VideoRecorder.record_chunks` at `RenderConfig()`'s record defaults
+     (720x480, depth 10, spp 64), cornell, 3 frames; the PNGs decode (the
+     port's own decoder) and are not black;
+   - the render farm on one card: a `Coordinator` and two
+     `WorkerClient(device="cuda")` threads, cornell 720x480 d10 spp 4, 4
+     frames in jobs of 2, byte-equal to a solo `record_chunks` (two workers
+     share the launch counts, so none are asserted);
+   - `python -m webgpu_raytracer_tpu_torch.cli render` (720x480, 16
+     frames, live preview on) and `info` in subprocesses, exit 0, the PNG
+     decodes; the preview's `publish` of a 720x480 frame, timed;
+4. prints the card's name and power limit, one JSON line of per-kernel
    results, and last `{"ok": true, "device": {...}}`.
 
 Every check is an assert; there is no fallback. Without CUDA it exits
@@ -66,11 +87,13 @@ non-zero before printing any result. It imports no JAX.
 from __future__ import annotations
 
 import json
+import os
 import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
-import zlib
 
 import numpy as np
 import torch
@@ -102,9 +125,18 @@ from webgpu_raytracer_tpu_torch.ops.fetch import (device_pyramid,
                                                   fetch_rows_plain)
 from webgpu_raytracer_tpu_torch.ops.gbuffer import render_gbuffer
 from webgpu_raytracer_tpu_torch.ops.rng import init_rng, rand_n
+from webgpu_raytracer_tpu_torch.parallel.cluster import (
+    Coordinator, WorkerClient, _default_renderer_factory)
+from webgpu_raytracer_tpu_torch.render.checkpoint import (load_checkpoint,
+                                                          save_checkpoint)
+from webgpu_raytracer_tpu_torch.render.preview import PreviewServer
+from webgpu_raytracer_tpu_torch.render.recorder import VideoRecorder
 from webgpu_raytracer_tpu_torch.render.worldtris import (SHADE_COLS,
                                                          build_world_tables)
+from webgpu_raytracer_tpu_torch.utils.images import png_rgb
+from webgpu_raytracer_tpu_torch.utils.profiling import synchronize
 from webgpu_raytracer_tpu_torch.utils.textures import (build_quad_pyramid,
+                                                       decode_png,
                                                        decode_world_textures)
 
 # bench.py's golden mean radiance (same estimator) and its 2% gate
@@ -134,8 +166,8 @@ CULL_EDGE_GROUPS = 64  # lane groups of the culls' dead-lane stacks
 JOB_PLAIN_GROUPS = 256  # lane groups the plain job sweep is held on
 JOB_STATS_GROUPS = 32  # lane groups the job kernel's stats are held on
 SCAN_PLAIN_TILES = 4  # ray tiles per segment the plain scan path is held on
-
-PNG_SIG = b"\x89PNG\r\n\x1a\n"
+ANIM_FRAMES = 24  # bench.py's anim_pass window (config 4)
+SOAK_FRAMES = 16  # the checkpoint resume: 8, save, load, 8 against 16
 
 
 def device_ms(fn, launches: int = KERNEL_LAUNCHES, warmup: int = 3) -> float:
@@ -161,18 +193,19 @@ def bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def png_rgb(img: np.ndarray) -> bytes:
-    """(H, W, 3) u8 -> PNG bytes (filter 0 rows, zlib), without PIL."""
-    h, w, _ = img.shape
+def pad4(b: bytes, fill: bytes = b"\x00") -> bytes:
+    return b + fill * ((4 - len(b) % 4) % 4)
 
-    def chunk(tag: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + tag + body
-                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
 
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
-    return (PNG_SIG
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+def glb(doc: dict, blobs: list[bytes]) -> bytes:
+    """A GLB container: the JSON chunk, then the binary chunk holding
+    `blobs` each padded to 4 bytes (doc's bufferViews must match)."""
+    js = pad4(json.dumps(doc).encode(), b" ")
+    bin_data = b"".join(pad4(b) for b in blobs)
+    total = 12 + 8 + len(js) + 8 + len(bin_data)
+    return (struct.pack("<III", 0x46546C67, 2, total)
+            + struct.pack("<II", len(js), 0x4E4F534A) + js
+            + struct.pack("<II", len(bin_data), 0x004E4942) + bin_data)
 
 
 def textured_quad_glb() -> bytes:
@@ -188,10 +221,6 @@ def textured_quad_glb() -> bytes:
     normals = np.tile(np.array([[0, 0, 1]], np.float32), (4, 1))
     uvs = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
     indices = np.array([0, 1, 2, 0, 2, 3], np.uint16)
-
-    def pad4(b: bytes, fill: bytes = b"\x00") -> bytes:
-        return b + fill * ((4 - len(b) % 4) % 4)
-
     blobs = [positions.tobytes(), normals.tobytes(), uvs.tobytes(),
              indices.tobytes(), png]
     offsets = np.cumsum([0] + [len(pad4(b)) for b in blobs[:-1]]).tolist()
@@ -230,11 +259,63 @@ def textured_quad_glb() -> bytes:
             "material": 0,
         }]}],
     }
-    js = pad4(json.dumps(doc).encode(), b" ")
-    total = 12 + 8 + len(js) + 8 + len(bin_data)
-    return (struct.pack("<III", 0x46546C67, 2, total)
-            + struct.pack("<II", len(js), 0x4E4F534A) + js
-            + struct.pack("<II", len(bin_data), 0x004E4942) + bin_data)
+    return glb(doc, blobs)
+
+
+def skinned_strip_glb() -> bytes:
+    """tests/glb_fixture.skinned_strip_glb, the same bytes: a 2-bone
+    skinned vertical strip (2 triangles), its top bound to a joint that
+    one clip, 'sway', moves +x over a second (bench.py's config 4)."""
+    positions = np.array(
+        [[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0]], np.float32)
+    joints = np.array(
+        [[0, 0, 0, 0], [0, 0, 0, 0], [1, 0, 0, 0], [1, 0, 0, 0]], np.uint16)
+    weights = np.array(
+        [[1, 0, 0, 0], [1, 0, 0, 0], [1, 0, 0, 0], [1, 0, 0, 0]], np.float32)
+    indices = np.array([0, 1, 3, 0, 3, 2], np.uint16)
+    ibm = np.stack([np.eye(4, dtype=np.float32),
+                    np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0],
+                              [0, -1, 0, 1]], np.float32)])
+    times = np.array([0.0, 1.0], np.float32)
+    trans = np.array([[0, 1, 0], [1, 1, 0]], np.float32)
+    blobs = [a.tobytes() for a in (positions, joints, weights, indices, ibm,
+                                   times, trans)]
+    offsets = np.cumsum([0] + [len(pad4(b)) for b in blobs[:-1]]).tolist()
+
+    def acc(view, ctype, count, atype):
+        return {"bufferView": view, "componentType": ctype, "count": count,
+                "type": atype}
+
+    doc = {
+        "asset": {"version": "2.0"},
+        "scene": 0,
+        "scenes": [{"nodes": [0, 1]}],
+        "nodes": [
+            {"name": "root_joint", "children": [2]},
+            {"name": "mesh_node", "mesh": 0, "skin": 0},
+            {"name": "tip_joint", "translation": [0, 1, 0]},
+        ],
+        "buffers": [{"byteLength": sum(len(pad4(b)) for b in blobs)}],
+        "bufferViews": [{"buffer": 0, "byteOffset": o, "byteLength": len(b)}
+                        for o, b in zip(offsets, blobs)],
+        "accessors": [acc(0, 5126, 4, "VEC3"), acc(1, 5123, 4, "VEC4"),
+                      acc(2, 5126, 4, "VEC4"), acc(3, 5123, 6, "SCALAR"),
+                      acc(4, 5126, 2, "MAT4"), acc(5, 5126, 2, "SCALAR"),
+                      acc(6, 5126, 2, "VEC3")],
+        "skins": [{"joints": [0, 2], "inverseBindMatrices": 4}],
+        "meshes": [{"primitives": [{
+            "attributes": {"POSITION": 0, "JOINTS_0": 1, "WEIGHTS_0": 2},
+            "indices": 3,
+        }]}],
+        "animations": [{
+            "name": "sway",
+            "channels": [{"sampler": 0,
+                          "target": {"node": 2, "path": "translation"}}],
+            "samplers": [{"input": 5, "output": 6,
+                          "interpolation": "LINEAR"}],
+        }],
+    }
+    return glb(doc, blobs)
 
 
 def sweep_inputs(camera, width, height):
@@ -928,11 +1009,11 @@ def sweeps(n: int, multi_tile: bool, narrow: str = "jobs") -> dict:
 
 
 def rows_launches(seeded: bool, multi_tile: bool = False,
-                  narrow: str = "jobs") -> dict:
+                  narrow: str = "jobs", depth: int = DEPTH) -> dict:
     """Per frame of the row-state loop (untextured scenes): traced, one
     primary sweep; seeded, one G-buffer sweep and one seed-row fetch; then
     per bounce one shade and one fused sweep."""
-    return {**sweeps(1 + DEPTH, multi_tile, narrow), "shade_rows": DEPTH,
+    return {**sweeps(1 + depth, multi_tile, narrow), "shade_rows": depth,
             "fetch_rows": int(seeded), "fetch_quad": 0}
 
 
@@ -964,6 +1045,247 @@ def drive(label: str, n_frames: int, per_frame: dict, fn, totals: dict):
     print(f"launches, {label} ({n_frames} frames): {counts}")
     for k, v in counts.items():
         totals[k] += v
+
+
+def animated_tick(dev, totals: dict) -> None:
+    """bench.py's config 4 through the bridge overlap: the skinned strip at
+    512^2 d8, ANIM_FRAMES frames in anim_pass' order (wait for the tick,
+    upload, kick the next tick, render), each frame bit-equal to the frame
+    of a second Renderer ticked sequentially (`world.update(t)`,
+    `reupload_scene()`, then the render, each timed to a sync)."""
+    def renderer():
+        return Renderer("viewer", glb_data=skinned_strip_glb(),
+                        config=RenderConfig(width=512, height=512,
+                                            max_depth=DEPTH, shader_spp=1),
+                        device=dev)
+
+    over, seq = renderer(), renderer()
+    for r in (over, seq):  # warm-up
+        r.update_scene(0.0)
+        r.render_frame()
+    synchronize(dev)
+    times = [(3 + k) / 30.0 for k in range(ANIM_FRAMES)]
+    frames = []
+
+    def overlap():
+        over.bridge.update_async(times[0])
+        for k in range(ANIM_FRAMES):
+            over.bridge.wait()
+            over.reupload_scene()
+            if k + 1 < ANIM_FRAMES:
+                over.bridge.update_async(times[k + 1])
+            frames.append(over.render_frame().clone())
+        synchronize(dev)
+
+    t0 = time.perf_counter()
+    drive("skinned strip 512^2 bridge overlap", ANIM_FRAMES,
+          rows_launches(False), overlap, totals)
+    fps = ANIM_FRAMES / (time.perf_counter() - t0)
+    split = {"update": [], "upload": [], "render": []}
+
+    def sequential():
+        for k, t in enumerate(times):
+            t0 = time.perf_counter()
+            seq.world.update(t)
+            t1 = time.perf_counter()
+            seq.reupload_scene()
+            synchronize(dev)
+            t2 = time.perf_counter()
+            seq.render_frame()
+            synchronize(dev)
+            split["update"].append(t1 - t0)
+            split["upload"].append(t2 - t1)
+            split["render"].append(time.perf_counter() - t2)
+            assert bits_equal(seq.accum, frames[k]), \
+                f"skinned strip frame {k}: overlap differs from sequential"
+
+    drive("skinned strip 512^2 sequential ticks", ANIM_FRAMES,
+          rows_launches(False), sequential, totals)
+
+    def unsynced():  # update_scene(t) + render, one sync at the end
+        for t in times:
+            seq.update_scene(t)
+            seq.render_frame()
+        synchronize(dev)
+
+    t0 = time.perf_counter()
+    drive("skinned strip 512^2 update_scene + render", ANIM_FRAMES,
+          rows_launches(False), unsynced, totals)
+    seq_fps = ANIM_FRAMES / (time.perf_counter() - t0)
+    ms = {k: 1e3 * float(np.mean(v)) for k, v in split.items()}
+    tick = sum(ms.values())
+    print(f"animated tick, skinned strip 512x512 d{DEPTH}: {ANIM_FRAMES} "
+          f"frames through the bridge overlap {fps:.2f} fps, every frame "
+          f"bit-equal to a sequential tick; update_scene + render with no "
+          f"sync between frames {seq_fps:.2f} fps; sequential split (mean "
+          f"of {ANIM_FRAMES}, each part ending in a sync): native update "
+          f"{ms['update']:.3f} ms, reupload_scene {ms['upload']:.3f} ms, "
+          f"render {ms['render']:.3f} ms; table upload share of a tick "
+          f"{ms['upload'] / tick:.3f}")
+
+
+def checkpoint_resume(dev, totals: dict) -> None:
+    """bench.py --soak's check at SOAK_FRAMES spp: cornell 1920x1080 d8,
+    SOAK_FRAMES frames uninterrupted against half, save_checkpoint,
+    load_checkpoint into a fresh Renderer, the other half: the two
+    accumulators bit-identical."""
+    cfg = dict(width=HD[0], height=HD[1], max_depth=DEPTH, shader_spp=1)
+    half = SOAK_FRAMES // 2
+    result = {}
+
+    def run():
+        whole = Renderer("cornell", config=RenderConfig(**cfg), device=dev)
+        whole.render_frame()  # warm-up at this size
+        whole.reset_accumulation()
+        synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(SOAK_FRAMES):
+            whole.render_frame()
+        synchronize(dev)
+        result["spp_s"] = SOAK_FRAMES / (time.perf_counter() - t0)
+        first = Renderer("cornell", config=RenderConfig(**cfg), device=dev)
+        for _ in range(half):
+            first.render_frame()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "ck")
+            t0 = time.perf_counter()
+            save_checkpoint(path, first)
+            t1 = time.perf_counter()
+            resumed = Renderer("cornell", config=RenderConfig(**cfg),
+                               device=dev)
+            assert load_checkpoint(path, resumed), "checkpoint restore failed"
+            result["save_s"], result["load_s"] = t1 - t0, \
+                time.perf_counter() - t1
+        assert resumed.accum.device == whole.accum.device
+        for _ in range(SOAK_FRAMES - half):
+            resumed.render_frame()
+        assert bits_equal(resumed.accum, whole.accum), \
+            "resumed accumulation differs from the uninterrupted one"
+
+    drive("cornell 1080p checkpoint resume", 2 * SOAK_FRAMES + 1,
+          rows_launches(False), run, totals)
+    print(f"checkpoint resume, cornell {HD[0]}x{HD[1]} d{DEPTH}: "
+          f"{SOAK_FRAMES} frames uninterrupted {result['spp_s']:.2f} spp/s; "
+          f"{half} + save ({result['save_s']:.3f} s) + load into a fresh "
+          f"Renderer ({result['load_s']:.3f} s) + {SOAK_FRAMES - half}: "
+          f"accumulator bit-identical")
+
+
+def record_defaults(dev, totals: dict) -> None:
+    """VideoRecorder.record_chunks at RenderConfig()'s record defaults
+    (720x480, depth 10, spp 64, fps 30) on cornell, 3 frames."""
+    cfg = RenderConfig()
+    rec = VideoRecorder(Renderer("cornell", config=cfg, device=dev))
+    n = 3
+    frames = []
+    t0 = time.perf_counter()
+    # 5 warm-up frames, then spp frames of 1 sample for each frame.
+    drive("recorder cornell 720x480 d10 spp 64", VideoRecorder.
+          TAA_WARMUP_FRAMES + n * cfg.spp,
+          rows_launches(False, depth=cfg.max_depth),
+          lambda: frames.extend(rec.record_chunks(cfg, 0, n)), totals)
+    seconds = time.perf_counter() - t0
+    assert [f.frame_index for f in frames] == list(range(n))
+    # Each frame is presented once, over the TAA history its tick cleared,
+    # at alpha 1/spp: the PNG holds ~1/64 of the radiance and is dark, as
+    # the JAX package's recorder's is. The accumulator carries the frame.
+    for f in frames:
+        img = decode_png(f.data)
+        assert img.shape == (cfg.height, cfg.width, 3), img.shape
+        assert img.mean() > 1 and img.max() > 32, \
+            f"frame {f.frame_index} is black"
+    rad = rec.renderer.radiance()
+    assert np.isfinite(rad).all() and rad.mean() > 0.05, rad.mean()
+    print(f"recorder, cornell {cfg.width}x{cfg.height} d{cfg.max_depth} spp "
+          f"{cfg.spp}: {n} frames, {1e3 * seconds / n:.1f} ms a recorded "
+          f"frame (5 warm-up frames and PNG encode included), last batch "
+          f"{rec.last_batch}, PNGs decode to {img.shape}, mean "
+          f"{img.mean():.2f} (max {img.max()}), accumulated radiance mean "
+          f"{rad.mean():.4f}")
+
+
+def farm_on_one_card(dev) -> None:
+    """A Coordinator and two WorkerClient(device="cuda") threads render
+    cornell 720x480 d10 spp 4, 4 frames in jobs of 2; the frames are byte-
+    equal to a solo record_chunks. (Two workers share the process-wide
+    launch counts, so none are asserted here.)"""
+    config = RenderConfig(width=720, height=480, max_depth=10, shader_spp=1,
+                          spp=4, fps=4, duration=1.0)
+    t0 = time.perf_counter()
+    solo = VideoRecorder(_default_renderer_factory(
+        config, "cornell", None, b"", device=dev)).record_chunks(config, 0, 4)
+    solo_s = time.perf_counter() - t0
+    coord = Coordinator(secret="smoke")
+    workers = [WorkerClient("127.0.0.1", coord.port, secret="smoke",
+                            device=dev) for _ in range(2)]
+    errors = []
+
+    def work(w):
+        try:
+            w.connect()
+            w.run()
+        except Exception as e:  # surfaced below
+            errors.append(repr(e))
+
+    try:
+        coord.set_scene(config, "cornell")
+        threads = [threading.Thread(target=work, args=(w,), daemon=True)
+                   for w in workers]
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        coord.start_render(total_frames=4, job_batch=2)
+        assert coord.wait(300.0), (coord.admin_status(), errors)
+        farm_s = time.perf_counter() - t0
+        frames = coord.collect_frames()
+    finally:
+        for w in workers:
+            w.close()
+        coord.close()
+    assert not errors, errors
+    assert [f.frame_index for f in frames] == [0, 1, 2, 3]
+    for f, ref in zip(frames, solo):
+        assert f.data == ref.data, f"farm frame {f.frame_index} differs"
+    print(f"farm on one card, cornell 720x480 d10 spp 4: 2 workers, 4 frames "
+          f"in jobs of 2 in {farm_s:.2f} s (solo {solo_s:.2f} s), byte-equal "
+          f"to the solo record_chunks")
+
+
+def cli_and_preview() -> None:
+    """`cli render` (720x480, 16 frames, live preview on) and `cli info` in
+    subprocesses, both exit 0 and the PNG decodes; then the preview's
+    `publish` of that 720x480 frame, timed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cli.png")
+        for argv in (["render", "--scene", "cornell", "--width", "720",
+                      "--height", "480", "--frames", "16", "--preview", "0",
+                      "--output", out], ["info", "--scene", "cornell"]):
+            proc = subprocess.run(
+                [sys.executable, "-m", "webgpu_raytracer_tpu_torch.cli",
+                 *argv], cwd=root, capture_output=True, text=True,
+                timeout=300)
+            assert proc.returncode == 0, (argv, proc.stdout, proc.stderr)
+            lines = proc.stdout.splitlines()
+            stats = [x for x in lines if x.startswith("[stats]")][-1:]
+            for line in stats + [x for x in lines if x.startswith(
+                    ("[render]", "  triangles"))]:
+                print(f"cli {argv[0]}: {line.strip()}")
+        cli_img = decode_png(open(out, "rb").read())
+        assert cli_img.shape == (480, 720, 3) and cli_img.mean() > 10
+    srv = PreviewServer(port=0)
+    try:
+        srv.publish(cli_img)
+        n = 10
+        t0 = time.perf_counter()
+        for _ in range(n):
+            srv.publish(cli_img, stats="smoke")
+        ms = 1e3 * (time.perf_counter() - t0) / n
+    finally:
+        srv.close()
+    print(f"preview publish {cli_img.shape[1]}x{cli_img.shape[0]}: {ms:.2f} "
+          f"ms (JPEG encode in numpy, mean of {n}; the cli's frame, mean "
+          f"{cli_img.mean():.2f})")
 
 
 def profile_paths(paths) -> None:
@@ -1177,6 +1499,13 @@ def main(argv: list[str]) -> int:
           lambda: renderer_frames(rsc, 4, f"spheres {width}x{height} "
                                   f"d{DEPTH} narrow=scan", scan_launches),
           totals)
+
+    # --- phase 4: the product surface ---
+    animated_tick(dev, totals)
+    checkpoint_resume(dev, totals)
+    record_defaults(dev, totals)
+    farm_on_one_card(dev)
+    cli_and_preview()
     print(f"launches on the main paths (all of the above): {totals}")
 
     if "--profile" in argv:

@@ -825,3 +825,93 @@ def test_narrow_kernels_ragged_last_tile(cuda, kernel):
     idx, *_ = _narrow_kernels_agree(tables, rays8, kernel)
     assert int((idx >= last).sum()) > 100
     assert int(idx.max()) < tables.valid_count
+
+
+# -- the product surface on the card ------------------------------------------
+
+def _skinned_renderer(dev, res=64, depth=4):
+    return Renderer("viewer", glb_data=chip_smoke.skinned_strip_glb(),
+                    config=RenderConfig(width=res, height=res,
+                                        max_depth=depth, shader_spp=1,
+                                        fps=10, spp=2, batch=2),
+                    device=dev)
+
+
+def test_recorder_frames_match_cpu(cuda):
+    """record_chunks on the skinned strip, 64^2 d4 spp 2, 3 frames: the
+    card's PNG frames against the CPU's (the plain versions) within the
+    slice tolerance, LDR within 1 code on >= 95% of pixels and means
+    within 2%."""
+    from webgpu_raytracer_tpu_torch.render.recorder import VideoRecorder
+    from webgpu_raytracer_tpu_torch.utils.textures import decode_png
+
+    got = {}
+    for dev in ("cpu", cuda):
+        r = _skinned_renderer(dev)
+        got[str(dev)] = VideoRecorder(r).record_chunks(r.config, 0, 3)
+    for a, b in zip(got["cpu"], got["cuda"]):
+        assert a.frame_index == b.frame_index
+        ia = decode_png(a.data).astype(np.int32)
+        ib = decode_png(b.data).astype(np.int32)
+        assert ib.shape == (64, 64, 3) and ib.mean() > 1.0
+        assert (np.abs(ia - ib) <= 1).mean() >= 0.95
+        assert abs(ia.mean() - ib.mean()) <= 0.02 * ia.mean()
+
+
+def test_checkpoint_resume_bit_identical(cuda, tmp_path):
+    from webgpu_raytracer_tpu_torch.render.checkpoint import (
+        load_checkpoint, save_checkpoint)
+
+    cfg = dict(width=96, height=64, max_depth=4)
+    whole = Renderer("cornell", config=RenderConfig(**cfg), device=cuda)
+    half = Renderer("cornell", config=RenderConfig(**cfg), device=cuda)
+    for _ in range(6):
+        whole.render_frame()
+    for _ in range(3):
+        half.render_frame()
+    save_checkpoint(str(tmp_path / "ck"), half)
+    resumed = Renderer("cornell", config=RenderConfig(**cfg), device=cuda)
+    assert load_checkpoint(str(tmp_path / "ck"), resumed)
+    assert resumed.accum.device.type == "cuda"
+    for _ in range(3):
+        resumed.render_frame()
+    assert torch.equal(resumed.accum.view(torch.int32),
+                       whole.accum.view(torch.int32))
+
+
+def test_bridge_overlap_bit_equal_on_card(cuda):
+    over, seq = _skinned_renderer(cuda), _skinned_renderer(cuda)
+    times = [(1 + k) / 30.0 for k in range(6)]
+    over.bridge.update_async(times[0])
+    for k, t in enumerate(times):
+        over.bridge.wait()
+        over.reupload_scene()
+        if k + 1 < len(times):
+            over.bridge.update_async(times[k + 1])
+        over.render_frame()
+        seq.update_scene(t)
+        seq.render_frame()
+        assert torch.equal(over.accum.view(torch.int32),
+                           seq.accum.view(torch.int32)), k
+
+
+def test_profiling_on_card(cuda, tmp_path):
+    """PassTimer waits for the card with a synchronise; device_trace writes
+    a Chrome trace that holds the card's kernels."""
+    import json
+
+    from webgpu_raytracer_tpu_torch.utils.profiling import (PassTimer,
+                                                            device_trace)
+
+    r = Renderer("cornell", config=RenderConfig(width=64, height=64,
+                                                max_depth=2), device=cuda)
+    timer = PassTimer()
+    with timer.section("frame", sync_value=r.accum):
+        r.render_frame()
+    assert timer.counts == {"frame": 1}
+    with device_trace(str(tmp_path / "trace")):
+        r.render_frame()
+        torch.cuda.synchronize()
+    with open(tmp_path / "trace" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any("dense_sweep" in str(e.get("name", "")) for e in events)

@@ -423,22 +423,30 @@ def test_renderer_large_scene_not_ported():
 
 
 def test_package_imports_no_jax():
-    """A fresh process imports the port, builds a world and renders a CPU
-    frame: no JAX, no module of the JAX package, and the scene compiler
-    mapped from the port's own build directory."""
+    """A fresh process imports the port (its CLI, recorder, checkpoint,
+    preview, farm and profiling modules too), builds a world, renders a CPU
+    frame and records one through `record_chunks`: no JAX, no Pillow, no
+    module of the JAX package, and the scene compiler mapped from the
+    port's own build directory."""
     code = textwrap.dedent('''
         import os, sys
         import webgpu_raytracer_tpu_torch as port
         import webgpu_raytracer_tpu_torch.kernels
+        from webgpu_raytracer_tpu_torch import cli
         from webgpu_raytracer_tpu_torch.models import native
+        from webgpu_raytracer_tpu_torch.parallel import cluster
+        from webgpu_raytracer_tpu_torch.render import (checkpoint, preview,
+                                                       recorder)
+        from webgpu_raytracer_tpu_torch.utils import profiling
         world = port.NativeWorld("cornell")
-        r = port.Renderer("cornell",
-                          config=port.RenderConfig(width=8, height=8,
-                                                   max_depth=2),
-                          device="cpu")
+        cfg = port.RenderConfig(width=8, height=8, max_depth=2, spp=1)
+        r = port.Renderer("cornell", config=cfg, device="cpu")
         r.render_frame()
         assert r.present().shape == (8, 8, 3)
+        frames = recorder.VideoRecorder(r).record_chunks(cfg, 0, 1)
+        assert len(frames) == 1 and frames[0].data.startswith(b"\\x89PNG")
         assert "jax" not in sys.modules, "jax imported"
+        assert "PIL" not in sys.modules, "PIL imported"
         jax_pkg = os.path.join(sys.argv[1], "webgpu_raytracer_tpu", "")
         for name, mod in list(sys.modules.items()):
             path = os.path.abspath(getattr(mod, "__file__", None) or "/")

@@ -13,6 +13,13 @@ JAX package's `tune.narrow` does; the image is the same bit for bit.
 PyTorch runs eagerly, so there is no compiled step:
 `build_pipeline(depth, spp)` only changes the parameters and resets the
 accumulation.
+
+The native world lives behind the async `WorldBridge` (`self.bridge`, and
+`self.world` is its world): the recorder and the CLI tick the scene on the
+bridge's thread while the device renders, and call `reupload_scene` only
+after `bridge.wait()`. `set_animation`, `load_animation_glb` and
+`update_screen_size` are the JAX package's calls; a resize reallocates the
+accumulator and the TAA history on the renderer's device.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import torch
 
 from .. import kernels
 from ..config import RenderConfig
-from ..models.native import NativeWorld
+from ..models.bridge import WorldBridge
 from ..ops.cuda_dense import NARROW
 from ..ops.dense_trace import trace_pixels_dense
 from ..ops.fetch import device_pyramid
@@ -46,6 +53,10 @@ class Renderer:
     """End-to-end progressive path tracer over a native World, on one
     device ("cuda" by default; raises when CUDA is absent). The positional
     arguments are the JAX package's: scene, OBJ text, GLB bytes, config."""
+
+    # The port has one tracing backend; the attribute lets code written
+    # against the JAX package (which picks "dense" or "bvh") read the same.
+    backend = "dense"
 
     def __init__(self, scene_name: str = "cornell",
                  obj_source: Optional[str] = None,
@@ -69,7 +80,10 @@ class Renderer:
         self.max_depth = config.max_depth
         self.spp = config.shader_spp
 
-        self.world = NativeWorld(config.scene_name, obj_source, glb_data)
+        # The scene compiler lives behind the async bridge, so a scene tick
+        # can overlap device work; `world` is the bridge's own world.
+        self.bridge = WorldBridge(config.scene_name, obj_source, glb_data)
+        self.world = self.bridge.world
         if 0 < config.anim_index < self.world.animation_count():
             self.world.set_animation(config.anim_index)
             self.world.update(0.0)
@@ -92,12 +106,15 @@ class Renderer:
         self._jitter_acc = JitterAccumulator(self.width, self.height)
         self._avg_jitter = torch.zeros(2, dtype=torch.float32,
                                        device=self.device)
+        self._alloc_buffers()
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def _alloc_buffers(self):
         self.accum = torch.zeros((self.width * self.height, 4),
                                  dtype=torch.float32, device=self.device)
         self.history = torch.zeros((self.height, self.width, 3),
                                    dtype=torch.float32, device=self.device)
-
-    # -- lifecycle ---------------------------------------------------------
 
     def build_pipeline(self, max_depth: int, spp: int):
         """Change depth / spp; resets accumulation."""
@@ -105,12 +122,25 @@ class Renderer:
         self.spp = int(spp)
         self.reset_accumulation()
 
+    def update_screen_size(self, width: int, height: int):
+        """Resize: a new camera, jitter sequence and accumulation."""
+        self.width = int(width)
+        self.height = int(height)
+        self.world.update_camera(self.width, self.height)
+        self.camera = torch.from_numpy(
+            np.asarray(self.world.camera(), np.float32)).to(self.device)
+        self.reset_accumulation()
+
     def reset_accumulation(self):
         """The accumulator reset is semantic (frame 1 overwrites), as in the
-        JAX package; the TAA history feeds frame 1 and is cleared."""
+        JAX package; the TAA history feeds frame 1 and is cleared. After a
+        resize both buffers are reallocated at the new size."""
         self.frame_count = 0
         self._jitter_acc = JitterAccumulator(self.width, self.height)
-        self.history.zero_()
+        if self.accum.shape != (self.width * self.height, 4):
+            self._alloc_buffers()
+        else:
+            self.history.zero_()
 
     # -- scene updates -----------------------------------------------------
 
@@ -119,7 +149,22 @@ class Renderer:
         self.world.update(time)
         self.reupload_scene(reset=reset)
 
+    def set_animation(self, index: int, time: float = 0.0):
+        """Select the active animation clip and re-flatten the scene at
+        `time`; resets the accumulation."""
+        self.world.set_animation(int(index))
+        self.config.anim_index = int(index)
+        self.update_scene(time)
+
+    def load_animation_glb(self, data: bytes) -> bool:
+        """Merge animation clips from another GLB; True if it had any."""
+        return self.world.load_animation_glb(data)
+
     def reupload_scene(self, reset: bool = True):
+        """Rebuild and upload the tables from the (already updated) world:
+        the upload half of `update_scene`. With the bridge, call it after
+        `bridge.wait()` and before the next `update_async`, which rewrites
+        the world's buffers."""
         self.world.update_camera(self.width, self.height)
         self.tables = build_world_tables(self.world, self.device)
         self.camera = torch.from_numpy(
