@@ -32,7 +32,10 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
    themselves bit for bit (the culls' warps merge through shared-memory
    atomics, the sweeps' lane queues fill in an order that varies), and the
    tiles and (lane, tile) pairs the sweeps report walking must equal the
-   plain count.
+   plain count. The BVH walk (`csrc/bvh_walk.cu`), closest and any-hit,
+   bit-equal to its plain walk on the same tensors (t, tri, inst, the
+   occluded flag, the nodes and triangles each lane visited), twice, on
+   cornell's and `spheres`' 512^2 primaries and bounce-1 rays.
    Kernel times are many launches between one pair of CUDA events;
 2. drives every path of the port with the launch counts set to 0 just
    before it and read just after, and asserts each kernel's exact count:
@@ -56,6 +59,14 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
      (1 + 8 keyed culls and scan sweeps and 8 shades a frame, no job sweep
      and no dense sweep), the same golden, frame 1 bit-equal to the job
      path's, then `Renderer("spheres", narrow="scan")` x 4;
+   - the BVH path (`trace_pixels`: a closest and a shadow walk a bounce, no
+     extension walk after the last) on cornell 512^2 d8 x 32 and `spheres`
+     512^2 d8 x 4, the same goldens, ms/frame beside the dense path's;
+     `get_tracer("bvh")` and `get_tracer("dense")` on one cornell frame;
+   - the sharded steps (backend "bvh") on cornell 512^2 d8: a world of one
+     NCCL rank runs the tile, sample and 2-D steps (the tile step
+     bit-equal to `trace_pixels`, the others at 2e-5), then two gloo ranks
+     in subprocesses share the card (`--shard-rank`, an internal option);
 3. drives the product surface on the card, with exact launch counts
    where one process renders alone:
    - bench.py's config 4: the skinned strip GLB (2 triangles) at 512^2 d8,
@@ -101,7 +112,8 @@ import torch
 from webgpu_raytracer_tpu_torch import NativeWorld, Renderer, RenderConfig
 from webgpu_raytracer_tpu_torch import kernels
 from webgpu_raytracer_tpu_torch.ops import (cuda_dense, cuda_fetch, cuda_jobs,
-                                            cuda_scan, shade_rows)
+                                            cuda_scan, intersect, shade_rows)
+from webgpu_raytracer_tpu_torch.ops.api import get_tracer
 from webgpu_raytracer_tpu_torch.ops.cluster_cull import (CLUSTER_CHUNK,
                                                          LANE_CHUNK,
                                                          keys_plain,
@@ -124,13 +136,17 @@ from webgpu_raytracer_tpu_torch.ops.fetch import (device_pyramid,
                                                   fetch_quad_plain,
                                                   fetch_rows_plain)
 from webgpu_raytracer_tpu_torch.ops.gbuffer import render_gbuffer
+from webgpu_raytracer_tpu_torch.ops.intersect import T_MIN
 from webgpu_raytracer_tpu_torch.ops.rng import init_rng, rand_n
+from webgpu_raytracer_tpu_torch.ops.trace import accumulate, trace_pixels
+from webgpu_raytracer_tpu_torch.parallel import sharding
 from webgpu_raytracer_tpu_torch.parallel.cluster import (
     Coordinator, WorkerClient, _default_renderer_factory)
 from webgpu_raytracer_tpu_torch.render.checkpoint import (load_checkpoint,
                                                           save_checkpoint)
 from webgpu_raytracer_tpu_torch.render.preview import PreviewServer
 from webgpu_raytracer_tpu_torch.render.recorder import VideoRecorder
+from webgpu_raytracer_tpu_torch.render.resources import build_device_scene
 from webgpu_raytracer_tpu_torch.render.worldtris import (SHADE_COLS,
                                                          build_world_tables)
 from webgpu_raytracer_tpu_torch.utils.images import png_rgb
@@ -166,8 +182,11 @@ CULL_EDGE_GROUPS = 64  # lane groups of the culls' dead-lane stacks
 JOB_PLAIN_GROUPS = 256  # lane groups the plain job sweep is held on
 JOB_STATS_GROUPS = 32  # lane groups the job kernel's stats are held on
 SCAN_PLAIN_TILES = 4  # ray tiles per segment the plain scan path is held on
+BVH_NODE_OPS = 25  # f32 operations of one node's slab test (bvh_walk.cu)
+BVH_TRI_OPS = 61   # f32 operations of one Moller-Trumbore test
 ANIM_FRAMES = 24  # bench.py's anim_pass window (config 4)
 SOAK_FRAMES = 16  # the checkpoint resume: 8, save, load, 8 against 16
+FRAME_MS = {}  # path -> (ms/frame, Mrays/s) of frames 2..n in this run
 
 
 def device_ms(fn, launches: int = KERNEL_LAUNCHES, warmup: int = 3) -> float:
@@ -924,6 +943,291 @@ def check_fetch_quad(cases) -> dict:
                 **results[0])
 
 
+def bvh_rays(camera, width, height, tables):
+    """The BVH walk's test stacks on one scene: its (R, 3) pinhole
+    primaries, and the dense path's bounce-1 rays at the same camera (the
+    R NEE shadow rays and the R extension rays of `bounce_rays`), each with
+    its per-lane t_max and active lanes t_max > 0."""
+    R = width * height
+    ro3, rd3 = pinhole_rays(camera, width, height)
+    prim = (torch.stack(list(ro3), 1).contiguous(),
+            torch.stack(list(rd3), 1).contiguous())
+    rays8 = bounce_rays(tables, camera, width, height, 1, DEPTH)
+
+    def part(lo):
+        s = rays8[:, lo:lo + R]
+        t = s[6].contiguous()
+        return (s[3:6].T.contiguous(), s[0:3].T.contiguous(), t, t > 0)
+
+    return prim, part(0), part(R)
+
+
+def walk_bit_equal(scene, ro, rd, t_max, active, any_hit, label) -> tuple:
+    """The kernel twice and the plain walk once on the same CUDA tensors:
+    results and counts bit for bit. Returns (kernel out, stats, measured
+    error): the largest |t - t_plain| of the closest walk, or of the
+    occluded flags as 0 / 1 in any-hit mode, over both launches."""
+    runs = [intersect.walk_cuda(scene, ro, rd, T_MIN, t_max, active,
+                                any_hit, with_stats=True) for _ in range(2)]
+    plain, pst = intersect.traverse_plain(scene, ro, rd, T_MIN, t_max,
+                                          active, any_hit)
+    torch.cuda.synchronize()
+    want = (plain, *pst) if any_hit else (*plain, *pst)
+    for out, st in runs:
+        got = (out, *st) if any_hit else (*out, *st)
+        for a, b in zip(got, want):
+            assert bits_equal(a, b), f"bvh walk {label}: kernel != plain"
+
+    def first(x):  # the occluded flags, or the closest walk's t
+        return x if any_hit else x.t
+
+    err = max(max_abs_diff(first(out), first(plain)) for out, _ in runs)
+    out, st = runs[0]
+    frac = float((out if any_hit else out.inst_idx >= 0).float().mean())
+    print(f"bvh walk {label}: {'occluded' if any_hit else 'hit'} "
+          f"{frac:.4f} of {ro.shape[0]} lanes, nodes visited "
+          f"{float(st.nodes.float().mean()):.2f} a lane (max "
+          f"{int(st.nodes.max())}), triangles tested "
+          f"{float(st.tris.float().mean()):.2f}; bit-equal to the plain "
+          f"walk (t, tri, inst / occluded, counts), two launches, max abs "
+          f"err {err}")
+    return out, st, err
+
+
+def walk_bound(scene, ro, any_hit, per_lane_tmax, st) -> tuple:
+    """(bound ms, deciding, MB, G ops): rays in, results out, the scene's
+    node, triangle, vertex and instance arrays once; operations from the
+    walk's own counts of nodes visited and triangles tested."""
+    R = ro.shape[0]
+    nbytes = (R * (24 + 1 + (4 if per_lane_tmax else 0))
+              + R * (1 if any_hit else 12)
+              + sum(getattr(scene, k).numel() * 4 for k in (
+                  "node_min", "node_max", "node_skip", "node_data", "tri_v",
+                  "pos", "inst_inv", "inst_blas")))
+    ops = (float(st.nodes.double().sum()) * BVH_NODE_OPS
+           + float(st.tris.double().sum()) * BVH_TRI_OPS)
+    b_ms, b_by = bound(nbytes, ops)
+    return b_ms, b_by, nbytes / 1e6, ops / 1e9
+
+
+def check_bvh(cases) -> list[dict]:
+    """`csrc/bvh_walk.cu` against its plain walk, bit for bit, closest and
+    any-hit, on each (label, DeviceScene, camera, dense tables) case at
+    512^2: the primaries (any-hit at t_max half or 1.01x the closest hit,
+    alternately) and the bounce-1 rays. Timed on every stack (kernel over
+    200 launches, plain walk once); the JSON line takes the last case's
+    primaries (closest) and bounce-1 shadow rays (any-hit)."""
+    width, height = SMALL
+    out = {}
+    for label, scene, camera, tables in cases:
+        (p_ro, p_rd), shadow, ext = bvh_rays(camera, width, height, tables)
+        R = p_ro.shape[0]
+        on = torch.ones(R, dtype=torch.bool, device=p_ro.device)
+        hit, st_c, err_c = walk_bit_equal(scene, p_ro, p_rd, T_MAX, on,
+                                          False, f"{label} primaries, closest")
+        half = torch.arange(R, device=p_ro.device) % 2 == 0
+        t_sh = torch.where(hit.inst_idx >= 0,
+                           torch.where(half, hit.t * 0.5, hit.t * 1.01),
+                           5.0).contiguous()
+        walk_bit_equal(scene, p_ro, p_rd, t_sh, on, True,
+                       f"{label} primaries, any-hit")
+        _, st_e, err_e = walk_bit_equal(
+            scene, *ext, False, f"{label} bounce-1 extension rays, closest")
+        _, st_s, err_s = walk_bit_equal(
+            scene, *shadow, True, f"{label} bounce-1 shadow rays, any-hit")
+        for name, args, any_hit, st, tl, err in (
+                ("bvh_closest", (p_ro, p_rd, T_MAX, on), False, st_c, False,
+                 err_c),
+                ("bvh_closest ext", ext, False, st_e, True, err_e),
+                ("bvh_shadow", shadow, True, st_s, True, err_s)):
+            ms = device_ms(lambda: intersect.walk_cuda(
+                scene, args[0], args[1], T_MIN, args[2], args[3], any_hit))
+            t0 = time.perf_counter()
+            intersect.traverse_plain(scene, args[0], args[1], T_MIN, args[2],
+                                     args[3], any_hit)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            b_ms, b_by, mb, gops = walk_bound(scene, args[0], any_hit, tl, st)
+            print(f"{name} {label}: kernel {ms:.4f} ms, plain walk "
+                  f"{plain_ms:.1f} ms (host clock, one call), bound "
+                  f"{b_ms:.4f} ms ({b_by}; {mb:.1f} MB, {gops:.3f} G ops: "
+                  f"{BVH_NODE_OPS} a node, {BVH_TRI_OPS} a triangle)")
+            out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, max_abs_err=err)
+    return [dict(name=name, route="cuda",
+                 source="webgpu_raytracer_tpu_torch/csrc/bvh_walk.cu",
+                 replaces="webgpu_raytracer_tpu/ops/intersect.py:99",
+                 library_ms=None, **out[name])
+            for name in ("bvh_closest", "bvh_shadow")]
+
+
+def bvh_launches(depth: int = DEPTH, spp: int = 1) -> dict:
+    """Per BVH frame (`trace_pixels`): the primary and depth - 1 extension
+    walks, depth shadow walks, a sample each; no other kernel."""
+    counts = {k: 0 for k in kernels.launches}
+    counts.update(bvh_closest=spp * depth, bvh_shadow=spp * depth)
+    return counts
+
+
+def bvh_frames(scene, camera, width, height, n, golden_key) -> torch.Tensor:
+    """n frames of `trace_pixels` (jitter 0, spp 1, depth 8): the golden
+    mean over all n, ms/frame and Mrays/s of frames 2..n, kept in
+    FRAME_MS. Returns frame 1's radiance."""
+    jitter = torch.zeros(2, device=camera.device)
+    means, rays = [], []
+
+    def frame(f):
+        col, r = trace_pixels(scene, camera, f, jitter, width, height, 1,
+                              DEPTH, with_stats=True)
+        means.append(col.mean())
+        rays.append(r)
+        return col
+
+    first = frame(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(2, n + 1):
+        frame(f)
+    timed = float(torch.stack(rays[1:]).sum())  # synchronises
+    seconds = time.perf_counter() - t0
+    mean = float(torch.stack(means).mean())
+    golden = GOLDENS[golden_key]
+    ok = abs(mean - golden) <= GOLDEN_TOL * golden
+    ms = 1e3 * seconds / (n - 1)
+    FRAME_MS[f"{golden_key} bvh"] = (ms, timed / seconds / 1e6)
+    print(f"{golden_key} BVH trace_pixels d{DEPTH}: {n} frames, {ms:.3f} "
+          f"ms/frame and {timed / seconds / 1e6:.2f} Mrays/s over frames "
+          f"2..{n} ({timed / (n - 1):.0f} rays/frame), mean {mean:.4f} vs "
+          f"golden {golden} (+-{GOLDEN_TOL:.0%}) {'ok' if ok else 'FAIL'}")
+    assert np.isfinite(first.cpu().numpy()).all()
+    assert ok, f"{golden_key} BVH: mean {mean} outside golden {golden}"
+    return first
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def shard_scene(dev, width, height):
+    world = NativeWorld("cornell")
+    world.update_camera(width, height)
+    camera = torch.from_numpy(np.asarray(world.camera(),
+                                         np.float32)).to(dev)
+    return build_device_scene(world, device=dev), camera
+
+
+SHARD_SPP = 2  # samples of the sample-sharded frames
+
+
+def shard_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One gloo rank on the card (`--shard-rank`): the tile step's band
+    (spp 1) and the sample step's frame (SHARD_SPP) of cornell 512^2 d8,
+    written to out_dir/rank<rank>.npz."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dev = torch.device(DEVICE)
+    width, height = SMALL
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    scene, camera = shard_scene(dev, width, height)
+    jitter = torch.zeros(2, device=dev)
+    mesh = sharding.make_mesh(DEVICE)
+    rows = height // world
+    band = sharding.tile_sharded_step(mesh, width, height, 1, DEPTH)(
+        scene, camera, 1, jitter, torch.zeros((width * rows, 4), device=dev))
+    full = sharding.sample_sharded_step(mesh, width, height, SHARD_SPP,
+                                        DEPTH)(
+        scene, camera, 1, jitter, torch.zeros((width * height, 4),
+                                              device=dev))
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), band=band.cpu(),
+             full=full.cpu())
+    dist.destroy_process_group()
+
+
+def sharding_on_one_card(dev) -> None:
+    """The sharded steps (backend "bvh", the default) on the card: a world
+    of one rank on NCCL runs the tile, sample and 2-D steps, each held to
+    the card's `trace_pixels` (the tile step bit for bit, the others at
+    2e-5); then two gloo ranks in subprocesses share the card (NCCL
+    refuses two ranks on one device), their bands put together bit-equal
+    to the frame and their sample-step frames at 2e-5."""
+    import torch.distributed as dist
+
+    width, height = SMALL
+    scene, camera = shard_scene(dev, width, height)
+    jitter = torch.zeros(2, device=dev)
+    ref = {spp: accumulate(torch.zeros((width * height, 4), device=dev),
+                           trace_pixels(scene, camera, 1, jitter, width,
+                                        height, spp, DEPTH), 1)
+           for spp in (1, SHARD_SPP)}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0,
+                            device_id=torch.device(DEVICE, 0))
+    mesh = sharding.make_mesh(DEVICE)
+    mesh2 = sharding.make_mesh(DEVICE, (1, 1), ("tile", "sample"))
+    acc = torch.zeros((width * height, 4), device=dev)
+    steps = {
+        "tile": (sharding.tile_sharded_step(mesh, width, height, 1, DEPTH),
+                 1),
+        "sample": (sharding.sample_sharded_step(mesh, width, height,
+                                                SHARD_SPP, DEPTH), SHARD_SPP),
+        "tile x sample": (sharding.tile_sample_sharded_step(
+            mesh2, width, height, SHARD_SPP, DEPTH), SHARD_SPP)}
+    for label, (step, spp) in steps.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(scene, camera, 1, jitter, acc.clone())
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if label == "tile":
+            assert bits_equal(out, ref[1]), "NCCL tile step != trace_pixels"
+        else:
+            assert torch.allclose(out, ref[spp], rtol=2e-5, atol=2e-5), \
+                f"NCCL {label} step differs from trace_pixels"
+        print(f"sharding, NCCL world of 1: {label} step {width}x{height} "
+              f"d{DEPTH} spp {spp}: {ms:.1f} ms, equal to trace_pixels "
+              f"({'bit for bit' if label == 'tile' else 'at 2e-5'})")
+    dist.destroy_process_group()
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--shard-rank",
+             str(r), "2", str(port), out_dir], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for p, log in zip(procs, logs):
+            assert p.returncode == 0, f"gloo rank failed:\n{log[-3000:]}"
+        seconds = time.perf_counter() - t0
+        ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz"))
+                 for r in range(2)]
+        band = torch.from_numpy(np.concatenate([r["band"] for r in ranks]))
+        assert bits_equal(band, ref[1].cpu()), "gloo tile bands != frame"
+        for r in ranks:
+            assert np.allclose(r["full"], ref[SHARD_SPP].cpu().numpy(),
+                               rtol=2e-5, atol=2e-5), "gloo sample step"
+        assert np.array_equal(ranks[0]["full"], ranks[1]["full"])
+    print(f"sharding, two gloo ranks on the card: tile bands bit-equal to "
+          f"trace_pixels, sample step at 2e-5 and the same on both ranks "
+          f"({seconds:.1f} s with both processes' start-up)")
+
+
 def frames(tables, camera, width, height, n, golden_key, textures=None,
            seeded=False, narrow="jobs"):
     """n frames of trace_pixels_dense (jitter 0, spp 1, depth 8), traced or
@@ -966,6 +1270,7 @@ def frames(tables, camera, width, height, n, golden_key, textures=None,
     mrays = timed / seconds / 1e6
     tag = (" seeded" if seeded else "") + (
         f" narrow={narrow}" if narrow != "jobs" else "")
+    FRAME_MS[golden_key + tag] = (ms, mrays)
     print(f"{golden_key}{tag} d{DEPTH}: {n} frames, "
           f"{ms:.3f} ms/frame and {mrays:.2f} Mrays/s over frames 2..{n} "
           f"({timed / (n - 1):.0f} rays/frame), mean {mean:.4f} vs golden "
@@ -1005,7 +1310,8 @@ def sweeps(n: int, multi_tile: bool, narrow: str = "jobs") -> dict:
     jobs = n if multi_tile and narrow == "jobs" else 0
     scan = n if multi_tile and narrow == "scan" else 0
     return {"dense_sweep": 0 if multi_tile else n, "cluster_cull": jobs,
-            "job_sweep": jobs, "cluster_cull_keyed": scan, "scan_sweep": scan}
+            "job_sweep": jobs, "cluster_cull_keyed": scan, "scan_sweep": scan,
+            "bvh_closest": 0, "bvh_shadow": 0}
 
 
 def rows_launches(seeded: bool, multi_tile: bool = False,
@@ -1332,6 +1638,9 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if argv[:1] == ["--shard-rank"]:  # a rank of sharding_on_one_card
+        shard_rank(int(argv[1]), int(argv[2]), int(argv[3]), argv[4])
+        return 0
     dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1393,6 +1702,12 @@ def main(argv: list[str]) -> int:
     print(f"spheres: {sp_tables.valid_count} world tris (padded "
           f"{sp_tables.shade_table.shape[0]}, {sp_tables.spheres.shape[0]} "
           f"tiles), {sp_tables.light_count} lights")
+    bvh_cornell = build_device_scene(world, device=dev)
+    bvh_sp = build_device_scene(sp_world, device=dev)
+    print(f"BVH scenes: cornell {bvh_cornell.node_min.shape[0]} nodes "
+          f"(TLAS {bvh_cornell.tlas_count}), spheres "
+          f"{bvh_sp.node_min.shape[0]} nodes (TLAS {bvh_sp.tlas_count}), "
+          f"{bvh_sp.tri_v.shape[0]} tris padded")
 
     # --- phase 2: each kernel against its plain version ---
     results = [check_sweep(tables, camera, width, height),
@@ -1425,6 +1740,8 @@ def main(argv: list[str]) -> int:
 
     results += check_jobs(sp_tables, sp_cam, width, height)
     results += check_scan(sp_tables, sp_cam, width, height)
+    results += check_bvh([("cornell 512^2", bvh_cornell, camera, tables),
+                          ("spheres 512^2", bvh_sp, sp_cam, sp_tables)])
 
     # --- phase 3: every path, counting launches ---
     totals = {k: 0 for k in kernels.launches}
@@ -1482,7 +1799,7 @@ def main(argv: list[str]) -> int:
     assert scan_launches == {
         "dense_sweep": 0, "cluster_cull": 0, "job_sweep": 0,
         "cluster_cull_keyed": 9, "scan_sweep": 9, "shade_rows": 8,
-        "fetch_rows": 0, "fetch_quad": 0}
+        "fetch_rows": 0, "fetch_quad": 0, "bvh_closest": 0, "bvh_shadow": 0}
     scan_sp = []
     drive("spheres 512^2 traced narrow=scan", 4, scan_launches,
           lambda: scan_sp.append(frames(sp_tables, sp_cam, width, height, 4,
@@ -1499,6 +1816,38 @@ def main(argv: list[str]) -> int:
           lambda: renderer_frames(rsc, 4, f"spheres {width}x{height} "
                                   f"d{DEPTH} narrow=scan", scan_launches),
           totals)
+
+    # The BVH path (`trace_pixels`), and both tracers through get_tracer.
+    drive("cornell 512^2 BVH", 32, bvh_launches(),
+          lambda: bvh_frames(bvh_cornell, camera, width, height, 32,
+                             "cornell_512"), totals)
+    drive("spheres 512^2 BVH", 4, bvh_launches(),
+          lambda: bvh_frames(bvh_sp, sp_cam, width, height, 4,
+                             "spheres_512"), totals)
+    for key in ("cornell_512", "spheres_512"):
+        (b_ms, b_mr), (d_ms, d_mr) = FRAME_MS[f"{key} bvh"], FRAME_MS[key]
+        print(f"{key} d{DEPTH}, this run: BVH {b_ms:.3f} ms/frame, "
+              f"{b_mr:.2f} Mrays/s; dense (narrow=jobs) {d_ms:.3f} "
+              f"ms/frame, {d_mr:.2f} Mrays/s")
+
+    def both_tracers():
+        jit0 = torch.zeros(2, device=dev)
+        cols = {b: get_tracer(b)(scene, camera, 1, jit0, width, height, 1,
+                                 DEPTH)
+                for b, scene in (("bvh", bvh_cornell),
+                                 ("dense", (tables, None)))}
+        close = torch.isclose(cols["bvh"], cols["dense"], rtol=1e-3,
+                              atol=1e-3).all(1).float().mean()
+        print(f"get_tracer cornell 512^2 d{DEPTH}: bvh mean "
+              f"{float(cols['bvh'].mean()):.4f}, dense mean "
+              f"{float(cols['dense'].mean()):.4f}, {float(close):.4f} of "
+              f"the lanes within 1e-3")
+        assert close > 0.98, "the two tracers disagree"
+
+    drive("get_tracer bvh + dense, cornell 512^2", 1,
+          {**rows_launches(False), "bvh_closest": DEPTH,
+           "bvh_shadow": DEPTH}, both_tracers, totals)
+    sharding_on_one_card(dev)
 
     # --- phase 4: the product surface ---
     animated_tick(dev, totals)
@@ -1526,6 +1875,10 @@ def main(argv: list[str]) -> int:
                 tables, cam_hd, 1, jit0, *hd, 1, DEPTH)),
             ("cornell 512^2 d8 traced", lambda: trace_pixels_dense(
                 tables, camera, 1, jit0, width, height, 1, DEPTH)),
+            ("cornell 512^2 d8 BVH", lambda: trace_pixels(
+                bvh_cornell, camera, 1, jit0, width, height, 1, DEPTH)),
+            ("spheres 512^2 d8 BVH", lambda: trace_pixels(
+                bvh_sp, sp_cam, 1, jit0, width, height, 1, DEPTH)),
         ])
 
     for res in results:

@@ -15,7 +15,7 @@
   renders) gives the frames of sequential `update_scene(t)` ticks bit for
   bit, on the skinned strip.
 - the CLI: `info` prints the JAX CLI's counts; `render --scene spheres
-  --device cpu` raises NotImplementedError, as `Renderer` does; `render`
+  --device cpu` renders through the BVH path, as `Renderer` does; `render`
   writes PNG or JPEG by extension and refuses other extensions.
 - checkpoint (twins of tests/test_checkpoint.py), and a checkpoint written
   by either package loads in the other with `accum`, `history`, the jitter
@@ -282,10 +282,14 @@ def test_cli_info_matches_jax(tmp_path, scene, glb):
 
 
 def test_cli_spheres_on_cpu_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="16384"):
-        cli.main(["render", "--scene", "spheres", "--width", "8",
-                  "--height", "8", "--frames", "1", "--device", "cpu",
-                  "--output", str(tmp_path / "s.png")])
+    """`render --scene spheres --device cpu` renders through the BVH path
+    (the name is from before that path was ported) and writes a PNG that
+    decodes to 8x8."""
+    out = tmp_path / "s.png"
+    cli.main(["render", "--scene", "spheres", "--width", "8", "--height",
+              "8", "--depth", "2", "--frames", "1", "--device", "cpu",
+              "--output", str(out)])
+    assert _decode(out.read_bytes()).shape == (8, 8, 3)
 
 
 def test_cli_output_formats(tmp_path):

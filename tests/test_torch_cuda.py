@@ -253,7 +253,8 @@ def test_max_depth_zero_on_card(cuda):
         counts = dict(kernels.launches)
     assert counts == {"dense_sweep": 2, "shade_rows": 0, "fetch_rows": 1,
                       "fetch_quad": 0, "cluster_cull": 0, "job_sweep": 0,
-                      "cluster_cull_keyed": 0, "scan_sweep": 0}
+                      "cluster_cull_keyed": 0, "scan_sweep": 0,
+                      "bvh_closest": 0, "bvh_shadow": 0}
     assert frames[1].mean() > 0.01
     close = torch.isclose(frames[1], frames[0], rtol=1e-3, atol=1e-5).all(1)
     assert close.float().mean() >= 0.95
@@ -318,7 +319,8 @@ def test_renderer_on_card_counts_launches(cuda):
     assert r.launches == {"dense_sweep": 2 * 6, "shade_rows": 2 * 5,
                           "fetch_rows": 0, "fetch_quad": 0,
                           "cluster_cull": 0, "job_sweep": 0,
-                          "cluster_cull_keyed": 0, "scan_sweep": 0}
+                          "cluster_cull_keyed": 0, "scan_sweep": 0,
+                          "bvh_closest": 0, "bvh_shadow": 0}
 
 
 @pytest.mark.parametrize("n,k", [(1, 40), (40, 40), (1408, 40), (300, 3)])
@@ -386,7 +388,8 @@ def test_textured_renderer_on_card_counts_launches(cuda):
     assert r.launches == {"dense_sweep": 2 * 6, "shade_rows": 0,
                           "fetch_rows": 2 * 6, "fetch_quad": 2 * 6,
                           "cluster_cull": 0, "job_sweep": 0,
-                          "cluster_cull_keyed": 0, "scan_sweep": 0}
+                          "cluster_cull_keyed": 0, "scan_sweep": 0,
+                          "bvh_closest": 0, "bvh_shadow": 0}
 
 
 # --- the job-stream path (multi-tile scenes) ---------------------------------
@@ -477,7 +480,8 @@ def test_renderer_spheres_on_card_counts_launches(cuda):
     assert r.launches == {"dense_sweep": 0, "cluster_cull": 2 * 4,
                           "job_sweep": 2 * 4, "shade_rows": 2 * 3,
                           "fetch_rows": 0, "fetch_quad": 0,
-                          "cluster_cull_keyed": 0, "scan_sweep": 0}
+                          "cluster_cull_keyed": 0, "scan_sweep": 0,
+                          "bvh_closest": 0, "bvh_shadow": 0}
 
 
 # --- the scan path (narrow="scan") -------------------------------------------
@@ -658,7 +662,8 @@ def test_renderer_spheres_scan_on_card_counts_launches(cuda):
     assert r.launches == {"dense_sweep": 0, "cluster_cull": 0,
                           "job_sweep": 0, "cluster_cull_keyed": 2 * 4,
                           "scan_sweep": 2 * 4, "shade_rows": 2 * 3,
-                          "fetch_rows": 0, "fetch_quad": 0}
+                          "fetch_rows": 0, "fetch_quad": 0,
+                          "bvh_closest": 0, "bvh_shadow": 0}
 
 
 # --- the cooperative walk behind the queue of touching lanes -----------------
@@ -915,3 +920,111 @@ def test_profiling_on_card(cuda, tmp_path):
     with open(tmp_path / "trace" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("dense_sweep" in str(e.get("name", "")) for e in events)
+
+
+# --- the BVH walk (csrc/bvh_walk.cu) -----------------------------------------
+
+
+def _bvh_rays(name, dev, n_random=2048):
+    """(DeviceScene on dev, ro (R, 3), rd (R, 3)): the RES^2 pinhole
+    primaries, then random rays from the scene box's middle (every 7th
+    with a zero direction component, which safe_inv nudges)."""
+    from webgpu_raytracer_tpu_torch.render.resources import \
+        build_device_scene
+
+    world = NativeWorld(name)
+    world.update_camera(RES, RES)
+    scene = build_device_scene(world, device=dev)
+    _, ro, rd = _scene(name, dev)
+    rs = np.random.default_rng(len(name))
+    ro_r = rs.uniform(-1.5, 1.5, (n_random, 3)).astype(np.float32)
+    rd_r = rs.normal(size=(n_random, 3)).astype(np.float32)
+    rd_r[::7, 1] = 0.0
+    ro = torch.cat([torch.stack(list(ro), 1),
+                    torch.from_numpy(ro_r).to(dev)]).contiguous()
+    rd = torch.cat([torch.stack(list(rd), 1),
+                    torch.from_numpy(rd_r).to(dev)]).contiguous()
+    return scene, ro, rd
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "mesh", "mixed"])
+def test_bvh_walk_matches_plain(cuda, scene_name):
+    """Closest and any-hit, bit for bit with the plain walk on the same
+    CUDA tensors (t, tri, inst, occluded, nodes and triangles counted), the
+    same from a second launch; every 5th lane inactive, shadow t_max per
+    lane."""
+    from webgpu_raytracer_tpu_torch.ops import intersect
+
+    scene, ro, rd = _bvh_rays(scene_name, cuda)
+    R = ro.shape[0]
+    active = torch.arange(R, device=cuda) % 5 != 0
+    before = dict(kernels.launches)
+    runs = [intersect.intersect_closest(scene, ro, rd, active=active,
+                                        with_stats=True) for _ in range(2)]
+    plain, pst = intersect.traverse_plain(scene, ro, rd, intersect.T_MIN,
+                                          intersect.T_MAX, active, False)
+    for hit, st in runs:
+        for a, b in zip((*hit, *st), (*plain, *pst)):
+            assert torch.equal(a, b)
+    hit = runs[0][0]
+    assert (hit.inst_idx >= 0).float().mean() > 0.3
+    t_max = torch.where(torch.arange(R, device=cuda) % 2 == 0,
+                        hit.t * 0.5, hit.t * 1.01)
+    t_max = torch.where(hit.inst_idx >= 0, t_max, 5.0).contiguous()
+    occ = [intersect.intersect_shadow(scene, ro, rd, t_max, active=active,
+                                      with_stats=True) for _ in range(2)]
+    occ_p, ost = intersect.traverse_plain(scene, ro, rd, intersect.T_MIN,
+                                          t_max, active, True)
+    for o, st in occ:
+        assert torch.equal(o, occ_p)
+        assert torch.equal(st.nodes, ost.nodes)
+        assert torch.equal(st.tris, ost.tris)
+    assert 0 < int(occ_p.sum()) < R
+    assert kernels.launches["bvh_closest"] == before["bvh_closest"] + 2
+    assert kernels.launches["bvh_shadow"] == before["bvh_shadow"] + 2
+
+
+def test_bvh_walk_edges(cuda):
+    """One ray; all lanes inactive; a wrong device or dtype raises."""
+    from webgpu_raytracer_tpu_torch.ops import intersect
+
+    scene, ro, rd = _bvh_rays("cornell", cuda, n_random=0)
+    one = intersect.intersect_closest(scene, ro[:1].contiguous(),
+                                      rd[:1].contiguous())
+    plain, _ = intersect.traverse_plain(
+        scene, ro[:1], rd[:1], intersect.T_MIN, intersect.T_MAX,
+        torch.ones(1, dtype=torch.bool, device=cuda), False)
+    assert all(torch.equal(a, b) for a, b in zip(one, plain))
+    none = torch.zeros(ro.shape[0], dtype=torch.bool, device=cuda)
+    hit, st = intersect.intersect_closest(scene, ro, rd, active=none,
+                                          with_stats=True)
+    assert (hit.inst_idx == -1).all() and (st.nodes == 0).all()
+    assert not intersect.intersect_shadow(scene, ro, rd, 1e30,
+                                          active=none).any()
+    with pytest.raises(TypeError):
+        intersect.walk_cuda(scene, ro.double(), rd, intersect.T_MIN,
+                            intersect.T_MAX, None, False)
+
+
+def test_bvh_trace_on_card_counts_launches(cuda):
+    """trace_pixels at depth 3, spp 2: 2 x 3 closest walks (the primary,
+    two extensions) and 2 x 3 shadow walks a frame; the frame close to the
+    plain walk's on the CPU (>= 95% of lanes at rel < 1e-3)."""
+    from webgpu_raytracer_tpu_torch.ops.trace import trace_pixels
+    from webgpu_raytracer_tpu_torch.render.resources import \
+        build_device_scene
+
+    world = NativeWorld("cornell")
+    world.update_camera(32, 32)
+    frames = []
+    for dev in ("cpu", "cuda"):
+        scene = build_device_scene(world, device=dev)
+        cam = torch.from_numpy(np.asarray(world.camera(), np.float32)).to(dev)
+        kernels.reset_launches()
+        frames.append(trace_pixels(scene, cam, 1, torch.zeros(2, device=dev),
+                                   32, 32, 2, 3).cpu())
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    assert counts == {"bvh_closest": 6, "bvh_shadow": 6}
+    assert frames[1].mean() > 0.05
+    close = torch.isclose(frames[1], frames[0], rtol=1e-3, atol=1e-5).all(1)
+    assert close.float().mean() >= 0.95

@@ -29,7 +29,7 @@
   without a card; a textured scene renders and presents, and
   `render_frame(use_gbuffer=True)` gives the traced frame while counting
   the G-buffer's W*H rays in place of the primaries; on the CPU a scene
-  over 16384 world tris raises NotImplementedError.
+  over 16384 world tris renders through the BVH path.
 - the package imports no JAX and loads no file of the JAX package: a fresh
   process renders a CPU frame, and its scene compiler is the port's own
   build.
@@ -414,12 +414,22 @@ def test_renderer_textured_frames_and_gbuffer_seeding():
 
 
 def test_renderer_large_scene_not_ported():
-    """On the CPU, over the dense limit (spheres: ~257k world tris) the JAX
-    package takes its BVH path, which the port does not have yet. (On
-    CUDA the port's dense path takes spheres: tests/test_torch_cuda.py.)"""
-    with pytest.raises(NotImplementedError, match="16384"):
-        Renderer("spheres",
-                 config=RenderConfig(width=8, height=8), device="cpu")
+    """On the CPU, over the dense limit (spheres: ~257k world tris) the
+    port takes the BVH path, as the JAX package does (the name is from
+    before that path was ported): 8x8 d2 frames are finite and not black.
+    (On CUDA the port's dense path takes spheres:
+    tests/test_torch_cuda.py.)"""
+    r = Renderer("spheres", config=RenderConfig(width=8, height=8,
+                                                max_depth=2), device="cpu")
+    assert r.backend == "bvh" and r.tables is None
+    for _ in range(2):
+        r.render_frame()
+        img = r.present()
+    assert img.shape == (8, 8, 3) and img.max() > 0
+    rad = r.radiance()
+    assert np.isfinite(rad).all() and rad.max() > 0
+    assert float(r.last_rays) >= 64
+    assert r.launches == {k: 0 for k in kernels.launches}  # plain on CPU
 
 
 def test_package_imports_no_jax():
@@ -434,7 +444,9 @@ def test_package_imports_no_jax():
         import webgpu_raytracer_tpu_torch.kernels
         from webgpu_raytracer_tpu_torch import cli
         from webgpu_raytracer_tpu_torch.models import native
-        from webgpu_raytracer_tpu_torch.parallel import cluster
+        from webgpu_raytracer_tpu_torch.ops import api, bsdf, intersect, trace
+        from webgpu_raytracer_tpu_torch.parallel import cluster, sharding
+        from webgpu_raytracer_tpu_torch.render import resources
         from webgpu_raytracer_tpu_torch.render import (checkpoint, preview,
                                                        recorder)
         from webgpu_raytracer_tpu_torch.utils import profiling

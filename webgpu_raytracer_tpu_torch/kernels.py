@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # and nowhere else, so a run can show that its path went through it.
 launches = {"dense_sweep": 0, "shade_rows": 0, "fetch_rows": 0,
             "fetch_quad": 0, "cluster_cull": 0, "job_sweep": 0,
-            "cluster_cull_keyed": 0, "scan_sweep": 0}
+            "cluster_cull_keyed": 0, "scan_sweep": 0, "bvh_closest": 0,
+            "bvh_shadow": 0}
 
 
 def reset_launches() -> None:
@@ -134,6 +135,10 @@ def library() -> ctypes.CDLL:
     lib.wrt_scan_sweep.argtypes = [_P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P,
                                    _P, _P, _I, _F, _F, _F, _I, _I, _P, _P, _P,
                                    _P, _P, _P]
+    lib.wrt_bvh_walk.restype = _I
+    lib.wrt_bvh_walk.argtypes = [_P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P,
+                                 _I, _P, _P, _P, _F, _F, _P, _I, _I, _P, _P,
+                                 _P, _P, _P, _P, _P]
     return lib
 
 

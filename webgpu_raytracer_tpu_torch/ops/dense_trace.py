@@ -34,8 +34,7 @@ package. Differences of mechanism, not of result:
   the tables) and samples the rest unconditionally: the same result, and
   launch counts fixed per frame;
 - the exact ray count is reduced on the device, with no per-bounce sync;
-- the band and tail-compaction knobs of the TPU path are not ported, nor
-  the row and sample offsets that the JAX package's sharded renders pass.
+- the band and tail-compaction knobs of the TPU path are not ported.
 """
 
 from __future__ import annotations
@@ -628,7 +627,9 @@ def trace_pixels_dense(tables: WorldTables, camera24: torch.Tensor,
                        height: int, spp: int, max_depth: int,
                        with_stats: bool = False, textures=None,
                        seed_wt_idx: Optional[torch.Tensor] = None,
-                       narrow: str = "jobs"):
+                       narrow: str = "jobs", row0: int = 0,
+                       full_height: Optional[int] = None,
+                       total_spp: Optional[int] = None, sample0: int = 0):
     """One progressive frame over the whole image: thin-lens primaries
     (the JAX package's `_trace_lanes`), traced by `ray_color_dense_rows`
     when `textures` is None (the 1x1 white placeholder) and by
@@ -644,16 +645,29 @@ def trace_pixels_dense(tables: WorldTables, camera24: torch.Tensor,
     ("jobs" | "scan") picks the narrow phase of a multi-tile scene's
     sweeps (`ops/cuda_dense.py`); both give the same frame bit for bit.
 
+    The sharding offsets are the JAX package's: row0 / full_height render
+    rows [row0, row0 + height) of a full_height-tall frame with the
+    frame's pixel indices and jitter; sample0 / total_spp render samples
+    [sample0, sample0 + spp) of a total_spp-sample frame with the frame's
+    RNG streams. At their defaults the frame is the whole image.
+
     Returns (H*W, 3) radiance averaged over spp; with with_stats=True,
     (radiance, rays) with rays the exact float64 device count (seeded
     frames exclude the G-buffer's own primary cast: count it where the
     G-buffer is rendered)."""
+    if full_height is None:
+        full_height = height
+    if total_spp is None:
+        total_spp = spp
     cam = camera24
     lens_radius = cam[3]
-    p_idx = torch.arange(width * height, dtype=torch.int64,
-                         device=tables.device)
-    px = (p_idx % width).to(torch.float32)
-    py = (p_idx // width).to(torch.float32)
+    lane = torch.arange(width * height, dtype=torch.int64,
+                        device=tables.device)
+    gx = lane % width
+    gy = lane // width + row0
+    px = gx.to(torch.float32)
+    py = gy.to(torch.float32)
+    p_idx = gy * width + gx
     rows_path = textures is None and max_depth > 0
     if rows_path and seed_wt_idx is not None:
         seed_rows = seed_rows_from_wt_idx(tables, seed_wt_idx)
@@ -661,7 +675,7 @@ def trace_pixels_dense(tables: WorldTables, camera24: torch.Tensor,
     cx = cy = cz = 0.0
     rays = 0.0
     for i in range(spp):
-        rng = init_rng(p_idx, frame_count * spp + i)
+        rng = init_rng(p_idx, frame_count * total_spp + sample0 + i)
         rng, (dr1, dr2) = rand_n(rng, 2)
         dx, dy = bsdf.random_in_unit_disk(dr1, dr2)
         rdx = lens_radius * dx
@@ -671,7 +685,7 @@ def trace_pixels_dense(tables: WorldTables, camera24: torch.Tensor,
                  cam[18] * rdx + cam[22] * rdy)
 
         u = (px + 0.5 + jitter[0] * width) / width
-        v = 1.0 - (py + 0.5 + jitter[1] * height) / height
+        v = 1.0 - (py + 0.5 + jitter[1] * full_height) / full_height
         d = V3(cam[4] + u * cam[8] + v * cam[12] - cam[0],
                cam[5] + u * cam[9] + v * cam[13] - cam[1],
                cam[6] + u * cam[10] + v * cam[14] - cam[2]) - off

@@ -1,15 +1,20 @@
-"""Renderer facade: scene tables, accumulation state, history swap.
+"""Renderer facade: scene resources, accumulation state, history swap.
 
-The port of the JAX package's `render/renderer.py` for the dense path:
-`render_frame()` traces one progressive frame into the accumulator through
-the CUDA kernels (their plain versions on the CPU), and `present()` runs
-the post-process chain. A scene's textures are decoded, packed into the
-(level 0, mip) quad-table pyramid and uploaded once, at construction.
-Untextured scenes take the row-state loop (the shade kernel); textured
-ones `ray_color_dense`. `render_frame(use_gbuffer=True)` renders the
-G-buffer first and seeds bounce 0 from it. `narrow` ("jobs", the default,
-or "scan") picks the narrow phase of a multi-tile scene's sweeps, as the
-JAX package's `tune.narrow` does; the image is the same bit for bit.
+The port of the JAX package's `render/renderer.py`: `render_frame()`
+traces one progressive frame into the accumulator through the CUDA kernels
+(their plain versions on the CPU), and `present()` runs the post-process
+chain. `choose_backend` (`ops/api.py`) picks the tracer, as in the JAX
+package: "dense" on CUDA, and on the CPU up to 16,384 world triangles;
+"bvh" above that on the CPU (`ops/trace.trace_pixels` over a
+`DeviceScene`). A scene's textures are decoded, packed into the (level 0,
+mip) quad-table pyramid and uploaded once, at construction; the BVH path
+samples level 0 at every bounce. On the dense path untextured scenes take
+the row-state loop (the shade kernel), textured ones `ray_color_dense`;
+`render_frame(use_gbuffer=True)` renders the G-buffer first and seeds
+bounce 0 from it (dense only, as in the JAX package). `narrow` ("jobs",
+the default, or "scan") picks the narrow phase of a multi-tile scene's
+sweeps, as the JAX package's `tune.narrow` does; the image is the same bit
+for bit.
 PyTorch runs eagerly, so there is no compiled step:
 `build_pipeline(depth, spp)` only changes the parameters and resets the
 accumulation.
@@ -32,31 +37,35 @@ import torch
 from .. import kernels
 from ..config import RenderConfig
 from ..models.bridge import WorldBridge
+from ..ops.api import choose_backend
 from ..ops.cuda_dense import NARROW
 from ..ops.dense_trace import trace_pixels_dense
 from ..ops.fetch import device_pyramid
 from ..ops.gbuffer import render_gbuffer
 from ..ops.postprocess import postprocess
-from ..ops.trace import accumulate
+from ..ops.trace import accumulate, trace_pixels
 from ..utils.halton import JitterAccumulator
 from ..utils.textures import build_quad_pyramid, decode_world_textures
+from .resources import build_device_scene, unpack_instances
 from .worldtris import build_world_tables
 
-# The JAX package's dense-path limit off its accelerator (ops/api.py): on
-# the CPU it takes the BVH path above it, which the port does not have. On
-# CUDA the dense path (the job-stream sweep) takes any triangle count, as
-# the JAX package's does on its accelerator.
-DENSE_MAX_TRIS = 16384
+
+def world_tri_count(world) -> int:
+    """Triangles of the flattened world: each instance counts its
+    geometry's triangles (one bincount, one gather an instance)."""
+    topo = np.asarray(world.topology()).reshape(-1, 20)
+    geoms = unpack_instances(np.asarray(world.instances(), np.float32))[3]
+    per_geom = np.bincount(topo[:, 3].astype(np.int64),
+                           minlength=int(geoms.max(initial=-1)) + 1)
+    return int(per_geom[geoms].sum())
 
 
 class Renderer:
     """End-to-end progressive path tracer over a native World, on one
     device ("cuda" by default; raises when CUDA is absent). The positional
-    arguments are the JAX package's: scene, OBJ text, GLB bytes, config."""
-
-    # The port has one tracing backend; the attribute lets code written
-    # against the JAX package (which picks "dense" or "bvh") read the same.
-    backend = "dense"
+    arguments are the JAX package's: scene, OBJ text, GLB bytes, config.
+    `backend` is "dense" or "bvh" (`ops/api.choose_backend`); the dense
+    path keeps its `tables`, the BVH path its `scene`."""
 
     def __init__(self, scene_name: str = "cornell",
                  obj_source: Optional[str] = None,
@@ -92,13 +101,10 @@ class Renderer:
         decoded = decode_world_textures(self.world)
         self.textures = (None if decoded is None else device_pyramid(
             build_quad_pyramid(decoded), self.device))
+        self.backend = choose_backend(world_tri_count(self.world),
+                                      self.device)
+        self.tables = self.scene = None
         self.reupload_scene(reset=False)
-        if (self.device.type == "cpu"
-                and self.tables.valid_count > DENSE_MAX_TRIS):
-            raise NotImplementedError(
-                f"{self.tables.valid_count} world triangles: on the CPU, "
-                f"scenes over {DENSE_MAX_TRIS} need the BVH path, which is "
-                "not ported yet")
 
         self.frame_count = 0
         self.last_rays = None
@@ -161,12 +167,18 @@ class Renderer:
         return self.world.load_animation_glb(data)
 
     def reupload_scene(self, reset: bool = True):
-        """Rebuild and upload the tables from the (already updated) world:
-        the upload half of `update_scene`. With the bridge, call it after
-        `bridge.wait()` and before the next `update_async`, which rewrites
-        the world's buffers."""
+        """Rebuild and upload the backend's scene from the (already
+        updated) world: the world tables for "dense", the DeviceScene for
+        "bvh". The upload half of `update_scene`. With the bridge, call it
+        after `bridge.wait()` and before the next `update_async`, which
+        rewrites the world's buffers."""
         self.world.update_camera(self.width, self.height)
-        self.tables = build_world_tables(self.world, self.device)
+        if self.backend == "dense":
+            self.tables = build_world_tables(self.world, self.device)
+        else:
+            self.scene = build_device_scene(
+                self.world, textures=None if self.textures is None
+                else self.textures[0], device=self.device)
         self.camera = torch.from_numpy(
             np.asarray(self.world.camera(), np.float32)).to(self.device)
         if reset:
@@ -177,9 +189,10 @@ class Renderer:
     def render_frame(self, use_gbuffer: bool = False):
         """Trace one progressive frame into the accumulator.
 
-        use_gbuffer=True renders the primary-visibility G-buffer first and
-        seeds every sample's bounce 0 from its id channel instead of
-        tracing primaries; at lens radius 0 the radiance is bit-identical.
+        use_gbuffer=True (dense backend; ignored on "bvh", as in the JAX
+        package) renders the primary-visibility G-buffer first and seeds
+        every sample's bounce 0 from its id channel instead of tracing
+        primaries; at lens radius 0 the radiance is bit-identical.
 
         Sets self.last_rays (float64 device scalar, unread until needed) to
         the exact ray count of this frame, the G-buffer's own W*H primary
@@ -191,16 +204,23 @@ class Renderer:
         jitter = torch.from_numpy(jitter).to(self.device)
         before = dict(kernels.launches)
         seed, gb_rays = None, 0.0
-        if use_gbuffer:
-            gb = render_gbuffer(self.tables, self.textures, self.camera,
-                                self.width, self.height, jitter=jitter,
-                                narrow=self.narrow)
-            seed = gb.wt_idx.reshape(-1)
-            gb_rays = float(self.width * self.height)
-        col, rays = trace_pixels_dense(
-            self.tables, self.camera, self.frame_count, jitter, self.width,
-            self.height, self.spp, self.max_depth, with_stats=True,
-            textures=self.textures, seed_wt_idx=seed, narrow=self.narrow)
+        if self.backend == "bvh":
+            col, rays = trace_pixels(
+                self.scene, self.camera, self.frame_count, jitter,
+                self.width, self.height, self.spp, self.max_depth,
+                with_stats=True)
+        else:
+            if use_gbuffer:
+                gb = render_gbuffer(self.tables, self.textures, self.camera,
+                                    self.width, self.height, jitter=jitter,
+                                    narrow=self.narrow)
+                seed = gb.wt_idx.reshape(-1)
+                gb_rays = float(self.width * self.height)
+            col, rays = trace_pixels_dense(
+                self.tables, self.camera, self.frame_count, jitter,
+                self.width, self.height, self.spp, self.max_depth,
+                with_stats=True, textures=self.textures, seed_wt_idx=seed,
+                narrow=self.narrow)
         self.last_rays = rays + gb_rays
         self.accum = accumulate(self.accum, col, self.frame_count)
         for k, v in kernels.launches.items():
