@@ -35,7 +35,10 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
    plain count. The BVH walk (`csrc/bvh_walk.cu`), closest and any-hit,
    bit-equal to its plain walk on the same tensors (t, tri, inst, the
    occluded flag, the nodes and triangles each lane visited), twice, on
-   cornell's and `spheres`' 512^2 primaries and bounce-1 rays.
+   cornell's and `spheres`' 512^2 primaries and bounce-1 rays, and on the
+   primaries with every 3rd lane given NaN or inf in o, d or t_max (the
+   kernel's exact slab test beside its fast one), over the scene's
+   `WalkPack`, built once for these checks.
    Kernel times are many launches between one pair of CUDA events;
 2. drives every path of the port with the launch counts set to 0 just
    before it and read just after, and asserts each kernel's exact count:
@@ -183,7 +186,11 @@ JOB_PLAIN_GROUPS = 256  # lane groups the plain job sweep is held on
 JOB_STATS_GROUPS = 32  # lane groups the job kernel's stats are held on
 SCAN_PLAIN_TILES = 4  # ray tiles per segment the plain scan path is held on
 BVH_NODE_OPS = 25  # f32 operations of one node's slab test (bvh_walk.cu)
-BVH_TRI_OPS = 61   # f32 operations of one Moller-Trumbore test
+# f32 operations of one Moller-Trumbore test on the packed (p0, e1, e2):
+# bvh_walk.cu's tri_hit. The walk's first version also formed e1 and e2 (6
+# more, BVH_TRI_OPS_UNPACKED); its bound is printed beside this one.
+BVH_TRI_OPS = 55
+BVH_TRI_OPS_UNPACKED = 61
 ANIM_FRAMES = 24  # bench.py's anim_pass window (config 4)
 SOAK_FRAMES = 16  # the checkpoint resume: 8, save, load, 8 against 16
 FRAME_MS = {}  # path -> (ms/frame, Mrays/s) of frames 2..n in this run
@@ -868,10 +875,11 @@ def needed_pairs(tables, rays_s, t_end) -> int:
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     """The largest |a - b| over the entries that differ; 0.0 when a == b
-    everywhere (equal infinities and the 3e38 of a dropped cluster
-    included)."""
+    everywhere (equal infinities, NaN against NaN and the 3e38 of a dropped
+    cluster included)."""
     a, b = a.double(), b.double()
-    return float(torch.where(a == b, 0.0, (a - b).abs()).max())
+    same = (a == b) | (a.isnan() & b.isnan())
+    return float(torch.where(same, 0.0, (a - b).abs()).max())
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -962,13 +970,34 @@ def bvh_rays(camera, width, height, tables):
     return prim, part(0), part(R)
 
 
-def walk_bit_equal(scene, ro, rd, t_max, active, any_hit, label) -> tuple:
-    """The kernel twice and the plain walk once on the same CUDA tensors:
-    results and counts bit for bit. Returns (kernel out, stats, measured
-    error): the largest |t - t_plain| of the closest walk, or of the
-    occluded flags as 0 / 1 in any-hit mode, over both launches."""
+def poison_lanes(ro, rd, t_max, seed: int):
+    """Copies of a stack with every 3rd lane given NaN, +inf or -inf in one
+    component of o or of d, or in t_max (a float t_max becomes per lane)."""
+    R, dev = ro.shape[0], ro.device
+    rs = np.random.default_rng(seed)
+    ro, rd = ro.cpu().numpy().copy(), rd.cpu().numpy().copy()
+    tm = (t_max.cpu().numpy().copy() if isinstance(t_max, torch.Tensor)
+          else np.full(R, t_max, np.float32))
+    bad = np.arange(0, R, 3)
+    what = rs.integers(0, 7, bad.size)  # 0-2 o, 3-5 d, 6 t_max
+    val = np.array([np.nan, np.inf, -np.inf], np.float32)[
+        rs.integers(0, 3, bad.size)]
+    for k in range(3):
+        ro[bad[what == k], k] = val[what == k]
+        rd[bad[what == k + 3], k] = val[what == k + 3]
+    tm[bad[what == 6]] = val[what == 6]
+    return tuple(torch.from_numpy(x).to(dev) for x in (ro, rd, tm))
+
+
+def walk_bit_equal(scene, ro, rd, t_max, active, any_hit, label,
+                   pack) -> tuple:
+    """The kernel twice (over `pack`) and the plain walk once on the same
+    CUDA tensors: results and counts bit for bit. Returns (kernel out,
+    stats, measured error): the largest |t - t_plain| of the closest walk,
+    or of the occluded flags as 0 / 1 in any-hit mode, over both
+    launches."""
     runs = [intersect.walk_cuda(scene, ro, rd, T_MIN, t_max, active,
-                                any_hit, with_stats=True) for _ in range(2)]
+                                any_hit, True, pack) for _ in range(2)]
     plain, pst = intersect.traverse_plain(scene, ro, rd, T_MIN, t_max,
                                           active, any_hit)
     torch.cuda.synchronize()
@@ -994,10 +1023,12 @@ def walk_bit_equal(scene, ro, rd, t_max, active, any_hit, label) -> tuple:
     return out, st, err
 
 
-def walk_bound(scene, ro, any_hit, per_lane_tmax, st) -> tuple:
+def walk_bound(scene, ro, any_hit, per_lane_tmax, st,
+               tri_ops: int = BVH_TRI_OPS) -> tuple:
     """(bound ms, deciding, MB, G ops): rays in, results out, the scene's
     node, triangle, vertex and instance arrays once; operations from the
-    walk's own counts of nodes visited and triangles tested."""
+    walk's own counts of nodes visited and triangles tested, tri_ops a
+    triangle."""
     R = ro.shape[0]
     nbytes = (R * (24 + 1 + (4 if per_lane_tmax else 0))
               + R * (1 if any_hit else 12)
@@ -1005,58 +1036,77 @@ def walk_bound(scene, ro, any_hit, per_lane_tmax, st) -> tuple:
                   "node_min", "node_max", "node_skip", "node_data", "tri_v",
                   "pos", "inst_inv", "inst_blas")))
     ops = (float(st.nodes.double().sum()) * BVH_NODE_OPS
-           + float(st.tris.double().sum()) * BVH_TRI_OPS)
+           + float(st.tris.double().sum()) * tri_ops)
     b_ms, b_by = bound(nbytes, ops)
     return b_ms, b_by, nbytes / 1e6, ops / 1e9
 
 
 def check_bvh(cases) -> list[dict]:
     """`csrc/bvh_walk.cu` against its plain walk, bit for bit, closest and
-    any-hit, on each (label, DeviceScene, camera, dense tables) case at
-    512^2: the primaries (any-hit at t_max half or 1.01x the closest hit,
-    alternately) and the bounce-1 rays. Timed on every stack (kernel over
-    200 launches, plain walk once); the JSON line takes the last case's
-    primaries (closest) and bounce-1 shadow rays (any-hit)."""
+    any-hit, on each (label, DeviceScene, WalkPack, camera, dense tables)
+    case at 512^2: the primaries (any-hit at t_max half or 1.01x the
+    closest hit, alternately), the bounce-1 rays, and the primaries with
+    every 3rd lane poisoned (NaN / inf in o, d or t_max). Timed on the
+    finite stacks (kernel over 200 launches, plain walk once); the JSON
+    line takes the last case's primaries (closest) and bounce-1 shadow rays
+    (any-hit)."""
     width, height = SMALL
     out = {}
-    for label, scene, camera, tables in cases:
+    for label, scene, pack, camera, tables in cases:
         (p_ro, p_rd), shadow, ext = bvh_rays(camera, width, height, tables)
         R = p_ro.shape[0]
         on = torch.ones(R, dtype=torch.bool, device=p_ro.device)
-        hit, st_c, err_c = walk_bit_equal(scene, p_ro, p_rd, T_MAX, on,
-                                          False, f"{label} primaries, closest")
+        hit, st_c, err_c = walk_bit_equal(
+            scene, p_ro, p_rd, T_MAX, on, False, f"{label} primaries, closest",
+            pack)
         half = torch.arange(R, device=p_ro.device) % 2 == 0
         t_sh = torch.where(hit.inst_idx >= 0,
                            torch.where(half, hit.t * 0.5, hit.t * 1.01),
                            5.0).contiguous()
         walk_bit_equal(scene, p_ro, p_rd, t_sh, on, True,
-                       f"{label} primaries, any-hit")
+                       f"{label} primaries, any-hit", pack)
         _, st_e, err_e = walk_bit_equal(
-            scene, *ext, False, f"{label} bounce-1 extension rays, closest")
+            scene, *ext, False, f"{label} bounce-1 extension rays, closest",
+            pack)
         _, st_s, err_s = walk_bit_equal(
-            scene, *shadow, True, f"{label} bounce-1 shadow rays, any-hit")
+            scene, *shadow, True, f"{label} bounce-1 shadow rays, any-hit",
+            pack)
+        bad = poison_lanes(p_ro, p_rd, t_sh, R)
+        some = torch.arange(R, device=p_ro.device) % 7 != 0
+        for any_hit in (False, True):
+            _, _, err = walk_bit_equal(
+                scene, *bad, some, any_hit, f"{label} primaries, every 3rd "
+                f"lane NaN / inf, {'any-hit' if any_hit else 'closest'}",
+                pack)
+            err_c, err_s = ((err_c, max(err_s, err)) if any_hit
+                            else (max(err_c, err), err_s))
         for name, args, any_hit, st, tl, err in (
                 ("bvh_closest", (p_ro, p_rd, T_MAX, on), False, st_c, False,
                  err_c),
                 ("bvh_closest ext", ext, False, st_e, True, err_e),
                 ("bvh_shadow", shadow, True, st_s, True, err_s)):
             ms = device_ms(lambda: intersect.walk_cuda(
-                scene, args[0], args[1], T_MIN, args[2], args[3], any_hit))
+                scene, args[0], args[1], T_MIN, args[2], args[3], any_hit,
+                pack=pack))
             t0 = time.perf_counter()
             intersect.traverse_plain(scene, args[0], args[1], T_MIN, args[2],
                                      args[3], any_hit)
             torch.cuda.synchronize()
             plain_ms = 1e3 * (time.perf_counter() - t0)
             b_ms, b_by, mb, gops = walk_bound(scene, args[0], any_hit, tl, st)
+            b_old = walk_bound(scene, args[0], any_hit, tl, st,
+                               BVH_TRI_OPS_UNPACKED)[0]
             print(f"{name} {label}: kernel {ms:.4f} ms, plain walk "
                   f"{plain_ms:.1f} ms (host clock, one call), bound "
                   f"{b_ms:.4f} ms ({b_by}; {mb:.1f} MB, {gops:.3f} G ops: "
-                  f"{BVH_NODE_OPS} a node, {BVH_TRI_OPS} a triangle)")
+                  f"{BVH_NODE_OPS} a node, {BVH_TRI_OPS} a triangle); at "
+                  f"{BVH_TRI_OPS_UNPACKED} a triangle, as the unpacked walk "
+                  f"counted, {b_old:.4f} ms")
             out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, max_abs_err=err)
     return [dict(name=name, route="cuda",
                  source="webgpu_raytracer_tpu_torch/csrc/bvh_walk.cu",
-                 replaces="webgpu_raytracer_tpu/ops/intersect.py:99",
+                 replaces="webgpu_raytracer_tpu/ops/intersect.py:104",
                  library_ms=None, **out[name])
             for name in ("bvh_closest", "bvh_shadow")]
 
@@ -1704,10 +1754,19 @@ def main(argv: list[str]) -> int:
           f"tiles), {sp_tables.light_count} lights")
     bvh_cornell = build_device_scene(world, device=dev)
     bvh_sp = build_device_scene(sp_world, device=dev)
+    pack_cornell = intersect.pack_walk(bvh_cornell)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pack_sp = intersect.pack_walk(bvh_sp)
+    torch.cuda.synchronize()
+    pack_ms = 1e3 * (time.perf_counter() - t0)
+    assert int(pack_cornell.finite) == 1 and int(pack_sp.finite) == 1
     print(f"BVH scenes: cornell {bvh_cornell.node_min.shape[0]} nodes "
           f"(TLAS {bvh_cornell.tlas_count}), spheres "
           f"{bvh_sp.node_min.shape[0]} nodes (TLAS {bvh_sp.tlas_count}), "
-          f"{bvh_sp.tri_v.shape[0]} tris padded")
+          f"{bvh_sp.tri_v.shape[0]} tris padded; spheres' WalkPack "
+          f"{sum(x.numel() * 4 for x in pack_sp[:3]) / 1e6:.1f} MB, built "
+          f"in {pack_ms:.3f} ms (host clock, synchronised)")
 
     # --- phase 2: each kernel against its plain version ---
     results = [check_sweep(tables, camera, width, height),
@@ -1740,8 +1799,9 @@ def main(argv: list[str]) -> int:
 
     results += check_jobs(sp_tables, sp_cam, width, height)
     results += check_scan(sp_tables, sp_cam, width, height)
-    results += check_bvh([("cornell 512^2", bvh_cornell, camera, tables),
-                          ("spheres 512^2", bvh_sp, sp_cam, sp_tables)])
+    results += check_bvh([
+        ("cornell 512^2", bvh_cornell, pack_cornell, camera, tables),
+        ("spheres 512^2", bvh_sp, pack_sp, sp_cam, sp_tables)])
 
     # --- phase 3: every path, counting launches ---
     totals = {k: 0 for k in kernels.launches}

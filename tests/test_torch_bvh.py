@@ -14,6 +14,14 @@
   the same occlusion; inactive lanes hit nothing. The plain walk's
   working-set compaction leaves every lane's result and counts as they
   are.
+- `pack_walk` (the walk kernel's records) unpacks bit for bit to the
+  scene's arrays, with e1 and e2 torch's f32 differences; the walks and
+  `trace_pixels` give the same with a pack given as without; the slab test
+  with fmin / fmax (the kernel's test on finite rays) gives the same
+  answers as `aabb_hit` on finite lanes, extreme magnitudes included; and
+  on lanes with NaN or inf in o, d or t_max the plain walk equals JAX, its
+  counts those of the TLAS root's skip chain (the semantics the kernel's
+  exact path keeps).
 - `load_hit`, `sample_light_source`, `get_light_pdf`, `sample_texture`
   against JAX at rtol 1e-5.
 - `trace_pixels` against JAX `trace_pixels` at cornell 16^2 d3 spp 2 and
@@ -53,9 +61,12 @@ from webgpu_raytracer_tpu_torch.ops import trace as pt
 from webgpu_raytracer_tpu_torch.ops.api import (DENSE_MAX_TRIS,
                                                 choose_backend, get_tracer)
 from webgpu_raytracer_tpu_torch.ops.dense_trace import trace_pixels_dense
-from webgpu_raytracer_tpu_torch.ops.intersect import (intersect_closest,
+from webgpu_raytracer_tpu_torch.ops.intersect import (aabb_hit,
+                                                      intersect_closest,
                                                       intersect_shadow,
-                                                      traverse_plain)
+                                                      pack_walk, safe_inv,
+                                                      traverse_plain,
+                                                      walk_cuda)
 from webgpu_raytracer_tpu_torch.render.resources import build_device_scene
 from webgpu_raytracer_tpu_torch.render.worldtris import build_world_tables
 
@@ -334,6 +345,218 @@ def test_plain_walk_lanes_are_independent(any_hit):
                         if any_hit else (*(x[sel] for x in full),
                                          stats.nodes[sel], stats.tris[sel])):
             assert torch.equal(a, b)
+
+
+# -- the walk kernel's pack and its slab test ---------------------------------
+
+@pytest.mark.parametrize("case", sorted(SCENES))
+def test_pack_walk_unpacks_bit_for_bit(case):
+    _, _, _, ps = _scenes(case)
+    pk = pack_walk(ps)
+    i32 = torch.int32
+    n, t, i = (ps.node_min.shape[0], ps.tri_v.shape[0],
+               ps.inst_inv.shape[0])
+    assert pk.nodes.shape == (n, 8) and pk.nodes.dtype == i32
+    assert pk.tris.shape == (t, 12) and pk.tris.dtype == torch.float32
+    assert pk.insts.shape == (i, 16) and pk.insts.dtype == i32
+    assert pk.tlas_end == ps.tlas_count and int(pk.finite) == 1
+    assert torch.equal(pk.nodes[:, 0:3], ps.node_min.view(i32))
+    assert torch.equal(pk.nodes[:, 3], ps.node_skip)
+    assert torch.equal(pk.nodes[:, 4:7], ps.node_max.view(i32))
+    assert torch.equal(pk.nodes[:, 7], ps.node_data)
+    p = ps.pos[ps.tri_v.long()]
+    rec = pk.tris.view(t, 3, 4)
+    assert torch.equal(rec[:, :, 3], torch.zeros(t, 3))
+    assert torch.equal(rec[:, 0, :3].view(i32), p[:, 0].view(i32))
+    for k in (1, 2):  # e1, e2: one f32 subtraction each, as the walk's
+        want = (p[:, k].numpy() - p[:, 0].numpy()).view(np.int32)
+        np.testing.assert_array_equal(rec[:, k, :3].view(i32).numpy(), want)
+    np.testing.assert_array_equal(
+        pk.insts[:, :12].view(torch.float32).view(i, 3, 4).numpy(),
+        ps.inst_inv[:, :3, :].numpy())
+    assert torch.equal(pk.insts[:, 12], ps.inst_blas)
+    assert torch.equal(pk.insts[:, 13],
+                       ps.node_skip[ps.inst_blas.clamp(0, n - 1).long()])
+    assert (pk.insts[:, 14:] == 0).all()
+    bad = ps._replace(node_max=ps.node_max.clone())
+    bad.node_max[0, 1] = float("inf")
+    assert int(pack_walk(bad).finite) == 0
+
+
+def _random_rays(scene, n, seed):
+    """n rays from inside the scene's box, every 7th with a zero direction
+    component (which safe_inv nudges), t_max per lane, every 5th dead."""
+    rs = np.random.default_rng(seed)
+    lo, hi = scene.node_min[0].numpy(), scene.node_max[0].numpy()
+    mid, half = (lo + hi) / 2, (hi - lo) / 2
+    ro = (mid + 0.8 * half * rs.uniform(-1, 1, (n, 3))).astype(np.float32)
+    rd = rs.normal(size=(n, 3)).astype(np.float32)
+    rd[::7, 1] = 0.0
+    t_max = rs.uniform(0.1, 2.0 * float(half.max()), n).astype(np.float32)
+    active = np.arange(n) % 5 != 0
+    return tuple(torch.from_numpy(x) for x in (ro, rd, t_max, active))
+
+
+@pytest.mark.parametrize("name", ["cornell", "spheres"])
+def test_walks_with_a_pack_equal_the_walks_without(name):
+    """The entry points with the pack given and without (the CPU walks the
+    scene's arrays either way) equal the plain walk, results and counts;
+    `ray_color` too, bit for bit."""
+    world = NativeWorld(name)
+    world.update_camera(8, 8)
+    ps = build_device_scene(world, device="cpu")
+    pk = pack_walk(ps)
+    ro, rd, t_max, active = _random_rays(ps, 384, 21)
+    plain, pst = traverse_plain(ps, ro, rd, 1e-3, 1e30, active, False)
+    assert (plain.inst_idx >= 0).float().mean() > 0.3
+    for kw in ({}, {"pack": pk}):
+        hit, st = intersect_closest(ps, ro, rd, active=active,
+                                    with_stats=True, **kw)
+        for a, b in zip((*hit, *st), (*plain, *pst)):
+            assert torch.equal(a, b)
+    occ_p, ost = traverse_plain(ps, ro, rd, 1e-3, t_max, active, True)
+    assert 0 < int(occ_p.sum()) < int(active.sum())
+    for kw in ({}, {"pack": pk}):
+        occ, st = intersect_shadow(ps, ro, rd, t_max, active=active,
+                                   with_stats=True, **kw)
+        assert torch.equal(occ, occ_p)
+        assert torch.equal(st.nodes, ost.nodes)
+        assert torch.equal(st.tris, ost.tris)
+    rng = pt.init_rng(torch.arange(ro.shape[0]), 1)
+    a, rng_a, ra = pt.ray_color(ps, ro, rd, rng, 3)
+    b, rng_b, rb = pt.ray_color(ps, ro, rd, rng, 3, pk)
+    assert torch.equal(a, b) and torch.equal(rng_a, rng_b)
+    assert float(ra) == float(rb) > ro.shape[0]
+
+
+def test_walk_rejects_a_pack_of_another_scene():
+    """`walk_cuda` holds a given pack to its scene's node, triangle,
+    instance and TLAS counts before it launches anything."""
+    cornell = build_device_scene(NativeWorld("cornell"), device="cpu")
+    mixed = build_device_scene(NativeWorld("mixed"), device="cpu")
+    ro, rd, t_max, active = _random_rays(cornell, 8, 5)
+    pack, own = pack_walk(mixed), pack_walk(cornell)
+    with pytest.raises(ValueError, match="not built from this scene"):
+        walk_cuda(cornell, ro, rd, 1e-3, t_max, active, True, pack=pack)
+    with pytest.raises(ValueError, match="not built from this scene"):
+        walk_cuda(cornell, ro, rd, 1e-3, t_max, active, False,
+                  pack=own._replace(tlas_end=own.tlas_end + 1))
+
+
+def _slab_fast(nmin, nmax, ro, inv_d, t_min, t_max):
+    """`aabb_hit` with fmin / fmax, which drop a NaN as fminf / fmaxf do:
+    the walk kernel's test on lanes whose o, d and t_max are finite."""
+    t1 = (nmin - ro) * inv_d
+    t2 = (nmax - ro) * inv_d
+    lo, hi = torch.fmin(t1, t2), torch.fmax(t1, t2)
+    tn = torch.fmax(torch.fmax(lo[:, 0], lo[:, 1]), lo[:, 2])
+    tf = torch.fmin(torch.fmin(hi[:, 0], hi[:, 1]), hi[:, 2])
+    return torch.fmax(tn, torch.full_like(tn, t_min)) <= torch.fmin(tf,
+                                                                   t_max)
+
+
+@pytest.mark.parametrize("case", ["scene", "extreme"])
+def test_fast_slab_test_equals_the_exact_one_on_finite_lanes(case):
+    """The kernel's claim 2 (`csrc/bvh_walk.cu`): with o, d finite, t_max
+    not NaN and finite node bounds, no min / max operand is NaN, so fmin /
+    fmax answer as torch.minimum / torch.maximum do. "extreme" draws
+    magnitudes up to 3e38 (b - o overflows), directions down to 1e-38 and
+    exact zeros (inv up to 1e20, subnormal reciprocals) and infinite
+    t_max."""
+    rs = np.random.default_rng(17)
+    n = 200_000
+    if case == "scene":
+        _, _, _, ps = _scenes("mesh")
+        pick = torch.from_numpy(rs.integers(0, ps.node_min.shape[0], n))
+        nmin, nmax = ps.node_min[pick], ps.node_max[pick]
+        ro = torch.from_numpy(rs.uniform(-3, 3, (n, 3)).astype(np.float32))
+        rd = torch.from_numpy(rs.normal(size=(n, 3)).astype(np.float32))
+        t_max = torch.from_numpy(rs.uniform(0, 10, n).astype(np.float32))
+    else:
+        def wild(shape):
+            mag = 10.0 ** rs.uniform(-38, 38.5, shape)
+            v = np.sign(rs.normal(size=shape)) * mag
+            v[rs.uniform(size=shape) < 0.1] = 0.0
+            return np.clip(v, -3e38, 3e38).astype(np.float32)
+
+        a, b = wild((n, 3)), wild((n, 3))
+        nmin = torch.from_numpy(np.minimum(a, b))
+        nmax = torch.from_numpy(np.maximum(a, b))
+        ro, rd = torch.from_numpy(wild((n, 3))), torch.from_numpy(wild((n, 3)))
+        t_max = torch.from_numpy(
+            np.where(rs.uniform(size=n) < 0.2, np.inf,
+                     np.abs(wild((n,)))).astype(np.float32))
+    inv = safe_inv(rd)
+    assert torch.isfinite(inv).all() and (inv != 0).all()
+    exact = aabb_hit(nmin, nmax, ro, inv, 1e-3, t_max)
+    assert torch.equal(_slab_fast(nmin, nmax, ro, inv, 1e-3, t_max), exact)
+    assert 0 < int(exact.sum()) < n
+
+
+def _nonfinite_lanes():
+    """cornell lanes: a finite ray through the box, then the same with NaN,
+    +inf or -inf in each component of o and of d, and with t_max NaN, +inf
+    and -inf."""
+    o0 = np.array([0.0, 1.0, 3.0], np.float32)
+    d0 = np.array([0.0, 0.0, -1.0], np.float32)
+    ro, rd, tm = [o0], [d0], [1e30]
+    for which in (0, 1):
+        for k in range(3):
+            for x in (np.nan, np.inf, -np.inf):
+                v = (o0 if which == 0 else d0).copy()
+                v[k] = x
+                ro.append(v if which == 0 else o0)
+                rd.append(v if which == 1 else d0)
+                tm.append(1e30)
+    for x in (np.nan, np.inf, -np.inf):
+        ro.append(o0)
+        rd.append(d0)
+        tm.append(x)
+    return (np.stack(ro).astype(np.float32), np.stack(rd).astype(np.float32),
+            np.asarray(tm, np.float32))
+
+
+def _skip_chain(scene):
+    """Nodes a lane visits when it misses every box: node 0, then skips
+    until the TLAS ends."""
+    skip, c, n = scene.node_skip.numpy(), 0, 0
+    while c < scene.tlas_count:
+        n, c = n + 1, int(skip[c])
+    return n
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_plain_walk_on_nonfinite_lanes_matches_jax(any_hit):
+    """NaN or inf in o, d or t_max: the plain walk's results equal JAX's on
+    the same inputs, and a lane carrying a NaN, or t_max of -inf, misses
+    every box, so it visits the TLAS root's skip chain and tests no
+    triangle."""
+    _, js, _, ps = _scenes("cornell")
+    ro, rd, tm = _nonfinite_lanes()
+    R = ro.shape[0]
+    on = torch.ones(R, dtype=torch.bool)
+    out, st = traverse_plain(ps, torch.from_numpy(ro), torch.from_numpy(rd),
+                             1e-3, torch.from_numpy(tm), on, any_hit)
+    J = (jnp.asarray(ro), jnp.asarray(rd))
+    if any_hit:
+        want = jax_shadow(js, *J, t_max=jnp.asarray(tm))
+        np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+        assert bool(out[0]) and int(out.sum()) == 2  # lane 0 and t_max inf
+    else:
+        want = jax_closest(js, *J, t_max=jnp.asarray(tm))
+        for f in ("t", "tri_idx", "inst_idx"):
+            np.testing.assert_array_equal(getattr(out, f).numpy(),
+                                          np.asarray(getattr(want, f)),
+                                          err_msg=f)
+        assert int(out.inst_idx[0]) == 0
+        assert int((out.inst_idx >= 0).sum()) == 2
+    nan_lane = np.isnan(ro).any(1) | np.isnan(rd).any(1) | np.isnan(tm) \
+        | (tm == -np.inf)
+    assert nan_lane.sum() == 8
+    chain = _skip_chain(ps)
+    np.testing.assert_array_equal(st.nodes.numpy()[nan_lane], chain)
+    np.testing.assert_array_equal(st.tris.numpy()[nan_lane], 0)
+    assert int(st.nodes[0]) > chain and int(st.tris[0]) > 0
 
 
 # -- shading helpers ----------------------------------------------------------

@@ -355,6 +355,26 @@ def test_fetch_quad_kernel_matches_plain(cuda, n):
     assert torch.equal(out, fetch_quad_plain(flat, rows))
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("r", [1, 3, 5, 4097, 2_073_600])
+def test_fetch_quad_kernel_by_lane_count(cuda, r, offset):
+    """Every lane count from one to a 1080p frame's, and a `rows` view that
+    starts one element past a 16-byte boundary, bit-equal to the plain
+    version, at the mip's 16,384 rows."""
+    rs = np.random.default_rng(r + offset)
+    n = 16384
+    flat = torch.from_numpy(rs.integers(0, 1 << 24, size=(n, 4)).astype(
+        np.int32)).to(cuda)
+    base = torch.from_numpy(rs.integers(-3, n + 3, r + offset).astype(
+        np.int32)).to(cuda)
+    rows = base[offset:]
+    assert (rows.data_ptr() % 16 != 0) == bool(offset)
+    before = kernels.launches["fetch_quad"]
+    out = cuda_fetch.fetch_quad(flat, rows)
+    assert kernels.launches["fetch_quad"] == before + 1
+    assert torch.equal(out, fetch_quad_plain(flat, rows))
+
+
 def test_fetch_wrappers_reject_bad_inputs(cuda):
     table = torch.zeros((8, 40), device=cuda)
     flat = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
@@ -1028,3 +1048,88 @@ def test_bvh_trace_on_card_counts_launches(cuda):
     assert frames[1].mean() > 0.05
     close = torch.isclose(frames[1], frames[0], rtol=1e-3, atol=1e-5).all(1)
     assert close.float().mean() >= 0.95
+
+
+def _walk_bit_equal(scene, ro, rd, t_max, active, pack=None):
+    """Closest (t_max 1e30) and any-hit (t_max per lane) through the
+    kernel, twice each, bit-equal to the plain walk on the same CUDA
+    tensors, results and counts (`chip_smoke.walk_bit_equal`). Returns the
+    closest hits."""
+    from webgpu_raytracer_tpu_torch.ops import intersect
+
+    hit = chip_smoke.walk_bit_equal(scene, ro, rd, intersect.T_MAX, active,
+                                    False, "closest", pack)[0]
+    chip_smoke.walk_bit_equal(scene, ro, rd, t_max, active, True, "any-hit",
+                              pack)
+    return hit
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "mixed"])
+def test_bvh_walk_nonfinite_lanes_bit_equal(cuda, scene_name):
+    """Lanes with NaN or inf in o, d or t_max take the kernel's exact slab
+    test and their neighbours the fast one: closest (t_max per lane for
+    the shadow walk only) and any-hit bit for bit with the plain walk,
+    counts included, with the pack given and built."""
+    from webgpu_raytracer_tpu_torch.ops import intersect
+
+    scene, ro, rd = _bvh_rays(scene_name, cuda, n_random=4096)
+    R = ro.shape[0]
+    t_max = torch.from_numpy(np.random.default_rng(R).uniform(
+        0.5, 6.0, R).astype(np.float32)).to(cuda)
+    ro, rd, t_max = chip_smoke.poison_lanes(ro, rd, t_max, R)
+    active = torch.arange(R, device=cuda) % 11 != 0
+    pack = intersect.pack_walk(scene)
+    for pk in (pack, None):
+        hit = _walk_bit_equal(scene, ro, rd, t_max, active, pk)
+    assert (hit.inst_idx >= 0).float().mean() > 0.2
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "mixed"])
+def test_bvh_walk_exact_path_on_infinite_bounds(cuda, scene_name):
+    """A scene whose node bounds hold an inf (the TLAS root widened to
+    +-inf on one axis each way, a BLAS node's max to +inf) packs with
+    finite = 0, and every lane takes the exact slab test: bit for bit with
+    the plain walk on the same scene."""
+    from webgpu_raytracer_tpu_torch.ops import intersect
+
+    scene, ro, rd = _bvh_rays(scene_name, cuda)
+    nmin, nmax = scene.node_min.clone(), scene.node_max.clone()
+    nmin[0, 0] = -float("inf")
+    nmax[0, 2] = float("inf")
+    blas = int(scene.inst_blas[0])
+    nmax[blas + 1, 1] = float("inf")
+    wide = scene._replace(node_min=nmin, node_max=nmax)
+    pack = intersect.pack_walk(wide)
+    assert int(pack.finite) == 0
+    R = ro.shape[0]
+    t_max = torch.from_numpy(np.random.default_rng(3).uniform(
+        0.5, 6.0, R).astype(np.float32)).to(cuda)
+    active = torch.arange(R, device=cuda) % 5 != 0
+    hit = _walk_bit_equal(wide, ro, rd, t_max, active, pack)
+    assert (hit.inst_idx >= 0).float().mean() > 0.3
+
+
+def test_bvh_walk_more_rays_than_the_card_holds(cuda):
+    """1,000,003 rays on cornell (more than the card holds threads, the
+    last block ragged), 3 in 4 dead, the live ones in runs of uneven
+    length: bit for bit with the plain walk, results and counts, from two
+    launches."""
+    from webgpu_raytracer_tpu_torch.ops import intersect
+    from webgpu_raytracer_tpu_torch.render.resources import \
+        build_device_scene
+
+    scene = build_device_scene(NativeWorld("cornell"), device=cuda)
+    rs = np.random.default_rng(9)
+    R = 1_000_003
+    ro = torch.from_numpy(rs.uniform(-0.9, 0.9, (R, 3)).astype(
+        np.float32)).to(cuda)
+    ro[:, 1] = ro[:, 1].abs() + 0.05
+    rd = torch.from_numpy(rs.normal(size=(R, 3)).astype(np.float32)).to(cuda)
+    t_max = torch.from_numpy(rs.uniform(0.1, 3.0, R).astype(np.float32)).to(
+        cuda)
+    active = torch.from_numpy((rs.uniform(size=R) < 0.25)
+                              | (np.arange(R) % 1000 < 37)).to(cuda)
+    pack = intersect.pack_walk(scene)
+    hit = _walk_bit_equal(scene, ro, rd, t_max, active, pack)
+    live_hits = ((hit.inst_idx >= 0) & active).sum() / active.sum()
+    assert float(live_hits) > 0.8  # the box is open towards the camera

@@ -25,22 +25,60 @@
 // every operation is rounded on its own (__fmul_rn, __fadd_rn, __fsub_rn,
 // __frcp_rn: nvcc would otherwise contract products and sums into FMAs),
 // the sums of three and the instance transform run left to right as the
-// plain version writes them, safe_inv is 1 / (|d| < 1e-20 ? 1e-20 : d),
-// and min / max give NaN when either side is NaN, as torch.minimum and
-// torch.maximum do (fminf / fmaxf would drop it). A lane's walk order is
-// the lock-step walk's, so (t, tri, inst), the occluded flag and the
-// optional per-lane counts of nodes visited and triangles tested equal the
-// plain version's.
+// plain version writes them, safe_inv is 1 / (|d| < 1e-20 ? 1e-20 : d).
+// A lane's walk order is the lock-step walk's, so (t, tri, inst), the
+// occluded flag and the optional per-lane counts of nodes visited and
+// triangles tested equal the plain version's.
 //
-// What bounds it on the card: neither bytes nor arithmetic at the rate the
-// bound assumes, but latency. Each step is a dependent chain: the node's
-// load (32 bytes from four arrays), the slab test, the cursor. A walk of a
-// `spheres` ray visits a few hundred nodes down one deep BLAS, and the
-// lanes of a warp diverge as soon as their rays part. The design does the
-// simplest right thing: the ray and the walk state live in registers, the
-// loads go through the read-only path (__ldg), 128 threads a block give
-// the scheduler warps to switch between. Node packing, ordered traversal
-// and warp compaction are left for later.
+// What bounds it: the latency of each lane's chain of dependent steps (a
+// node's load, its slab test, the next cursor), not bytes or arithmetic at
+// the rates the bound assumes; a `spheres` walk is 77 nodes on average and
+// up to 510. The first version's step was 8 scalar loads from four arrays
+// (node_min and node_max at a 12-byte stride, node_skip, node_data; up to
+// five 32-byte sectors), a triangle two dependent gathers (tri_v, then three
+// pos rows), an instance entry 12 scalar loads, and its slab test 12
+// NaN-propagating min / max, each a compare, a select and an fminf. What
+// this version does:
+//
+// 1. Packed records (ops/intersect.py::pack_walk, built once a
+//    trace_pixels call). A node is 32 bytes, (min.xyz, skip | max.xyz, data), read as
+//    two 16-byte loads from one sector. A triangle is 48 bytes, (p0, e1 =
+//    p1 - p0, e2 = p2 - p0), three 16-byte loads with no index; e1 and e2
+//    are one f32 subtraction each, made by torch exactly as Moller-Trumbore
+//    makes them, so the bits are the same. An instance is 64 bytes: rows 0-2
+//    of inst_inv, then (BLAS start, BLAS end). Same floats, no new
+//    arithmetic.
+// 2. The slab test without NaN guards on finite rays. Claim: if a lane's o
+//    and d are finite, its t_max and t_min are not NaN and every node bound
+//    is finite, no operand of a min / max in the slab test is NaN, so
+//    fminf / fmaxf give the values torch.minimum / torch.maximum give, up to
+//    the sign of a zero, which tn <= tf cannot see. Proof: inv = 1 / d (or
+//    1e20 for |d| < 1e-20) is finite and non-zero (no flush to zero: the
+//    library is built without fast math, and 1 / FLT_MAX is a subnormal,
+//    not 0); b - o of two finite floats is finite or +-inf; a finite or
+//    infinite value times a finite non-zero one is never NaN. limit is t_max
+//    or a best t that passed t < limit, never NaN. The same holds for the
+//    instance-space ray, checked when the lane enters a BLAS. Node bounds are
+//    checked once when the pack is built (WalkPack.finite). A lane or scene
+//    that fails a check takes the NaN-propagating test (min_nan / max_nan),
+//    as before.
+// 3. The world ray is not held in registers for the whole walk: it is
+//    reloaded from ro / rd where a lane enters or leaves a BLAS (once each on
+//    a one-instance scene), so a thread needs fewer registers and an SM
+//    holds more warps.
+// 4. One thread a ray, 128 a block, the grid covering the rays, as before: a
+//    lane that ends leaves its warp, a warp that ends frees its slot, and the
+//    block scheduler refills the SM a block at a time at no cost a step.
+//    Measured on the H100 and dropped (PERF.md): persistent warps that refill
+//    their finished lanes from a counter (Aila and Laine, "Understanding the
+//    Efficiency of Ray Traversal on GPUs", HPG 2009), with or without their
+//    while-while loop, were slower on every stack, although the bounce-1
+//    rays leave most lanes of a warp idle: the time follows the number of
+//    warps walking at once, each waiting on its own chain of loads, more
+//    than the lanes each keeps busy.
+//
+// Left as it is: the walk order. Ordered (front-to-back, stack-based)
+// traversal would change the tie rule and the per-lane counts.
 
 #include <cuda_runtime.h>
 
@@ -69,6 +107,21 @@ __device__ __forceinline__ V load3(const float* __restrict__ p, int i) {
   return V{__ldg(p + 3 * i), __ldg(p + 3 * i + 1), __ldg(p + 3 * i + 2)};
 }
 
+__device__ __forceinline__ V xyz(float4 a) { return V{a.x, a.y, a.z}; }
+
+__device__ __forceinline__ V xyz_bits(int4 a) {
+  return V{__int_as_float(a.x), __int_as_float(a.y), __int_as_float(a.z)};
+}
+
+// Finite: neither NaN (which fails every comparison) nor +-inf.
+__device__ __forceinline__ bool finite(float x) {
+  return fabsf(x) <= 3.402823466e38f;
+}
+
+__device__ __forceinline__ bool finite3(V v) {
+  return finite(v.x) && finite(v.y) && finite(v.z);
+}
+
 __device__ __forceinline__ V sub(V a, V b) {
   return V{__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y), __fsub_rn(a.z, b.z)};
 }
@@ -92,29 +145,37 @@ __device__ __forceinline__ V safe_inv3(V d) {
   return V{safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
 }
 
-// Slab test of one box against (o, inv), over (t_min, limit].
+// Slab test of one box against (o, inv), over (t_min, limit]. exact: the
+// NaN-propagating min / max of the plain walk; else fminf / fmaxf, which
+// give the same answer where no operand is NaN (the header's claim 2).
 __device__ __forceinline__ bool aabb_hit(V lo, V hi, V o, V inv, float t_min,
-                                         float limit) {
+                                         float limit, bool exact) {
   const float ax = __fmul_rn(__fsub_rn(lo.x, o.x), inv.x);
   const float ay = __fmul_rn(__fsub_rn(lo.y, o.y), inv.y);
   const float az = __fmul_rn(__fsub_rn(lo.z, o.z), inv.z);
   const float bx = __fmul_rn(__fsub_rn(hi.x, o.x), inv.x);
   const float by = __fmul_rn(__fsub_rn(hi.y, o.y), inv.y);
   const float bz = __fmul_rn(__fsub_rn(hi.z, o.z), inv.z);
-  float tn = max_nan(max_nan(min_nan(ax, bx), min_nan(ay, by)),
-                     min_nan(az, bz));
-  float tf = min_nan(min_nan(max_nan(ax, bx), max_nan(ay, by)),
-                     max_nan(az, bz));
-  tn = max_nan(tn, t_min);
-  tf = min_nan(tf, limit);
+  if (exact) {
+    float tn = max_nan(max_nan(min_nan(ax, bx), min_nan(ay, by)),
+                       min_nan(az, bz));
+    float tf = min_nan(min_nan(max_nan(ax, bx), max_nan(ay, by)),
+                       max_nan(az, bz));
+    tn = max_nan(tn, t_min);
+    tf = min_nan(tf, limit);
+    return tn <= tf;
+  }
+  const float tn = fmaxf(
+      fmaxf(fmaxf(fminf(ax, bx), fminf(ay, by)), fminf(az, bz)), t_min);
+  const float tf = fminf(
+      fminf(fminf(fmaxf(ax, bx), fmaxf(ay, by)), fmaxf(az, bz)), limit);
   return tn <= tf;
 }
 
-// Moller-Trumbore: true and *t on a hit inside (t_min, limit).
-__device__ __forceinline__ bool tri_hit(V o, V d, V p0, V p1, V p2,
+// Moller-Trumbore on (p0, e1, e2): true and *t on a hit inside
+// (t_min, limit).
+__device__ __forceinline__ bool tri_hit(V o, V d, V p0, V e1, V e2,
                                         float t_min, float limit, float* t) {
-  const V e1 = sub(p1, p0);
-  const V e2 = sub(p2, p0);
   const V h = cross(d, e2);
   const float a = dot(e1, h);
   const bool ok = fabsf(a) >= 1e-6f;
@@ -128,150 +189,207 @@ __device__ __forceinline__ bool tri_hit(V o, V d, V p0, V p1, V p2,
          __fadd_rn(u, v) <= 1.0f && *t > t_min && *t < limit;
 }
 
-struct Scene {
-  const float* node_min;
-  const float* node_max;
-  const int* node_skip;
-  const int* node_data;
+struct Pack {
+  const int4* nodes;    // (n_nodes, 2): (min.xyz, skip), (max.xyz, data)
   int n_nodes;
   int tlas_end;
-  const int* tri_v;
+  const float4* tris;   // (n_tris, 3): (p0, 0), (e1, 0), (e2, 0)
   int n_tris;
-  const float* pos;
-  const float* inst_inv;
-  const int* inst_blas;
+  const float4* insts;  // (n_inst, 4): inst_inv rows 0-2, (start, end, 0, 0)
   int n_inst;
+  const int* finite;    // 1 when every node bound is finite
 };
+
+struct Rays {
+  const float* ro;         // (r, 3)
+  const float* rd;         // (r, 3)
+  const float* tmax_lane;  // (r,) or null for tmax_all
+  float tmax_all;
+  float t_min;
+  const unsigned char* active;  // (r,) or null for all
+  int r;
+  int max_iters;
+};
+
+struct Out {
+  float* t;
+  int* tri;
+  int* inst;
+  unsigned char* occ;
+  int* nodes;  // with the triangle counts, or null
+  int* tris;
+};
+
+// One lane's walk: its ray in world space and in the current space (the
+// world's, or an instance's inside a BLAS), its cursors and its results.
+struct Walk {
+  int ray;       // the world ray is reloaded from ro / rd where needed
+  V co, cd, ci;  // the current space's origin, direction, 1 / direction
+  bool exact_w, exact_c;  // the NaN-propagating slab test, world / current
+  float t_max, best_t;
+  int best_tri, best_inst, cur_inst;
+  int tcur, bcur, bend, nodes, tris;
+  bool in_blas, occluded;
+};
+
+__device__ __forceinline__ void start(Walk& w, const Pack& sc,
+                                      const Rays& in, int ray,
+                                      bool scene_exact) {
+  w.ray = ray;
+  const V o = load3(in.ro, ray);
+  const V d = load3(in.rd, ray);
+  const V inv = safe_inv3(d);
+  w.t_max = in.tmax_lane ? __ldg(in.tmax_lane + ray) : in.tmax_all;
+  const bool live = in.active ? __ldg(in.active + ray) != 0 : true;
+  w.tcur = live ? 0 : sc.tlas_end;
+  w.in_blas = false;
+  w.best_t = w.t_max;
+  w.best_tri = w.best_inst = -1;
+  w.occluded = false;
+  w.nodes = w.tris = 0;
+  w.co = o;
+  w.ci = inv;
+  w.exact_w = scene_exact ||
+              !(finite3(o) && finite3(d) && w.t_max == w.t_max);
+  w.exact_c = w.exact_w;
+}
+
+__device__ __forceinline__ bool walk_done(const Walk& w, const Pack& sc,
+                                          const Rays& in, bool any_hit) {
+  return (!w.in_blas && w.tcur >= sc.tlas_end) || w.nodes >= in.max_iters ||
+         (any_hit && w.occluded);
+}
+
+__device__ __forceinline__ void leave_blas(Walk& w, const Rays& in) {
+  w.in_blas = false;
+  w.co = load3(in.ro, w.ray);
+  w.ci = safe_inv3(load3(in.rd, w.ray));
+  w.exact_c = w.exact_w;
+}
+
+// The triangles of a hit BLAS leaf (data = first << 3 | count), in order.
+template <bool kAnyHit>
+__device__ __forceinline__ void test_leaf(Walk& w, const Pack& sc,
+                                          const Rays& in, int data) {
+  const int first = data >> 3;
+  const int count = min(data & 7, 4);
+  w.tris += count;
+  for (int k = 0; k < count; ++k) {
+    const int tri = first + k;
+    const float4* tp = sc.tris + 3 * clip_index(tri, sc.n_tris);
+    const float4 p0 = __ldg(tp), e1 = __ldg(tp + 1), e2 = __ldg(tp + 2);
+    float t;
+    if (tri_hit(w.co, w.cd, xyz(p0), xyz(e1), xyz(e2), in.t_min,
+                kAnyHit ? w.t_max : w.best_t, &t)) {
+      if (kAnyHit) {
+        w.occluded = true;
+        break;  // the rest of the leaf changes nothing
+      }
+      w.best_t = t;
+      w.best_tri = tri;
+      w.best_inst = w.cur_inst;
+    }
+  }
+}
+
+// Visit the node at the cursor: the slab test, then an instance's entry or
+// a leaf's triangles, then the cursor step.
+template <bool kAnyHit>
+__device__ __forceinline__ void node_step(Walk& w, const Pack& sc,
+                                          const Rays& in) {
+  ++w.nodes;
+  const int c = clip_index(w.in_blas ? w.bcur : w.tcur, sc.n_nodes);
+  const int4 na = __ldg(sc.nodes + 2 * c);
+  const int4 nb = __ldg(sc.nodes + 2 * c + 1);
+  const int skip = na.w;
+  const int data = nb.w;
+  const bool leaf = data != 0;
+  const float limit = kAnyHit ? w.t_max : w.best_t;
+  const bool hit = aabb_hit(xyz_bits(na), xyz_bits(nb), w.co, w.ci, in.t_min,
+                            limit, w.exact_c);
+  if (!w.in_blas) {
+    if (hit && leaf) {  // enter the instance's BLAS
+      const int inst = data >> 3;
+      const float4* m = sc.insts + 4 * clip_index(inst, sc.n_inst);
+      const float4 r0 = __ldg(m), r1 = __ldg(m + 1), r2 = __ldg(m + 2);
+      const int4 span = __ldg(reinterpret_cast<const int4*>(m + 3));
+      const V o = load3(in.ro, w.ray);
+      const V d = load3(in.rd, w.ray);
+      w.co = V{__fadd_rn(dot(xyz(r0), o), r0.w),
+               __fadd_rn(dot(xyz(r1), o), r1.w),
+               __fadd_rn(dot(xyz(r2), o), r2.w)};
+      w.cd = V{dot(xyz(r0), d), dot(xyz(r1), d), dot(xyz(r2), d)};
+      w.ci = safe_inv3(w.cd);
+      w.exact_c = w.exact_w || !(finite3(w.co) && finite3(w.cd));
+      w.bcur = span.x;
+      w.bend = span.y;
+      w.cur_inst = inst;
+      w.in_blas = true;
+    }
+    w.tcur = (hit && !leaf) ? w.tcur + 1 : skip;
+  } else {
+    if (hit && leaf) test_leaf<kAnyHit>(w, sc, in, data);
+    w.bcur = (hit && !leaf) ? w.bcur + 1 : skip;
+    if (w.bcur >= w.bend) leave_blas(w, in);
+  }
+}
+
+template <bool kAnyHit>
+__device__ __forceinline__ void finish(const Walk& w, const Out& out,
+                                       int ray) {
+  if (kAnyHit) {
+    out.occ[ray] = w.occluded ? 1 : 0;
+  } else {
+    out.t[ray] = w.best_t;
+    out.tri[ray] = w.best_tri;
+    out.inst[ray] = w.best_inst;
+  }
+  if (out.nodes) {
+    out.nodes[ray] = w.nodes;
+    out.tris[ray] = w.tris;
+  }
+}
 
 template <bool kAnyHit>
 __global__ void __launch_bounds__(kThreads)
-bvh_walk_kernel(Scene sc, const float* __restrict__ ro,
-                const float* __restrict__ rd,
-                const float* __restrict__ tmax_lane, float tmax_all,
-                float t_min, const unsigned char* __restrict__ active, int r,
-                int max_iters, float* __restrict__ out_t,
-                int* __restrict__ out_tri, int* __restrict__ out_inst,
-                unsigned char* __restrict__ out_occ,
-                int* __restrict__ stat_nodes, int* __restrict__ stat_tris) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= r) return;
-  const V o = load3(ro, lane);
-  const V d = load3(rd, lane);
-  const V inv = safe_inv3(d);
-  const float t_max = tmax_lane ? __ldg(tmax_lane + lane) : tmax_all;
-  const bool live = active ? __ldg(active + lane) != 0 : true;
+bvh_walk_kernel(Pack sc, Rays in, Out out) {
+  const int ray = blockIdx.x * kThreads + threadIdx.x;
+  if (ray >= in.r) return;
+  const bool scene_exact = __ldg(sc.finite) == 0 || in.t_min != in.t_min;
+  Walk w{};
+  start(w, sc, in, ray, scene_exact);
+  while (!walk_done(w, sc, in, kAnyHit)) node_step<kAnyHit>(w, sc, in);
+  finish<kAnyHit>(w, out, ray);
+}
 
-  int tcur = live ? 0 : sc.tlas_end;
-  bool in_blas = false;
-  int bcur = 0, bend = 0, cur_inst = 0;
-  V lo = o, ld = d, li = inv;
-  float best_t = t_max;
-  int best_tri = -1, best_inst = -1;
-  bool occluded = false;
-  int nodes = 0, tris = 0;
-
-  for (int it = 0; it < max_iters; ++it) {
-    if (!in_blas && tcur >= sc.tlas_end) break;
-    ++nodes;
-    const int c = clip_index(in_blas ? bcur : tcur, sc.n_nodes);
-    const V nmin = load3(sc.node_min, c);
-    const V nmax = load3(sc.node_max, c);
-    const int skip = __ldg(sc.node_skip + c);
-    const int data = __ldg(sc.node_data + c);
-    const bool leaf = data != 0;
-    const float limit = kAnyHit ? t_max : best_t;
-    const bool hit = in_blas ? aabb_hit(nmin, nmax, lo, li, t_min, limit)
-                             : aabb_hit(nmin, nmax, o, inv, t_min, limit);
-    if (!in_blas) {
-      if (hit && leaf) {  // enter the instance's BLAS
-        const int inst = data >> 3;
-        const float* m = sc.inst_inv + 16 * clip_index(inst, sc.n_inst);
-        const V r0{__ldg(m + 0), __ldg(m + 1), __ldg(m + 2)};
-        const V r1{__ldg(m + 4), __ldg(m + 5), __ldg(m + 6)};
-        const V r2{__ldg(m + 8), __ldg(m + 9), __ldg(m + 10)};
-        lo = V{__fadd_rn(dot(r0, o), __ldg(m + 3)),
-               __fadd_rn(dot(r1, o), __ldg(m + 7)),
-               __fadd_rn(dot(r2, o), __ldg(m + 11))};
-        ld = V{dot(r0, d), dot(r1, d), dot(r2, d)};
-        li = safe_inv3(ld);
-        const int bstart = __ldg(sc.inst_blas + clip_index(inst, sc.n_inst));
-        bend = __ldg(sc.node_skip + clip_index(bstart, sc.n_nodes));
-        bcur = bstart;
-        cur_inst = inst;
-        in_blas = true;
-      }
-      tcur = (hit && !leaf) ? tcur + 1 : skip;
-    } else {
-      if (hit && leaf) {
-        const int first = data >> 3;
-        const int count = min(data & 7, 4);
-        tris += count;
-        for (int k = 0; k < count; ++k) {
-          const int tri = first + k;
-          const int* tv = sc.tri_v + 3 * clip_index(tri, sc.n_tris);
-          const V p0 = load3(sc.pos, __ldg(tv));
-          const V p1 = load3(sc.pos, __ldg(tv + 1));
-          const V p2 = load3(sc.pos, __ldg(tv + 2));
-          float t;
-          if (tri_hit(lo, ld, p0, p1, p2, t_min, kAnyHit ? t_max : best_t,
-                      &t)) {
-            if (kAnyHit) {
-              occluded = true;
-            } else {
-              best_t = t;
-              best_tri = tri;
-              best_inst = cur_inst;
-            }
-          }
-        }
-      }
-      bcur = (hit && !leaf) ? bcur + 1 : skip;
-      if (bcur >= bend) in_blas = false;
-    }
-    if (kAnyHit && occluded) break;  // the lane's walk is over
-  }
-
-  if (kAnyHit) {
-    out_occ[lane] = occluded ? 1 : 0;
-  } else {
-    out_t[lane] = best_t;
-    out_tri[lane] = best_tri;
-    out_inst[lane] = best_inst;
-  }
-  if (stat_nodes) {
-    stat_nodes[lane] = nodes;
-    stat_tris[lane] = tris;
-  }
+template <bool kAnyHit>
+cudaError_t launch(const Pack& sc, const Rays& in, const Out& out,
+                   cudaStream_t stream) {
+  const int blocks = (in.r + kThreads - 1) / kThreads;
+  bvh_walk_kernel<kAnyHit><<<blocks, kThreads, 0, stream>>>(sc, in, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// One walk of r rays (ro, rd: (r, 3) f32) over the merged node array.
-// tmax_lane (r,) f32 or null for tmax_all; active (r,) bool or null for all.
+// One walk of r rays (ro, rd: (r, 3) f32) over a packed scene
+// (ops/intersect.py::WalkPack; every array 16-byte aligned). tmax_lane
+// (r,) f32 or null for tmax_all; active (r,) bool or null for all.
 // any_hit != 0 writes out_occ (r,) bool; else out_t, out_tri, out_inst (r,).
 // stat_nodes / stat_tris (r,) i32, both or neither. r >= 1.
 extern "C" int wrt_bvh_walk(
-    const float* node_min, const float* node_max, const int* node_skip,
-    const int* node_data, int n_nodes, int tlas_end, const int* tri_v,
-    int n_tris, const float* pos, const float* inst_inv,
-    const int* inst_blas, int n_inst, const float* ro, const float* rd,
-    const float* tmax_lane, float tmax_all, float t_min,
-    const unsigned char* active, int r, int any_hit, float* out_t,
-    int* out_tri, int* out_inst, unsigned char* out_occ, int* stat_nodes,
-    int* stat_tris, cudaStream_t stream) {
-  const Scene sc{node_min, node_max, node_skip, node_data, n_nodes,
-                 tlas_end, tri_v,    n_tris,    pos,       inst_inv,
-                 inst_blas, n_inst};
-  const int max_iters = 4 * n_nodes + 64;
-  const int blocks = (r + kThreads - 1) / kThreads;
-  if (any_hit) {
-    bvh_walk_kernel<true><<<blocks, kThreads, 0, stream>>>(
-        sc, ro, rd, tmax_lane, tmax_all, t_min, active, r, max_iters, out_t,
-        out_tri, out_inst, out_occ, stat_nodes, stat_tris);
-  } else {
-    bvh_walk_kernel<false><<<blocks, kThreads, 0, stream>>>(
-        sc, ro, rd, tmax_lane, tmax_all, t_min, active, r, max_iters, out_t,
-        out_tri, out_inst, out_occ, stat_nodes, stat_tris);
-  }
-  return static_cast<int>(cudaGetLastError());
+    const void* nodes, int n_nodes, int tlas_end, const void* tris,
+    int n_tris, const void* insts, int n_inst, const int* finite,
+    const float* ro, const float* rd, const float* tmax_lane, float tmax_all,
+    float t_min, const unsigned char* active, int r, int any_hit,
+    float* out_t, int* out_tri, int* out_inst, unsigned char* out_occ,
+    int* stat_nodes, int* stat_tris, cudaStream_t stream) {
+  const Pack sc{static_cast<const int4*>(nodes), n_nodes, tlas_end,
+                static_cast<const float4*>(tris), n_tris,
+                static_cast<const float4*>(insts), n_inst, finite};
+  const Rays in{ro, rd, tmax_lane, tmax_all, t_min, active, r,
+                4 * n_nodes + 64};
+  const Out out{out_t, out_tri, out_inst, out_occ, stat_nodes, stat_tris};
+  return static_cast<int>(any_hit ? launch<true>(sc, in, out, stream)
+                                  : launch<false>(sc, in, out, stream));
 }

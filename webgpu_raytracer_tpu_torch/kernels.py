@@ -136,9 +136,9 @@ def library() -> ctypes.CDLL:
                                    _P, _P, _I, _F, _F, _F, _I, _I, _P, _P, _P,
                                    _P, _P, _P]
     lib.wrt_bvh_walk.restype = _I
-    lib.wrt_bvh_walk.argtypes = [_P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P,
-                                 _I, _P, _P, _P, _F, _F, _P, _I, _I, _P, _P,
-                                 _P, _P, _P, _P, _P]
+    lib.wrt_bvh_walk.argtypes = [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P,
+                                 _F, _F, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+                                 _P]
     return lib
 
 

@@ -12,11 +12,18 @@ compares across spaces.
   It works on the lanes still alive, dropping finished ones as the set
   halves, which changes no lane's result: a lane's walk depends on its own
   state alone.
-- `csrc/bvh_walk.cu` (`wrt_bvh_walk`): one thread walks one ray to its end;
-  its source says what bounds it on the card.
+- `csrc/bvh_walk.cu` (`wrt_bvh_walk`): one thread walks one ray to its end
+  over the packed records of `pack_walk`; its source says what bounds it on
+  the card and what was measured against its design.
+- `pack_walk`: the scene as the kernel reads it (`WalkPack`): a node in
+  32 bytes, a triangle as (p0, e1, e2) in 48, an instance's matrix rows and
+  BLAS span in 64, and whether every node bound is finite. Built once a
+  `trace_pixels` call; the walks take it as `pack=`, or build it when it is
+  not given.
 
 `intersect_closest` and `intersect_shadow` launch the kernel for CUDA
-tensors and take the plain walk for CPU tensors; there is no fallback.
+tensors and take the plain walk (on the unpacked arrays) for CPU tensors;
+there is no fallback.
 Both evaluate every product, sum and quotient as a separately rounded f32
 operation in the order written here (sums of three left to right, the
 instance transform row by row plus its translation last), so kernel and
@@ -45,6 +52,42 @@ class Hit(NamedTuple):
 class WalkStats(NamedTuple):
     nodes: torch.Tensor  # (R,) int32 nodes visited
     tris: torch.Tensor   # (R,) int32 triangles tested
+
+
+class WalkPack(NamedTuple):
+    """A DeviceScene as `csrc/bvh_walk.cu` reads it: the same bits, one
+    16-byte-aligned record a node, a triangle and an instance."""
+
+    nodes: torch.Tensor   # (N, 8) int32: min.xyz bits, skip, max.xyz, data
+    tris: torch.Tensor    # (T, 12) f32: p0, 0, p1 - p0, 0, p2 - p0, 0
+    insts: torch.Tensor   # (I, 16) int32: inst_inv rows 0-2, start, end, 0, 0
+    finite: torch.Tensor  # (1,) int32: 1 when every node bound is finite
+    tlas_end: int         # the scene's tlas_count
+
+
+def pack_walk(scene) -> WalkPack:
+    """The walk kernel's records of `scene`, on its device. e1 and e2 are
+    the f32 differences `moller_trumbore` forms; an instance's BLAS end is
+    `node_skip[inst_blas]`, as the walk reads it on entry. No host sync."""
+    i32 = torch.int32
+    n = scene.node_min.shape[0]
+    nodes = torch.cat([scene.node_min.view(i32), scene.node_skip[:, None],
+                       scene.node_max.view(i32), scene.node_data[:, None]],
+                      dim=1)
+    p = scene.pos[scene.tri_v.long()]
+    pad = torch.zeros_like(p[:, 0, :1])
+    tris = torch.cat([p[:, 0], pad, p[:, 1] - p[:, 0], pad,
+                      p[:, 2] - p[:, 0], pad], dim=1)
+    start = scene.inst_blas
+    end = scene.node_skip[start.clamp(0, n - 1).long()]
+    rows = scene.inst_inv[:, :3, :].reshape(-1, 12).view(i32)
+    zero = torch.zeros_like(start)
+    insts = torch.cat([rows, torch.stack([start, end, zero, zero], 1)],
+                      dim=1)
+    finite = (torch.isfinite(scene.node_min).all()
+              & torch.isfinite(scene.node_max).all()).to(i32).reshape(1)
+    return WalkPack(nodes.contiguous(), tris.contiguous(),
+                    insts.contiguous(), finite, int(scene.tlas_count))
 
 
 def _dot(a, b):
@@ -262,36 +305,43 @@ def traverse_plain(scene, ro, rd, t_min: float, t_max, active,
     return Hit(out_t, out_tri, out_inst), stats
 
 
-def _check_scene(scene, dev):
-    for name in ("node_min", "node_max", "pos"):
-        kernels.check(getattr(scene, name), name, torch.float32, device=dev)
-    for name in ("node_skip", "node_data", "tri_v", "inst_blas"):
-        kernels.check(getattr(scene, name), name, torch.int32, device=dev)
-    kernels.check(scene.inst_inv, "inst_inv", torch.float32, device=dev)
-    n = scene.node_min.shape[0]
-    if scene.node_min.shape != (n, 3) or scene.node_max.shape != (n, 3) \
-            or scene.node_skip.shape != (n,) \
-            or scene.node_data.shape != (n,):
-        raise ValueError("node arrays: expected (N, 3), (N, 3), (N,), (N,)")
-    if scene.tri_v.dim() != 2 or scene.tri_v.shape[1] != 3 \
-            or scene.pos.dim() != 2 or scene.pos.shape[1] != 3:
-        raise ValueError("tri_v and pos: expected (T, 3) and (V, 3)")
-    i = scene.inst_inv.shape[0]
-    if scene.inst_inv.shape != (i, 4, 4) or scene.inst_blas.shape != (i,):
-        raise ValueError("inst_inv, inst_blas: expected (I, 4, 4), (I,)")
-    if min(n, scene.tri_v.shape[0], i) < 1:
+def _check_pack(pack: WalkPack, dev):
+    n, t, i = (pack.nodes.shape[0], pack.tris.shape[0],
+               pack.insts.shape[0])
+    kernels.check(pack.nodes, "pack.nodes", torch.int32, (n, 8), dev)
+    kernels.check(pack.tris, "pack.tris", torch.float32, (t, 12), dev)
+    kernels.check(pack.insts, "pack.insts", torch.int32, (i, 16), dev)
+    kernels.check(pack.finite, "pack.finite", torch.int32, (1,), dev)
+    if min(n, t, i) < 1:
         raise ValueError("the scene needs a node, a triangle, an instance")
+    if any(x.data_ptr() % 16 for x in pack[:3]):
+        raise ValueError("pack: records must be 16-byte aligned")
 
 
 def walk_cuda(scene, ro, rd, t_min: float, t_max, active, any_hit: bool,
-              with_stats: bool = False):
+              with_stats: bool = False, pack: WalkPack | None = None):
     """`csrc/bvh_walk.cu` over CUDA tensors: (Hit or occluded, WalkStats or
-    None)."""
+    None). The kernel reads `pack` (`pack_walk(scene)` when not given)."""
+    if pack is not None and (
+            (pack.nodes.shape[0], pack.tris.shape[0], pack.insts.shape[0],
+             pack.tlas_end)
+            != (scene.node_min.shape[0], scene.tri_v.shape[0],
+                scene.inst_inv.shape[0], int(scene.tlas_count))):
+        raise ValueError("pack: not built from this scene (node, triangle, "
+                         "instance or TLAS counts differ)")
     dev = ro.device
     R = ro.shape[0]
     kernels.check(ro, "ro", torch.float32, (R, 3), dev)
     kernels.check(rd, "rd", torch.float32, (R, 3), dev)
-    _check_scene(scene, dev)
+    if pack is None:
+        for name in ("node_min", "node_max", "pos", "inst_inv"):
+            kernels.check(getattr(scene, name), name, torch.float32,
+                          device=dev)
+        for name in ("node_skip", "node_data", "tri_v", "inst_blas"):
+            kernels.check(getattr(scene, name), name, torch.int32,
+                          device=dev)
+        pack = pack_walk(scene)
+    _check_pack(pack, dev)
     tmax_lane, tmax_all = None, 0.0
     if isinstance(t_max, torch.Tensor) and t_max.dim() > 0:
         tmax_lane = t_max
@@ -318,12 +368,10 @@ def walk_cuda(scene, ro, rd, t_min: float, t_max, active, any_hit: bool,
     p = kernels.ptr
     with torch.cuda.device(dev):
         code = lib.wrt_bvh_walk(
-            p(scene.node_min), p(scene.node_max), p(scene.node_skip),
-            p(scene.node_data), scene.node_min.shape[0],
-            int(scene.tlas_count), p(scene.tri_v), scene.tri_v.shape[0],
-            p(scene.pos), p(scene.inst_inv), p(scene.inst_blas),
-            scene.inst_inv.shape[0], p(ro), p(rd), p(tmax_lane), tmax_all,
-            t_min, p(active), R, int(any_hit), p(t), p(tri), p(inst), p(occ),
+            p(pack.nodes), pack.nodes.shape[0], pack.tlas_end, p(pack.tris),
+            pack.tris.shape[0], p(pack.insts), pack.insts.shape[0],
+            p(pack.finite), p(ro), p(rd), p(tmax_lane), tmax_all, t_min,
+            p(active), R, int(any_hit), p(t), p(tri), p(inst), p(occ),
             p(stats.nodes if stats else None),
             p(stats.tris if stats else None), kernels.stream(dev))
     kernels.raise_on_error(code, "bvh_walk")
@@ -331,13 +379,13 @@ def walk_cuda(scene, ro, rd, t_min: float, t_max, active, any_hit: bool,
     return out
 
 
-def _walk(scene, ro, rd, t_min, t_max, active, any_hit, with_stats):
+def _walk(scene, ro, rd, t_min, t_max, active, any_hit, with_stats, pack):
     if ro.device.type == "cpu":
-        out, stats = traverse_plain(scene, ro, rd, t_min, t_max, active,
-                                    any_hit)
+        out, stats = traverse_plain(scene, ro, rd, t_min, t_max,
+                                    _active(ro, active), any_hit)
     else:
         out, stats = walk_cuda(scene, ro, rd, t_min, t_max, active, any_hit,
-                               with_stats)
+                               with_stats, pack)
     return (out, stats) if with_stats else out
 
 
@@ -348,15 +396,19 @@ def _active(ro, active):
 
 
 def intersect_closest(scene, ro, rd, t_min: float = T_MIN,
-                      t_max=T_MAX, active=None, with_stats: bool = False):
+                      t_max=T_MAX, active=None, with_stats: bool = False,
+                      pack: WalkPack | None = None):
     """Closest hit over the two-level BVH: Hit, and WalkStats with
-    with_stats. ro, rd (R, 3) f32; t_max a float or (R,) f32."""
-    return _walk(scene, ro, rd, float(t_min), t_max, _active(ro, active),
-                 False, with_stats)
+    with_stats. ro, rd (R, 3) f32; t_max a float or (R,) f32. On the card
+    the kernel reads `pack` (built from `scene` when not given); the CPU
+    walks `scene`'s arrays."""
+    return _walk(scene, ro, rd, float(t_min), t_max, active, False,
+                 with_stats, pack)
 
 
 def intersect_shadow(scene, ro, rd, t_max, t_min: float = T_MIN,
-                     active=None, with_stats: bool = False):
+                     active=None, with_stats: bool = False,
+                     pack: WalkPack | None = None):
     """Any-hit occlusion: (R,) bool, and WalkStats with with_stats."""
-    return _walk(scene, ro, rd, float(t_min), t_max, _active(ro, active),
-                 True, with_stats)
+    return _walk(scene, ro, rd, float(t_min), t_max, active, True,
+                 with_stats, pack)

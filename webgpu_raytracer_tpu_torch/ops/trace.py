@@ -31,7 +31,8 @@ import torch
 
 from . import bsdf
 from .bsdf import PI, cross, dot, norm, normalize, power_heuristic
-from .intersect import instance_ray, intersect_closest, intersect_shadow
+from .intersect import (instance_ray, intersect_closest, intersect_shadow,
+                        pack_walk)
 from .rng import init_rng, rand_n, rand_pcg
 from .v3 import sqrt_rn
 
@@ -227,13 +228,14 @@ def _col(mask):
     return mask[:, None]
 
 
-def ray_color(scene, ro, rd, rng, max_depth: int):
+def ray_color(scene, ro, rd, rng, max_depth: int, pack=None):
     """Trace rays to completion: (radiance (R, 3), rng, rays), `rays` the
     exact float64 device count of rays traced (primaries, NEE shadow lanes
-    and extension lanes actually walked)."""
+    and extension lanes actually walked). On the card the walks read `pack`
+    (`intersect.pack_walk(scene)`, which `trace_pixels` builds)."""
     R = ro.shape[0]
     dev = ro.device
-    primary = intersect_closest(scene, ro, rd)
+    primary = intersect_closest(scene, ro, rd, pack=pack)
     hd = load_hit(scene, ro, rd, primary.tri_idx, primary.inst_idx)
     active = primary.inst_idx >= 0
     throughput = torch.ones((R, 3), dtype=torch.float32, device=dev)
@@ -288,7 +290,7 @@ def ray_color(scene, ro, rd, rng, max_depth: int):
             scene, hit_p + geom_n * eps[:, None], ls.dir,
             t_max=ls.dist - 2.0 * torch.maximum(
                 eps, _offset_eps(hit_p + ls.dir * ls.dist[:, None])),
-            active=nee_lane)
+            active=nee_lane, pack=pack)
         n_dot_l = torch.clamp(dot(normal, ls.dir), min=0.0)
         bsdf_diff = bsdf.eval_diffuse(albedo)
         pdf_diff = n_dot_l / PI
@@ -348,7 +350,7 @@ def ray_color(scene, ro, rd, rng, max_depth: int):
         if depth == max_depth - 1:
             break  # no lane may continue: the last bounce walks no more
         # Next intersection.
-        nxt = intersect_closest(scene, ro, rd, active=active)
+        nxt = intersect_closest(scene, ro, rd, active=active, pack=pack)
         found = active & (nxt.inst_idx >= 0)
         hdn = load_hit(scene, ro, rd, nxt.tri_idx, nxt.inst_idx)
         rays = rays + active.sum(dtype=torch.float64)
@@ -381,7 +383,8 @@ def trace_pixels(scene, camera24, frame_count: int, jitter, width: int,
                  total_spp: int | None = None, sample0: int = 0,
                  with_stats: bool = False):
     """One frame's radiance, (H*W, 3) averaged over spp; with with_stats,
-    (radiance, rays) with the exact float64 device ray count.
+    (radiance, rays) with the exact float64 device ray count. On the card
+    the scene's `WalkPack` is built once a call, for all its walks.
 
     row0 / full_height: this call renders rows [row0, row0 + height) of a
     full_height-tall frame with the frame's pixel indices and jitter (tile
@@ -395,6 +398,7 @@ def trace_pixels(scene, camera24, frame_count: int, jitter, width: int,
     cam = camera_unpack(camera24)
     dev = camera24.device
     R = width * height
+    pack = pack_walk(scene) if dev.type == "cuda" else None
     lane = torch.arange(R, dtype=torch.int64, device=dev)
     gx = lane % width
     gy = lane // width + row0
@@ -420,7 +424,7 @@ def trace_pixels(scene, camera24, frame_count: int, jitter, width: int,
              + v[:, None] * cam["vertical"][None] - cam["origin"][None]
              - off)
         ro = cam["origin"][None, :] + off
-        col, _, r = ray_color(scene, ro, d, rng, max_depth)
+        col, _, r = ray_color(scene, ro, d, rng, max_depth, pack)
         acc = acc + col
         rays = rays + r
     col = acc / spp
