@@ -50,6 +50,17 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
    - the textured quad GLB (bench.py's config 3) at 1920x1080 d8 x 8 through
      `ray_color_dense`, mean within 2% of 0.2739, from a texture decoded
      without PIL and checked to be red and blue;
+   - texture formats: every JPEG of `tests/fixtures/torch_textures/`
+     decodes to Pillow's digest (`digests.json` there; this machine needs
+     no Pillow), the PNGs written here (16-bit RGB Adam7, 4-bit palette)
+     to their pixels; host ms of `decode_texture` on a 2048^2 JPEG, a
+     2048^2 16-bit Adam7 PNG and the 8-bit PNG of the same pixels, and of
+     `build_quad_pyramid`; the formats scene (the quad with four texture
+     slots in four formats) at 1920x1080 d8 through `Renderer` x 8, every
+     frame bit-equal to its twin of 8-bit PNGs of the port's decodes (both
+     counted); the quad fetch on its four-layer level 0 and mip with the
+     rows of a 1080p primary hit, one layer a lane in turn, bit-equal to
+     its plain version and timed beside `index_select`;
    - G-buffer-seeded cornell 1920x1080 d8 x 8, mean within 2% of 0.1766,
      frame 1 bit-equal to the traced frame 1;
    - the textured `Renderer` at 512^2 d8, `render_frame(use_gbuffer=True)`
@@ -100,6 +111,7 @@ non-zero before printing any result. It imports no JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import struct
@@ -108,6 +120,7 @@ import sys
 import tempfile
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -152,10 +165,12 @@ from webgpu_raytracer_tpu_torch.render.recorder import VideoRecorder
 from webgpu_raytracer_tpu_torch.render.resources import build_device_scene
 from webgpu_raytracer_tpu_torch.render.worldtris import (SHADE_COLS,
                                                          build_world_tables)
-from webgpu_raytracer_tpu_torch.utils.images import png_rgb
+from webgpu_raytracer_tpu_torch.utils.images import jpeg_rgb, png_rgb
+from webgpu_raytracer_tpu_torch.utils.jpeg import decode_jpeg
 from webgpu_raytracer_tpu_torch.utils.profiling import synchronize
 from webgpu_raytracer_tpu_torch.utils.textures import (build_quad_pyramid,
                                                        decode_png,
+                                                       decode_texture,
                                                        decode_world_textures)
 
 # bench.py's golden mean radiance (same estimator) and its 2% gate
@@ -234,24 +249,20 @@ def glb(doc: dict, blobs: list[bytes]) -> bytes:
             + struct.pack("<II", len(bin_data), 0x004E4942) + bin_data)
 
 
-def textured_quad_glb() -> bytes:
-    """tests/glb_fixture.textured_quad_glb without PIL: the same quad and
-    the same 8x8 image, left half red and right half blue, as a PNG
-    baseColorTexture."""
-    img = np.zeros((8, 8, 3), np.uint8)
-    img[:, :4] = [255, 0, 0]
-    img[:, 4:] = [0, 0, 255]
-    png = png_rgb(img)
+def quad_glb(images: list[tuple[bytes, str]], material: dict) -> bytes:
+    """The textured quad's geometry (a unit quad at y = 1, normals +z,
+    UVs over [0, 1]^2) with `images` ((bytes, mimeType) each, texture i
+    reading image i) and one `material`."""
     positions = np.array(
         [[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]], np.float32)
     normals = np.tile(np.array([[0, 0, 1]], np.float32), (4, 1))
     uvs = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
     indices = np.array([0, 1, 2, 0, 2, 3], np.uint16)
     blobs = [positions.tobytes(), normals.tobytes(), uvs.tobytes(),
-             indices.tobytes(), png]
+             indices.tobytes()] + [data for data, _ in images]
     offsets = np.cumsum([0] + [len(pad4(b)) for b in blobs[:-1]]).tolist()
     bin_data = b"".join(pad4(b) for b in blobs)
-    views = [48, 48, 32, 12, len(png)]
+    views = [48, 48, 32, 12] + [len(data) for data, _ in images]
     doc = {
         "asset": {"version": "2.0"},
         "scene": 0,
@@ -270,15 +281,10 @@ def textured_quad_glb() -> bytes:
             {"bufferView": 3, "componentType": 5123, "count": 6,
              "type": "SCALAR"},
         ],
-        "images": [{"bufferView": 4, "mimeType": "image/png"}],
-        "textures": [{"source": 0}],
-        "materials": [{
-            "pbrMetallicRoughness": {
-                "baseColorFactor": [1.0, 1.0, 1.0, 1.0],
-                "baseColorTexture": {"index": 0},
-                "metallicFactor": 0.0,
-            },
-        }],
+        "images": [{"bufferView": 4 + i, "mimeType": mime}
+                   for i, (_, mime) in enumerate(images)],
+        "textures": [{"source": i} for i in range(len(images))],
+        "materials": [material],
         "meshes": [{"primitives": [{
             "attributes": {"POSITION": 0, "NORMAL": 1, "TEXCOORD_0": 2},
             "indices": 3,
@@ -286,6 +292,92 @@ def textured_quad_glb() -> bytes:
         }]}],
     }
     return glb(doc, blobs)
+
+
+def textured_quad_glb() -> bytes:
+    """tests/glb_fixture.textured_quad_glb without PIL: the same quad and
+    the same 8x8 image, left half red and right half blue, as a PNG
+    baseColorTexture."""
+    img = np.zeros((8, 8, 3), np.uint8)
+    img[:, :4] = [255, 0, 0]
+    img[:, 4:] = [0, 0, 255]
+    return quad_glb([(png_rgb(img), "image/png")], {
+        "pbrMetallicRoughness": {
+            "baseColorFactor": [1.0, 1.0, 1.0, 1.0],
+            "baseColorTexture": {"index": 0},
+            "metallicFactor": 0.0,
+        },
+    })
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))  # (x0, y0, dx, dy)
+
+
+def png_bytes(px, color_type: int, filters=(0,), palette=None,
+              depth: int = 8, interlace: int = 0) -> bytes:
+    """A PNG of (H, W, C) samples below 2^depth, written without PIL.
+
+    Samples are packed at `depth` bits (MSB first below 8 bits, big-endian
+    at 16), each row byte-padded; with interlace 1 the image goes as the
+    seven Adam7 passes, each a sub-image with its own filtered rows (a pass
+    with no columns or rows writes nothing). Row y of a pass takes filter
+    filters[y % len(filters)] (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)
+    over bytes, `bpp` = max(1, C * depth // 8) apart."""
+    px = np.asarray(px, np.int64)
+    h, w, c = px.shape
+    bpp = max(1, c * depth // 8)
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    raw = bytearray()
+    for x0, y0, dx, dy in passes:
+        sub = px[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        if depth == 16:
+            rows = sub.astype(">u2").reshape(sub.shape[0], -1).view(
+                np.uint8)
+        elif depth == 8:
+            rows = sub.astype(np.uint8).reshape(sub.shape[0], -1)
+        else:
+            bits = (sub.reshape(sub.shape[0], -1, 1)
+                    >> np.arange(depth - 1, -1, -1)) & 1
+            rows = np.packbits(bits.reshape(sub.shape[0], -1).astype(
+                np.uint8), axis=1)
+        rows = rows.astype(np.int64)
+        prior = np.zeros(rows.shape[1], np.int64)
+        zero = np.zeros(bpp, np.int64)
+        for y, cur in enumerate(rows):
+            left = np.concatenate([zero, cur[:-bpp]])[:cur.size]
+            upleft = np.concatenate([zero, prior[:-bpp]])[:cur.size]
+            f = filters[y % len(filters)]
+            if f == 0:
+                pred = 0
+            elif f == 1:
+                pred = left
+            elif f == 2:
+                pred = prior
+            elif f == 3:
+                pred = (left + prior) >> 1
+            else:
+                p = left + prior - upleft
+                pa, pb, pc = (np.abs(p - left), np.abs(p - prior),
+                              np.abs(p - upleft))
+                pred = np.where((pa <= pb) & (pa <= pc), left,
+                                np.where(pb <= pc, prior, upleft))
+            raw += bytes([f]) + ((cur - pred) & 0xFF).astype(
+                np.uint8).tobytes()
+            prior = cur
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, color_type, 0, 0, interlace))
+    if palette is not None:
+        out += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return out + chunk(b"IDAT", zlib.compress(bytes(raw))) \
+        + chunk(b"IEND", b"")
 
 
 def skinned_strip_glb() -> bytes:
@@ -1330,17 +1422,22 @@ def frames(tables, camera, width, height, n, golden_key, textures=None,
 
 
 def renderer_frames(r: Renderer, n: int, label: str, per_frame: dict,
-                    use_gbuffer=False):
+                    use_gbuffer=False, keep: list | None = None):
     """n x (render_frame + present) through the user's entry points; the
-    Renderer's own launch counts must be n x per_frame."""
+    Renderer's own launch counts must be n x per_frame. `keep` collects a
+    copy of the accumulator after every frame."""
     r.render_frame(use_gbuffer=use_gbuffer)
     r.present()
+    if keep is not None:
+        keep.append(r.accum.clone())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rays = 0.0
     for _ in range(n - 1):
         r.render_frame(use_gbuffer=use_gbuffer)
         img = r.present()  # copies to the host: synchronises
+        if keep is not None:
+            keep.append(r.accum.clone())
         rays += float(r.last_rays)
     seconds = time.perf_counter() - t0
     assert img.shape == (r.height, r.width, 3) and img.dtype == np.uint8
@@ -1401,6 +1498,203 @@ def drive(label: str, n_frames: int, per_frame: dict, fn, totals: dict):
     print(f"launches, {label} ({n_frames} frames): {counts}")
     for k, v in counts.items():
         totals[k] += v
+
+
+FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "torch_textures")
+FORMATS_DECODE = 2048  # side of the images the decode times are taken on
+# emissiveFactor of the formats quad: |f|^2 = 9.7e-5 stays under the scene
+# compiler's 1e-4 light threshold, so the quad is no light and its emission
+# is this factor times the emissive texture.
+FORMATS_EMISSIVE = 0.0057
+
+
+def smooth_noise(height: int, width: int, channels: int, seed: int,
+                 top: int = 255) -> np.ndarray:
+    """(height, width, channels) int64 samples in [0, top]: gradients plus
+    seeded noise."""
+    rs = np.random.default_rng(seed)
+    y, x = np.mgrid[0:height, 0:width].astype(np.float64)
+    k = np.arange(channels)
+    base = 0.5 + 0.4 * np.sin(x[..., None] / (0.01 * width + 7 * k + 5)
+                              + y[..., None] / (0.013 * height + 5 * k + 3))
+    noise = rs.normal(0, 0.04, base.shape)
+    return np.clip(np.rint((base + noise) * top), 0, top).astype(np.int64)
+
+
+def formats_images() -> list[tuple[str, bytes, np.ndarray | None]]:
+    """The four images of the formats scene, in texture order (base
+    colour, metallic-roughness, normal, emissive): (name, bytes, the RGB
+    Pillow gives, or None where `digests.json` holds it). The JPEGs are
+    the committed fixtures; the PNGs are written here."""
+    out = []
+    for name in ("baseline_420_odd", "progressive_420"):
+        with open(os.path.join(FIXTURE_DIR, f"{name}.jpg"), "rb") as f:
+            out.append((f"{name}.jpg", f.read(), None))
+    normal = smooth_noise(47, 61, 3, 7, top=65535)
+    out.append(("normal, 16-bit RGB Adam7 PNG 61x47",
+                png_bytes(normal, 2, filters=(0, 1, 2, 3, 4), depth=16,
+                          interlace=1), (normal >> 8).astype(np.uint8)))
+    rs = np.random.default_rng(8)
+    palette = rs.integers(0, 256, (16, 3))
+    index = smooth_noise(29, 37, 1, 9, top=15)
+    out.append(("emissive, 4-bit palette PNG 37x29",
+                png_bytes(index, 3, filters=(0, 1, 2, 3, 4),
+                          palette=palette, depth=4),
+                palette[index[..., 0]].astype(np.uint8)))
+    return out
+
+
+def formats_glb(images: list[bytes], mimes: list[str]) -> bytes:
+    """The textured quad with one image in each texture slot the scene
+    compiler reads: base colour, metallic-roughness (metallicFactor 1, so
+    the texture's blue channel is the metalness), normal and emissive."""
+    return quad_glb(list(zip(images, mimes)), {
+        "pbrMetallicRoughness": {
+            "baseColorFactor": [1.0, 1.0, 1.0, 1.0],
+            "baseColorTexture": {"index": 0},
+            "metallicFactor": 1.0,
+            "roughnessFactor": 1.0,
+            "metallicRoughnessTexture": {"index": 1},
+        },
+        "normalTexture": {"index": 2},
+        "emissiveTexture": {"index": 3},
+        "emissiveFactor": [FORMATS_EMISSIVE] * 3,
+    })
+
+
+def formats_scene_glb(twin: bool = False) -> bytes:
+    """The texture formats scene; with twin=True the same scene whose four
+    images are the port's decodes of them, written as 8-bit RGB PNGs."""
+    images = [data for _, data, _ in formats_images()]
+    if twin:
+        return formats_glb([png_rgb(decode_image(d)) for d in images],
+                           ["image/png"] * 4)
+    return formats_glb(images, ["image/jpeg"] * 2 + ["image/png"] * 2)
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    return decode_png(data) if data.startswith(b"\x89PNG") \
+        else decode_jpeg(data)
+
+
+def cpu_model() -> str:
+    """The host CPU as /proc/cpuinfo names it, with its core count."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    return (f"{info.get('model name', '?')} (vendor "
+            f"{info.get('vendor_id', '?')}, family "
+            f"{info.get('cpu family', '?')}, model {info.get('model', '?')}), "
+            f"{os.cpu_count()} cores")
+
+
+def host_ms(fn, repeat: int = 2):
+    """(fastest host ms of `repeat` calls, the last result)."""
+    best, out = float("inf"), None
+    for _ in range(repeat):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, 1e3 * (time.perf_counter() - t0))
+    return best, out
+
+
+def decode_times(smi_line: str) -> None:
+    """Host ms of `decode_texture` (decode + resize to 1024^2) on three
+    FORMATS_DECODE^2 images of the same seeded pixels: a 4:4:4 baseline
+    JPEG (quality 85) from the port's own writer, a 16-bit RGB Adam7 PNG
+    (rows cycling through the five filters) whose high bytes are those
+    pixels, and the 8-bit PNG of `png_rgb` (filter 0), the yardstick; then
+    `build_quad_pyramid` of the three layers."""
+    n = FORMATS_DECODE
+    px16 = smooth_noise(n, n, 3, 11, top=65535)
+    px = (px16 >> 8).astype(np.uint8)
+    files = [("JPEG 4:4:4 q85", jpeg_rgb(px, 85)),
+             ("16-bit RGB Adam7 PNG", png_bytes(
+                 px16, 2, filters=(0, 1, 2, 3, 4), depth=16, interlace=1)),
+             ("8-bit RGB PNG", png_rgb(px))]
+    layers = []
+    for label, data in files:
+        ms, tex = host_ms(lambda: decode_texture(data))
+        assert tex.shape == (1024, 1024, 3) and not (tex == 0.8).all(), \
+            f"{label}: the decode fell back to the fill"
+        layers.append(tex)
+        print(f"decode_texture {label} {n}x{n} ({len(data) / 1e6:.2f} MB): "
+              f"{ms:.1f} ms host")
+    np.testing.assert_array_equal(layers[1], layers[2])
+    ms, _ = host_ms(lambda: build_quad_pyramid(np.stack(layers)))
+    print(f"build_quad_pyramid of 3 layers of 1024^2: {ms:.1f} ms host")
+    print(f"(host times on {cpu_model()}, beside {smi_line}; fastest of 2 "
+          f"calls; the 16-bit PNG decodes to the 8-bit PNG's texture bit "
+          f"for bit)")
+
+
+def texture_formats(dev, smi_line: str, totals: dict) -> dict:
+    """The texture formats phase: every JPEG fixture decodes to Pillow's
+    digest and every written PNG to the pixels it holds; decode times;
+    the formats scene (four texture layers: a 4:2:0 JPEG, a progressive
+    JPEG, a 16-bit Adam7 PNG and a 4-bit palette PNG) at 1920x1080 d8
+    through `Renderer`, its frames bit-equal to a twin scene whose images
+    are the port's decodes as 8-bit PNGs; the quad fetch on the scene's
+    four-layer level 0 and mip. Returns the quad fetch's kernel row."""
+    with open(os.path.join(FIXTURE_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    for name, want in sorted(digests.items()):
+        with open(os.path.join(FIXTURE_DIR, name), "rb") as f:
+            rgb = decode_jpeg(f.read())
+        digest = hashlib.sha256(np.ascontiguousarray(rgb).tobytes())
+        assert list(rgb.shape) == want["shape"], f"{name}: {rgb.shape}"
+        assert digest.hexdigest() == want["sha256"], \
+            f"{name}: decode differs from Pillow's"
+        print(f"texture formats: {name} {rgb.shape[1]}x{rgb.shape[0]} "
+              f"decodes to Pillow's digest {want['sha256'][:16]}")
+    for name, data, want in formats_images():
+        if want is not None:
+            np.testing.assert_array_equal(decode_image(data), want,
+                                          err_msg=name)
+            print(f"texture formats: {name} decodes to its pixels")
+    decode_times(smi_line)
+
+    glb_formats = formats_scene_glb()
+    glb_twin = formats_scene_glb(twin=True)
+    cfg = RenderConfig(width=HD[0], height=HD[1], max_depth=DEPTH)
+    rf = Renderer("viewer", config=cfg, glb_data=glb_formats, device=dev)
+    twin = Renderer("viewer", config=cfg, glb_data=glb_twin, device=dev)
+    assert rf.textures[0].shape == (4, 1024, 1024)
+    assert rf.textures[1].shape == (4, 128, 128)  # 4 * 128^2 = KRON_MAX_ROWS
+    assert rf.tables.tex_slots == (True, True, True, True)
+    per_frame = textured_launches(rf.tables, False)
+    frames_f, frames_t = [], []
+    drive("Renderer texture formats 1080p", 8, per_frame,
+          lambda: renderer_frames(rf, 8, f"texture formats {HD[0]}x{HD[1]} "
+                                  f"d{DEPTH}", per_frame, keep=frames_f),
+          totals)
+    formats_quads = kernels.launches["fetch_quad"]
+    drive("Renderer texture formats twin (8-bit PNGs) 1080p", 8, per_frame,
+          lambda: renderer_frames(twin, 8, f"texture formats twin "
+                                  f"{HD[0]}x{HD[1]} d{DEPTH}", per_frame,
+                                  keep=frames_t), totals)
+    for i, (a, b) in enumerate(zip(frames_f, frames_t)):
+        assert bits_equal(a, b), f"texture formats: frame {i + 1} differs " \
+            f"from the twin's"
+    print(f"texture formats 1080p d{DEPTH}: mean radiance "
+          f"{float(rf.radiance().mean()):.4f}; all 8 frames bit-equal to "
+          f"the twin's (8-bit PNGs of the port's decodes)")
+
+    ro, rd = pinhole_rays(rf.camera, *HD)
+    hit = intersect_and_shade(rf.tables, rf.textures, ro, rd)
+    lane = torch.arange(HD[0] * HD[1], device=dev, dtype=torch.int32)
+    layer = torch.where(hit.wt >= 0, lane % 4, -1)  # every layer in turn
+    rows0 = texel_rows(rf.textures[0], layer, hit.tex_u, hit.tex_v)[0]
+    rows1 = texel_rows(rf.textures[1], layer, hit.tex_u, hit.tex_v)[0]
+    row = check_fetch_quad([
+        ("texture formats mip 4 x 128^2, 1080p rows",
+         rf.textures[1].flat, rows1),
+        ("texture formats level 0 4 x 1024^2, 1080p rows",
+         rf.textures[0].flat, rows0)])
+    return dict(row, name="fetch_quad_4_layers", launches=formats_quads)
 
 
 def animated_tick(dev, totals: dict) -> None:
@@ -1824,6 +2118,7 @@ def main(argv: list[str]) -> int:
           textured_launches(tq_tables, False),
           lambda: frames(tq_tables, tq_cam, *hd, 8, "textured_1080p",
                          textures=tq_tex), totals)
+    results.append(texture_formats(dev, smi_line, totals))
 
     seeded_hd = []
     drive("cornell 1080p G-buffer seeded", 8, rows_launches(True),
@@ -1941,8 +2236,9 @@ def main(argv: list[str]) -> int:
                 bvh_sp, sp_cam, 1, jit0, width, height, 1, DEPTH)),
         ])
 
-    for res in results:
-        res["launches"] = totals[res["name"]]
+    for res in results:  # the formats row holds its own scene's count
+        if "launches" not in res:
+            res["launches"] = totals[res["name"]]
         assert res["launches"] > 0, f"{res['name']} never ran on a path"
     print(smi_line)
     print(json.dumps({"kernels": results}))

@@ -9,7 +9,10 @@
   textured quad at 32^2 d4 and the character GLB (1294 tris over 11 tiles,
   2 textures, an emissive-textured collar, a metallic head) at 16^2 d3
   through the port's `ray_color_dense`, each package with its own decode;
-  G-buffer-seeded cornell at 32^2 d4, each seeded from its own G-buffer.
+  G-buffer-seeded cornell at 32^2 d4, each seeded from its own G-buffer;
+  and `chip_smoke.py`'s texture formats scene at 32^2 d4 (a 4:2:0 and a
+  progressive JPEG, a 16-bit Adam7 PNG and a 4-bit palette PNG in the
+  base, metal-rough, normal and emissive slots; Pillow in JAX).
   The textured quad's mean at 64^2 d8 over 4 frames within 2% of JAX's.
   And on the third slice's: `spheres` (257,136 tris over 2,009 tiles) at
   16^2 d3, frames 1..2. And on the fourth's: mixed (35 tiles) at 32^2 d4
@@ -66,6 +69,7 @@ from webgpu_raytracer_tpu_torch.render.worldtris import build_world_tables
 from webgpu_raytracer_tpu_torch.utils import textures as port_textures
 from webgpu_raytracer_tpu_torch.utils.halton import frame_jitter
 
+import chip_smoke
 from tests.glb_fixture import character_glb, textured_quad_glb
 from tests.test_golden import GOLDEN
 from tests.torch_common import jax_and_port_tables
@@ -76,7 +80,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The second slice's frames: name -> (scene, GLB, res, depth, seeded).
 SLICE2 = {"textured": ("viewer", textured_quad_glb, 32, 4, False),
           "character": ("viewer", character_glb, 16, 3, False),
-          "cornell_seeded": ("cornell", None, 32, 4, True)}
+          "cornell_seeded": ("cornell", None, 32, 4, True),
+          "formats": ("viewer", chip_smoke.formats_scene_glb, 32, 4,
+                      False)}
 SLICE2_FRAMES = 4
 # The third slice's: multi-tile scenes through the job-stream path.
 SLICE3 = {"spheres": ("spheres", None, 16, 3, False)}
@@ -434,10 +440,10 @@ def test_renderer_large_scene_not_ported():
 
 def test_package_imports_no_jax():
     """A fresh process imports the port (its CLI, recorder, checkpoint,
-    preview, farm and profiling modules too), builds a world, renders a CPU
-    frame and records one through `record_chunks`: no JAX, no Pillow, no
-    module of the JAX package, and the scene compiler mapped from the
-    port's own build directory."""
+    preview, farm, JPEG decoder and profiling modules too), builds a
+    world, renders a CPU frame and records one through `record_chunks`: no
+    JAX, no Pillow, no module of the JAX package, and the scene compiler
+    mapped from the port's own build directory."""
     code = textwrap.dedent('''
         import os, sys
         import webgpu_raytracer_tpu_torch as port
@@ -449,7 +455,7 @@ def test_package_imports_no_jax():
         from webgpu_raytracer_tpu_torch.render import resources
         from webgpu_raytracer_tpu_torch.render import (checkpoint, preview,
                                                        recorder)
-        from webgpu_raytracer_tpu_torch.utils import profiling
+        from webgpu_raytracer_tpu_torch.utils import jpeg, profiling
         world = port.NativeWorld("cornell")
         cfg = port.RenderConfig(width=8, height=8, max_depth=2, spp=1)
         r = port.Renderer("cornell", config=cfg, device="cpu")

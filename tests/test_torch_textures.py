@@ -3,10 +3,14 @@ the row and quad fetches, and the bilinear sampler.
 
 - decode: the port reads PNG with zlib + numpy and restates Pillow's
   bilinear resize; the JAX package decodes with Pillow. Bit-equal on the
-  fixtures' PNGs, on seeded random RGB/RGBA images and on hand-filtered
-  PNGs of every colour type and row filter. Formats the port does not read
-  raise NotImplementedError; bytes that are no image give both packages
-  the 0.8 fill.
+  fixtures' PNGs, on seeded random RGB/RGBA images, on hand-filtered
+  PNGs of every colour type and row filter, and at every bit depth PNG
+  allows, non-interlaced and Adam7 (tRNS ignored, as Pillow's
+  convert("RGB") ignores it); the formats scene's four layers (JPEG and
+  PNG) equal the JAX package's. Formats the port does not read raise
+  NotImplementedError; bytes that are no image, and PNG at a bit depth its
+  colour type does not allow, give both packages the 0.8 fill. JPEG has
+  its own tests, tests/test_torch_jpeg.py.
 - pack and pyramid: bit-equal for k = 1, 2 and 5 layers; at 5 layers
   5 * 128^2 > KRON_MAX_ROWS, so the mip aliases level 0 in both.
 - fetch: the plain row fetch bit-equal to `pallas_fetch_t(interpret=True)`
@@ -16,6 +20,8 @@ the row and quad fetches, and the bilinear sampler.
 """
 
 import io
+import struct
+import zlib
 
 import numpy as np
 import jax.numpy as jnp
@@ -105,6 +111,90 @@ def test_decode_every_filter_and_colour_type(color_type):
                                   jax_tex.decode_texture(data, 64))
 
 
+PNG_DEPTHS = [(ct, d) for ct, depths in ((0, (1, 2, 4, 8, 16)), (2, (8, 16)),
+                                        (3, (1, 2, 4, 8)), (4, (8, 16)),
+                                        (6, (8, 16)))
+              for d in depths]
+
+
+@pytest.mark.parametrize("interlace", [0, 1])
+@pytest.mark.parametrize("color_type,depth", PNG_DEPTHS)
+def test_png_depths_and_adam7_match_pillow(color_type, depth, interlace):
+    """Every (colour type, bit depth) pair PNG allows, non-interlaced and
+    Adam7 (passes 1-7 of an 11x17 image, some rows ragged), rows through
+    all five filters; smooth samples plus noise over the whole range, the
+    palette shorter than the indices reach, 16-bit grey above 255."""
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color_type]
+    top = (1 << depth) - 1
+    rs = np.random.default_rng(10 * color_type + depth + interlace)
+    y, x = np.mgrid[0:11, 0:17]
+    base = (x * 5 + y * 7)[..., None] * (1 + np.arange(channels))
+    px = (base * max(1, top // 150) + rs.integers(0, max(2, top // 16),
+                                                  base.shape)) % (top + 1)
+    if color_type == 0 and depth == 16:
+        px[0, :3, 0] = [250, 255, 0x100]
+    palette = None
+    if color_type == 3:
+        palette = rs.integers(0, 256, (max(1, top - 2), 3))
+    data = png_bytes(px, color_type, filters=(0, 1, 2, 3, 4),
+                     palette=palette, depth=depth, interlace=interlace)
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    np.testing.assert_array_equal(port_tex.decode_png(data), want)
+    np.testing.assert_array_equal(port_tex.decode_texture(data, 32),
+                                  jax_tex.decode_texture(data, 32))
+
+
+@pytest.mark.parametrize("width,height", [(1, 1), (2, 3), (5, 1), (9, 6)])
+def test_adam7_empty_passes(width, height):
+    """Images too small to fill all seven passes: a pass with no columns
+    or no rows has no bytes at all, not even filter bytes."""
+    rs = np.random.default_rng(width * 10 + height)
+    px = rs.integers(0, 1 << 16, (height, width, 3))
+    data = png_bytes(px, 2, filters=(4,), depth=16, interlace=1)
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    np.testing.assert_array_equal(port_tex.decode_png(data), want)
+    np.testing.assert_array_equal(want, (px >> 8).astype(np.uint8))
+
+
+def _with_chunk(png: bytes, tag: bytes, body: bytes) -> bytes:
+    """`png` with one more chunk right after IHDR."""
+    chunk = (struct.pack(">I", len(body)) + tag + body
+             + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+    return png[:33] + chunk + png[33:]
+
+
+@pytest.mark.parametrize("color_type,depth,trns", [
+    (0, 16, b"\x01\x00"), (0, 8, b"\x00\x10"), (2, 8, bytes(6)),
+    (3, 4, b"\x00\x80")])
+def test_png_transparency_is_ignored(color_type, depth, trns):
+    """A tRNS chunk changes nothing in Pillow's convert("RGB")."""
+    channels = {0: 1, 2: 3, 3: 1}[color_type]
+    rs = np.random.default_rng(depth)
+    px = rs.integers(0, 1 << depth, (6, 7, channels))
+    palette = rs.integers(0, 256, (16, 3)) if color_type == 3 else None
+    plain = png_bytes(px, color_type, palette=palette, depth=depth)
+    data = _with_chunk(plain, b"tRNS", trns)
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    np.testing.assert_array_equal(port_tex.decode_png(data), want)
+    np.testing.assert_array_equal(port_tex.decode_png(plain), want)
+
+
+def test_formats_scene_textures_bit_equal():
+    """chip_smoke.py's texture formats scene (a 4:2:0 JPEG, a progressive
+    JPEG, a 16-bit RGB Adam7 PNG and a 4-bit palette PNG): the port's
+    four layers equal the JAX package's (Pillow) bit for bit, and its
+    twin of 8-bit PNGs of the port's decodes gives the same layers."""
+    glb = chip_smoke.formats_scene_glb()
+    world = NativeWorld("viewer", glb_data=glb)
+    assert world.texture_count() == 4
+    port = port_tex.decode_world_textures(world)
+    np.testing.assert_array_equal(port, jax_tex.decode_world_textures(world))
+    assert not (port == 0.8).all(axis=(1, 2, 3)).any()
+    twin = NativeWorld("viewer", glb_data=chip_smoke.formats_scene_glb(
+        twin=True))
+    np.testing.assert_array_equal(port_tex.decode_world_textures(twin), port)
+
+
 @pytest.mark.parametrize("size", [(1500, 1100), (1024, 700)])
 def test_resize_bilinear_matches_pillow(size):
     """Down- and up-sampling, and an axis left at its size."""
@@ -115,22 +205,45 @@ def test_resize_bilinear_matches_pillow(size):
     np.testing.assert_array_equal(port_tex.resize_bilinear(img, 1024), want)
 
 
-def test_decode_refuses_what_it_does_not_read():
-    rs = np.random.default_rng(9)
-    img = rs.integers(0, 256, (8, 8, 3), dtype=np.uint8)
+def _sof_patched(marker: int, precision: int = 8) -> bytes:
+    """A Pillow baseline JPEG whose SOF0 is relabelled `marker`, with
+    sample precision `precision`."""
     buf = io.BytesIO()
-    Image.fromarray(img).save(buf, format="JPEG")
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        port_tex.decode_texture(buf.getvalue())
-    with pytest.raises(NotImplementedError, match="bit depth 16"):
-        port_tex.decode_texture(png_bytes(img, 2, depth=16))
-    with pytest.raises(NotImplementedError, match="interlaced"):
-        port_tex.decode_texture(png_bytes(img, 2, interlace=1))
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="JPEG")
+    data = bytearray(buf.getvalue())
+    pos = data.index(b"\xff\xc0")
+    data[pos + 1] = marker
+    data[pos + 4] = precision
+    return bytes(data)
+
+
+def _pil_bytes(fmt: str) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format=fmt)
+    return buf.getvalue()
+
+
+REFUSED = {"GIF": lambda: _pil_bytes("GIF"), "BMP": lambda: _pil_bytes("BMP"),
+           "TIFF": lambda: _pil_bytes("TIFF"),
+           "WebP": lambda: _pil_bytes("WEBP"),
+           "arithmetic": lambda: _sof_patched(0xC9),
+           "lossless": lambda: _sof_patched(0xC3),
+           "12-bit": lambda: _sof_patched(0xC1, precision=12)}
+
+
+@pytest.mark.parametrize("fmt", sorted(REFUSED))
+def test_decode_refuses_what_it_does_not_read(fmt):
+    """Formats glTF does not carry, and JPEG kinds the decoder does not
+    read, raise naming what they are (PNG at every bit depth, Adam7 and
+    baseline / progressive JPEG now decode)."""
+    with pytest.raises(NotImplementedError, match=fmt):
+        port_tex.decode_texture(REFUSED[fmt]())
 
 
 @pytest.mark.parametrize("data", [b"not an image at all",
-                                  _pil_png(np.zeros((4, 4, 3), np.uint8))[:45]],
-                         ids=["junk", "truncated_png"])
+                                  _pil_png(np.zeros((4, 4, 3), np.uint8))[:45],
+                                  png_bytes(np.zeros((4, 4, 3)), 2, depth=4)],
+                         ids=["junk", "truncated_png", "rgb_at_4_bits"])
 def test_decode_fallback_matches_jax(data):
     got = port_tex.decode_texture(data, 16)
     np.testing.assert_array_equal(got, jax_tex.decode_texture(data, 16))

@@ -15,6 +15,7 @@ from webgpu_raytracer_tpu_torch.render.worldtris import (build_world_tables,
                                                          tables_from_jax)
 
 from tests.test_two_level import _rays
+from chip_smoke import png_bytes  # noqa: F401  (the tests' PNG writer)
 
 # The suite runs in several pytest-xdist workers, each of which imports
 # this module while collecting. ATen's OpenMP pool (a thread per core in
@@ -87,53 +88,6 @@ def assert_near_ties(shade_table, ro, rd, idx_a, idx_b, lanes):
     np.testing.assert_allclose(mt_t(idx_b[lanes]), mt_t(idx_a[lanes]),
                                rtol=2e-3, atol=2e-4,
                                err_msg="non-tie winner flip")
-
-
-def png_bytes(px, color_type, filters=(0,), palette=None, depth=8,
-              interlace=0):
-    """A PNG of (H, W, C) u8 samples, row y written with row filter
-    filters[y % len(filters)] (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth):
-    filtered rows the encoders in the tests do not choose themselves.
-    `depth` and `interlace` only label the header."""
-    import struct
-    import zlib
-
-    h, w, c = px.shape
-    rows = px.reshape(h, w * c).astype(np.int64)
-    zero = np.zeros(c, np.int64)
-    prior = np.zeros(w * c, np.int64)
-    raw = bytearray()
-    for y in range(h):
-        cur = rows[y]
-        left = np.concatenate([zero, cur[:-c]])
-        upleft = np.concatenate([zero, prior[:-c]])
-        f = filters[y % len(filters)]
-        if f == 0:
-            pred = 0
-        elif f == 1:
-            pred = left
-        elif f == 2:
-            pred = prior
-        elif f == 3:
-            pred = (left + prior) >> 1
-        else:
-            p = left + prior - upleft
-            pa, pb, pc = np.abs(p - left), np.abs(p - prior), np.abs(p - upleft)
-            pred = np.where((pa <= pb) & (pa <= pc), left,
-                            np.where(pb <= pc, prior, upleft))
-        raw += bytes([f]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes()
-        prior = cur
-
-    def chunk(tag, body):
-        return (struct.pack(">I", len(body)) + tag + body
-                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
-
-    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
-        ">IIBBBBB", w, h, depth, color_type, 0, 0, interlace))
-    if palette is not None:
-        out += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
-    return out + chunk(b"IDAT", zlib.compress(bytes(raw))) \
-        + chunk(b"IEND", b"")
 
 
 def np_rays(ro, rd, act, tmax):
@@ -227,3 +181,140 @@ def tie_case(grid_wt):
         "shadek3")})
     ro, rd, act, tmax = _rays(2000)
     return (wt, tables_from_jax(host), copies, *np_rays(ro, rd, act, tmax))
+
+
+def jpeg_from_coefficients(width, height, sampling, seed, quant_bits=8,
+                           ids=None, app=b"", restart=0, ac_scale=12.0,
+                           dc_spread=60, separate_scans=False):
+    """A sequential Huffman JPEG of random quantised coefficients with any
+    sampling factors: `sampling` is one (h, v) per component. The blocks
+    of each component are drawn from a seeded generator (DC around 0,
+    AC falling off with frequency), quantisation tables are random (8-bit,
+    or 16-bit with SOF1), and the scan is interleaved (one component:
+    its blocks one by one) with the standard Huffman tables, restart
+    markers every `restart` MCUs. `app` goes before the frame (JFIF,
+    Adobe, ...). Pillow's encoder writes only a few samplings; any valid
+    stream must decode the same in both."""
+    import struct
+
+    from webgpu_raytracer_tpu_torch.utils.images import (_AC_CODES,
+                                                         _DC_CODES, _AC_LUMA,
+                                                         _DC_LUMA, ZIGZAG)
+
+    rs = np.random.default_rng(seed)
+    n = len(sampling)
+    ids = list(range(1, n + 1)) if ids is None else ids
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    mcu_cols = -(-width // (8 * hmax))
+    mcu_rows = -(-height // (8 * vmax))
+    qmax = 300 if quant_bits == 16 else 24
+    quant = rs.integers(1, qmax, (n, 64))
+    decay = ac_scale / (1.0 + np.arange(64) / 4.0)
+    coef = []
+    for c, (h, v) in enumerate(sampling):
+        shape = (mcu_rows * v, mcu_cols * h, 64)
+        blk = np.round(rs.normal(0, 1, shape) * decay).astype(np.int64)
+        blk[..., 0] = rs.integers(-dc_spread, dc_spread + 1, shape[:2])
+        blk[..., 1:] = np.clip(blk[..., 1:], -1023, 1023)
+        blk[rs.random(shape) < 0.4] = 0  # runs of zeros, EOBs
+        coef.append(blk)
+
+    bits = []  # (value, length) words
+
+    def put(val, length):
+        if length:
+            bits.append((int(val), int(length)))
+
+    def size(v):
+        return int(abs(v)).bit_length()
+
+    def amp(v, s):
+        return v if v >= 0 else v + (1 << s) - 1
+
+    dc_code, dc_len = _DC_CODES[0]
+    ac_code, ac_len = _AC_CODES[0]
+    out = bytearray()
+
+    def flush():
+        acc, nbits = 0, 0
+        for val, length in bits:
+            acc = (acc << length) | val
+            nbits += length
+        pad = -nbits % 8
+        acc = (acc << pad) | ((1 << pad) - 1)
+        data = acc.to_bytes((nbits + pad) // 8, "big") if nbits else b""
+        out.extend(data.replace(b"\xff", b"\xff\x00"))
+        bits.clear()
+
+    def seg(marker, body):
+        return struct.pack(">HH", marker, len(body) + 2) + body
+
+    def scan_blocks(comps):
+        """Blocks in decode order: MCUs of h x v blocks of each component,
+        or one component's blocks holding samples one by one."""
+        if len(comps) == 1:
+            h0, v0 = sampling[comps[0]]
+            return [[(comps[0], by, bx)]
+                    for by in range(-(-height * v0 // (8 * vmax)))
+                    for bx in range(-(-width * h0 // (8 * hmax)))]
+        return [[(c, my * sampling[c][1] + dy, mx * sampling[c][0] + dx)
+                 for c in comps for dy in range(sampling[c][1])
+                 for dx in range(sampling[c][0])]
+                for my in range(mcu_rows) for mx in range(mcu_cols)]
+
+    def scan(comps):
+        pred = [0] * n
+        for m, mcu in enumerate(scan_blocks(comps)):
+            if restart and m and m % restart == 0:
+                flush()
+                out.extend(bytes([0xFF, 0xD0 + (m // restart - 1) % 8]))
+                pred = [0] * n
+            for c, by, bx in mcu:
+                zz = coef[c][by, bx][ZIGZAG]
+                diff = int(zz[0]) - pred[c]
+                pred[c] = int(zz[0])
+                s = size(diff)
+                put(dc_code[s], dc_len[s])
+                put(amp(diff, s), s)
+                run = 0
+                last = max([k for k in range(1, 64) if zz[k]] or [0])
+                for k in range(1, last + 1):
+                    v = int(zz[k])
+                    if not v:
+                        run += 1
+                        continue
+                    while run > 15:
+                        put(ac_code[0xF0], ac_len[0xF0])
+                        run -= 16
+                    s = size(v)
+                    put(ac_code[(run << 4) | s], ac_len[(run << 4) | s])
+                    put(amp(v, s), s)
+                    run = 0
+                if last < 63:
+                    put(ac_code[0], ac_len[0])
+        flush()
+        sos = bytes([len(comps)]) + b"".join(bytes([ids[c], 0])
+                                             for c in comps)
+        return seg(0xFFDA, sos + bytes([0, 63, 0])) + bytes(out)
+
+    dqt = b"".join(
+        bytes([(quant_bits == 16) << 4 | c]) + (
+            quant[c][ZIGZAG].astype(">u2").tobytes() if quant_bits == 16
+            else quant[c][ZIGZAG].astype(np.uint8).tobytes())
+        for c in range(n))
+    sof = struct.pack(">BHHB", 8, height, width, n) + b"".join(
+        bytes([ids[c], h << 4 | v, c]) for c, (h, v) in enumerate(sampling))
+    dht = (bytes([0x00]) + bytes(_DC_LUMA[0]) + bytes(_DC_LUMA[1])
+           + bytes([0x10]) + bytes(_AC_LUMA[0]) + bytes(_AC_LUMA[1]))
+    head = b"\xff\xd8" + app + seg(0xFFDB, dqt) + seg(
+        0xFFC1 if quant_bits == 16 else 0xFFC0, sof) + seg(0xFFC4, dht)
+    if restart:
+        head += seg(0xFFDD, struct.pack(">H", restart))
+    if separate_scans:  # one non-interleaved scan per component
+        scans = []
+        for c in range(n):
+            scans.append(scan([c]))
+            out.clear()
+        return head + b"".join(scans) + b"\xff\xd9"
+    return head + scan(list(range(n))) + b"\xff\xd9"

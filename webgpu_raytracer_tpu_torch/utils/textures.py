@@ -4,19 +4,27 @@ The port of the JAX package's `utils/textures.py`, with the same names and
 results, but without PIL: the JAX package decodes with Pillow, which the
 port does not depend on. Here
 
-- PNG is read with `zlib` and numpy: 8-bit, non-interlaced, colour types
-  0/2/3/4/6 (grey, RGB, palette, grey+alpha, RGBA), row filters 0-4, and
-  converted to RGB as Pillow's `convert("RGB")` does (grey replicated,
-  palette looked up, alpha dropped);
+- PNG is read with `zlib` and numpy: every colour type (grey, RGB,
+  palette, grey+alpha, RGBA) at every bit depth PNG allows it (1, 2, 4, 8
+  and 16 for grey, 1-8 for palette, 8 and 16 otherwise), non-interlaced
+  or Adam7, row filters 0-4, and converted to RGB as Pillow's
+  `convert("RGB")` does: grey replicated (sub-byte grey scaled to 0-255,
+  16-bit grey, Pillow's mode I;16, clipped to 255), 16-bit colour by its
+  high byte, palette looked up (indices past PLTE give 0), alpha dropped;
+  tRNS, gAMA, sRGB and iCCP are ignored, as there;
+- JPEG (baseline, extended and progressive Huffman) is read by
+  `utils/jpeg.py`, which restates libjpeg-turbo and Pillow's conversion;
 - the force-resize to TEX_SIZE^2 restates Pillow's bilinear `resize`: a
   horizontal pass then a vertical pass over u8 pixels, each with
   triangle-filter coefficients normalised per output pixel and held in
   fixed point with 22 fraction bits, accumulated from a rounding bias of
   2^21 and clipped to u8. Both give Pillow's bytes exactly.
 
-Bytes that are no image fall back to the reference's flat 0.8 fill.
-Images the decoder does not read (JPEG, GIF, BMP, WebP, TIFF; PNG at a bit
-depth other than 8, or interlaced) raise NotImplementedError naming the
+Bytes that are no image, and damaged PNG or JPEG (truncated, a bad table
+or code, a colour type at a bit depth PNG does not allow), fall back to
+the reference's flat 0.8 fill. Images the decoder does not read (GIF,
+BMP, WebP, TIFF, which glTF does not carry; lossless, hierarchical,
+arithmetic-coded or 12-bit JPEG) raise NotImplementedError naming the
 format, rather than rendering a grey that might pass for a texture.
 """
 
@@ -27,6 +35,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from .jpeg import decode_jpeg
 
 TEX_SIZE = 1024
 
@@ -42,6 +52,10 @@ _OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"),
                   (b"BM", "BMP"), (b"II*\x00", "TIFF"),
                   (b"MM\x00*", "TIFF"))
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}  # the bit depths PNG allows each colour type
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))  # (x0, y0, dx, dy)
 _PRECISION_BITS = 22  # Pillow's fixed-point resample precision (8 bpc)
 
 
@@ -56,11 +70,13 @@ def _format_of(data: bytes) -> str | None:
     return None
 
 
-def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int):
-    """Undo PNG's per-row filters: (height, stride) u8."""
+def _unfilter(raw: np.ndarray, pos: int, height: int, stride: int,
+              bpp: int) -> tuple[np.ndarray, int]:
+    """Undo PNG's per-row filters on `height` rows of `stride` bytes
+    starting at raw[pos]: ((height, stride) u8, the position after).
+    Rows are whole multiples of `bpp` bytes: below 8 bits bpp is 1."""
     out = np.zeros((height, stride), np.uint8)
     prior = np.zeros(stride, np.int64)
-    pos = 0
     for y in range(height):
         if pos + 1 + stride > raw.size:
             raise ValueError("PNG: image data truncated")
@@ -94,14 +110,28 @@ def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int):
             raise ValueError(f"PNG: unknown row filter {ftype}")
         out[y] = cur
         prior = cur
-    return out
+    return out, pos
+
+
+def _samples(rows: np.ndarray, width: int, ch: int, depth: int):
+    """Unfiltered rows (h, stride) u8 -> (h, width, ch) int64 samples:
+    big-endian at 16 bits, MSB first below 8 (rows are byte-padded)."""
+    h = rows.shape[0]
+    n = width * ch
+    if depth == 16:
+        hi = rows[:, 0:2 * n:2].astype(np.int64)
+        return ((hi << 8) | rows[:, 1:2 * n:2]).reshape(h, width, ch)
+    if depth == 8:
+        return rows[:, :n].astype(np.int64).reshape(h, width, ch)
+    bits = np.unpackbits(rows, axis=1)[:, :n * depth].reshape(h, n, depth)
+    weights = 1 << np.arange(depth - 1, -1, -1)
+    return (bits.astype(np.int64) @ weights).reshape(h, width, ch)
 
 
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> (H, W, 3) u8 RGB, as Pillow's open + convert("RGB").
 
-    Raises NotImplementedError for PNG features the decoder does not read,
-    ValueError (or zlib.error) for malformed data."""
+    Raises ValueError (or zlib.error) for malformed data."""
     pos = len(_PNG_SIG)
     ihdr = None
     palette = None
@@ -125,26 +155,36 @@ def decode_png(data: bytes) -> np.ndarray:
     if ihdr is None or not idat:
         raise ValueError("PNG: no IHDR or IDAT chunk")
     width, height, depth, ctype, _, _, interlace = ihdr
-    if ctype not in _CHANNELS:
-        raise ValueError(f"PNG: unknown colour type {ctype}")
-    if depth != 8:
-        raise NotImplementedError(
-            f"PNG at bit depth {depth}: the decoder reads 8-bit PNG only")
-    if interlace:
-        raise NotImplementedError(
-            "interlaced (Adam7) PNG: the decoder reads non-interlaced only")
+    if depth not in _DEPTHS.get(ctype, ()):
+        raise ValueError(f"PNG: colour type {ctype} at bit depth {depth}")
+    if interlace > 1:
+        raise ValueError(f"PNG: unknown interlace method {interlace}")
     ch = _CHANNELS[ctype]
+    bpp = max(1, ch * depth // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    px = _unfilter(raw, height, width * ch, ch).reshape(height, width, ch)
+    px = np.zeros((height, width, ch), np.int64)
+    pos = 0
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw <= 0 or ph <= 0:  # an empty pass has no bytes at all
+            continue
+        rows, pos = _unfilter(raw, pos, ph, -(-pw * ch * depth // 8), bpp)
+        px[y0::dy, x0::dx] = _samples(rows, pw, ch, depth)
     if ctype == 3:
         if palette is None:
             raise ValueError("PNG: palette image without PLTE")
         lut = np.zeros((256, 3), np.uint8)
         lut[:len(palette)] = palette[:256]
         return lut[px[..., 0]]
+    if depth == 16:
+        # Pillow opens 16-bit grey as I;16 and clips it to 255; every
+        # other 16-bit mode keeps the high byte.
+        px = np.minimum(px, 255) if ctype == 0 else px >> 8
+    elif depth < 8:
+        px = px * (255 // ((1 << depth) - 1))
     if ctype in (0, 4):
-        return np.repeat(px[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(px[..., :3])
+        px = np.repeat(px[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3], np.uint8)
 
 
 def _resample_coeffs(in_size: int, out_size: int):
@@ -209,13 +249,13 @@ def decode_texture(data: bytes, size: int = TEX_SIZE) -> np.ndarray:
     if fmt is None:
         # no image: the reference's fallback texture
         return np.full((size, size, 3), 0.8, np.float32)
-    if fmt != "PNG":
+    if fmt not in ("PNG", "JPEG"):
         raise NotImplementedError(
-            f"{fmt} texture: the decoder reads PNG only")
+            f"{fmt} texture: the decoder reads PNG and JPEG only")
     try:
-        rgb = decode_png(data)
+        rgb = decode_png(data) if fmt == "PNG" else decode_jpeg(data)
     except (ValueError, zlib.error):
-        # a damaged PNG does not open: the reference's fallback texture
+        # a damaged image does not open: the reference's fallback texture
         return np.full((size, size, 3), 0.8, np.float32)
     return np.asarray(resize_bilinear(rgb, size), np.float32) / 255.0
 
