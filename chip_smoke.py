@@ -5,6 +5,8 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py            # add --profile for a torch.profiler
                                      # device-time split of each path
+    python3 chip_smoke.py --frame-times   # only frame times and digests
+                                          # of four paths (see frame_times)
 
 It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
 (and the shared native scene compiler), then:
@@ -15,7 +17,13 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
    the sweep at cornell 512^2, bit-equal to its plain versions (t, idx,
    rows from lanes 0, R and 2R, occlusion, from two launches each) on a
    synthetic fused stack and on the real bounce-1 stack, timed with rows,
-   without rows and any-hit on both; the shade kernel at cornell 512^2;
+   without rows and any-hit on both; the shade kernel's white-texel
+   instantiation at cornell 512^2 bounces 0 and 4, and its textured one
+   with the scene's pyramid on the textured quad's 1080p bounces 0 and 4,
+   the formats scene's (four layers), the formats scene with a fifth layer
+   (so level 1 is level 0) and a quad light with a textured base colour
+   (NEE reads the light's texels), timed beside its byte bound and beside
+   the white-texel kernel at the same lane count;
    the row fetch on
    cornell's shade table with the 1080p G-buffer's wt_idx and on the light
    rows with a bounce's light pick; the quad fetch on the textured quad's
@@ -48,23 +56,27 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
    - `Renderer("cornell", 512x512, d8)`: `render_frame()` + `present()`
      x 16;
    - the textured quad GLB (bench.py's config 3) at 1920x1080 d8 x 8 through
-     `ray_color_dense`, mean within 2% of 0.2739, from a texture decoded
-     without PIL and checked to be red and blue;
+     the row-state loop with the textured shade kernel (9 sweeps and 8
+     shades a frame, no row or quad fetch), mean within 2% of 0.2739, from
+     a texture decoded without PIL and checked to be red and blue;
    - texture formats: every JPEG of `tests/fixtures/torch_textures/`
      decodes to Pillow's digest (`digests.json` there; this machine needs
      no Pillow), the PNGs written here (16-bit RGB Adam7, 4-bit palette)
      to their pixels; host ms of `decode_texture` on a 2048^2 JPEG, a
      2048^2 16-bit Adam7 PNG and the 8-bit PNG of the same pixels, and of
      `build_quad_pyramid`; the formats scene (the quad with four texture
-     slots in four formats) at 1920x1080 d8 through `Renderer` x 8, every
-     frame bit-equal to its twin of 8-bit PNGs of the port's decodes (both
-     counted); the quad fetch on its four-layer level 0 and mip with the
+     slots in four formats) at 1920x1080 d8 through `Renderer` x 8 traced
+     and x 4 G-buffer seeded, every frame bit-equal to its twin of 8-bit
+     PNGs of the port's decodes (both counted; the seeded frames' G-buffer
+     pass launches the quad fetch, base colour and normal map); the quad
+     fetch on its four-layer level 0 and mip with the
      rows of a 1080p primary hit, one layer a lane in turn, bit-equal to
      its plain version and timed beside `index_select`;
    - G-buffer-seeded cornell 1920x1080 d8 x 8, mean within 2% of 0.1766,
      frame 1 bit-equal to the traced frame 1;
    - the textured `Renderer` at 512^2 d8, `render_frame(use_gbuffer=True)`
-     + `present()` x 8;
+     + `present()` x 8 (the G-buffer's quad fetch, one seed-row fetch,
+     then the row-state loop);
    - `spheres` (257,136 triangles) 512^2 d8 x 4 (`trace_pixels_dense`:
      1 + 8 culls and job sweeps and 8 shades a frame, no dense sweep),
      mean within 2% of bench.py's golden, then `Renderer("spheres",
@@ -194,6 +206,10 @@ F32_OPS_PER_S = 67e12
 F32_ROUNDED_OPS_PER_S = F32_OPS_PER_S / 2
 SWEEP_OPS = 45   # f32 operations per ray x triangle test (dense_sweep.cu)
 SHADE_OPS = 300  # f32 operations per lane of one bounce (shade_rows.cu)
+# The textured instantiation adds the texture coordinates' separately
+# rounded barycentrics (a lane) and one bilinear sample (a quad read).
+TEXCOORD_OPS = 48
+TEXEL_OPS = 52
 CULL_OPS = 25    # f32 operations per lane x cluster test (cluster_cull.cu)
 KEYED_CULL_OPS = 30  # the same test with its root, quotient and key
 CULL_EDGE_GROUPS = 64  # lane groups of the culls' dead-lane stacks
@@ -308,6 +324,34 @@ def textured_quad_glb() -> bytes:
             "metallicFactor": 0.0,
         },
     })
+
+
+def textured_light_glb() -> bytes:
+    """The quad as a light (emissiveFactor 1) whose base colour is a
+    37x53 texture of smooth noise: NEE samples read the light's texture."""
+    img = smooth_noise(37, 53, 3, 5).astype(np.uint8)
+    return quad_glb([(png_rgb(img), "image/png")], {
+        "pbrMetallicRoughness": {
+            "baseColorFactor": [1.0, 1.0, 1.0, 1.0],
+            "baseColorTexture": {"index": 0},
+        },
+        "emissiveFactor": [1.0, 1.0, 1.0],
+    })
+
+
+def textured_scene(glb_data: bytes, width: int, height: int, dev,
+                   fifth: bool = False) -> tuple:
+    """(tables, camera, texture pyramid) of a GLB in the viewer scene.
+    fifth=True adds a fifth layer (the first with its channels reversed),
+    so that k * 128^2 > KRON_MAX_ROWS and level 1 is level 0."""
+    world = NativeWorld("viewer", glb_data=glb_data)
+    world.update_camera(width, height)
+    tables = build_world_tables(world, dev)
+    camera = torch.from_numpy(np.asarray(world.camera(), np.float32)).to(dev)
+    decoded = decode_world_textures(world)
+    if fifth:
+        decoded = np.concatenate([decoded, decoded[:1, ..., ::-1]])
+    return tables, camera, device_pyramid(build_quad_pyramid(decoded), dev)
 
 
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
@@ -536,47 +580,62 @@ def check_sweep(tables, camera, width, height) -> dict:
                 bound_by=b_by, library_ms=None)
 
 
+def hold_shade(label: str, args: tuple, tex_kw: dict) -> float:
+    """The shade kernel against shade_step + next_rays on one bounce's
+    inputs: rng words equal, the ray stack equal to the kernel's own rows,
+    >= 99.5% of lanes within rtol 1e-4 / atol 1e-5 and flags equal (the
+    kernel contracts products into FMAs where the plain version rounds
+    each). Returns the largest |error| on the close lanes."""
+    out_k, rng_k, rays_k = shade_rows.shade(*args, **tex_kw)
+    out_p, rng_p = shade_rows.shade_step(*args, **tex_kw)
+    rays_p = shade_rows.next_rays(out_p)
+    torch.cuda.synchronize()
+    assert torch.equal(rng_k, rng_p), f"{label}: rng words differ"
+    assert torch.equal(rays_k, shade_rows.next_rays(out_k)), \
+        f"{label}: ray stack disagrees with the kernel's own rows"
+    o_k, o_p = out_k.cpu().numpy(), out_p.cpu().numpy()
+    assert np.isfinite(o_k).all()
+    flag_rows = list(shade_rows.FLAG_ROWS)
+    f32_rows = [r for r in range(o_k.shape[0]) if r not in flag_rows]
+    close = np.isclose(o_k[f32_rows], o_p[f32_rows], rtol=1e-4,
+                       atol=1e-5).all(0)
+    flags = (o_k[flag_rows] == o_p[flag_rows]).all(0)
+    rays_close = np.isclose(rays_k.cpu().numpy(), rays_p.cpu().numpy(),
+                            rtol=1e-4, atol=1e-5).all(0).mean()
+    err = (float(np.abs(o_k[f32_rows] - o_p[f32_rows])[:, close].max())
+           if close.any() else float("inf"))
+    equal = (o_k == o_p).all(0).mean()
+    print(f"shade {label}: {close.mean():.6f} lanes close, {equal:.6f} "
+          f"bit-equal, {flags.mean():.6f} flags equal, ray stack close "
+          f"{rays_close:.6f}, max abs err on close lanes {err:.3e}, live "
+          f"{o_k[0].mean():.3f}, nee {o_k[15].mean():.3f}")
+    assert close.mean() >= 0.995 and flags.mean() >= 0.995, label
+    assert rays_close >= 0.995, label
+    return err
+
+
+def shade_bytes(tables, R: int) -> int:
+    """The white-texel shade kernel's bytes: 252 read and 180 written a
+    lane, and the light rows."""
+    return (R * (20 * 4 + 8 + 40 * 4 + 4 + 27 * 4 + 8 + 16 * 4)
+            + tables.light_rows.numel() * 4)
+
+
 def check_shade(tables, camera, width, height) -> dict:
-    """Kernel 2 against shade_step + next_rays on real cornell bounces."""
+    """Kernel 2 (the white-texel instantiation) against shade_step +
+    next_rays on real cornell bounces."""
     worst = 0.0
     for depth in (0, 4):
-        state, rng, rowT, idx = bounce_inputs(tables, camera, width, height,
-                                              depth, DEPTH)
-        args = (state, rng, rowT, idx, tables.light_rows, depth,
-                tables.light_count, DEPTH)
-        out_k, rng_k, rays_k = shade_rows.shade(*args)
-        out_p, rng_p = shade_rows.shade_step(*args)
-        rays_p = shade_rows.next_rays(out_p)
-        torch.cuda.synchronize()
-        assert torch.equal(rng_k, rng_p), "rng words differ"
-        assert torch.equal(rays_k, shade_rows.next_rays(out_k)), \
-            "ray stack disagrees with the kernel's own rows"
-        o_k, o_p = out_k.cpu().numpy(), out_p.cpu().numpy()
-        assert np.isfinite(o_k).all()
-        flag_rows = list(shade_rows.FLAG_ROWS)
-        f32_rows = [r for r in range(o_k.shape[0]) if r not in flag_rows]
-        close = np.isclose(o_k[f32_rows], o_p[f32_rows], rtol=1e-4,
-                           atol=1e-5).all(0)
-        flags = (o_k[flag_rows] == o_p[flag_rows]).all(0)
-        rays_close = np.isclose(rays_k.cpu().numpy(), rays_p.cpu().numpy(),
-                                rtol=1e-4, atol=1e-5).all(0).mean()
-        err = (float(np.abs(o_k[f32_rows] - o_p[f32_rows])[:, close].max())
-               if close.any() else float("inf"))
-        worst = max(worst, err)
-        print(f"shade depth {depth}: {close.mean():.6f} lanes close, "
-              f"{flags.mean():.6f} flags equal, ray stack close "
-              f"{rays_close:.6f}, max abs err on close lanes {err:.3e}, "
-              f"live {o_k[0].mean():.3f}, nee {o_k[15].mean():.3f}")
-        assert close.mean() >= 0.995 and flags.mean() >= 0.995
-        assert rays_close >= 0.995
+        args = (*bounce_inputs(tables, camera, width, height, depth, DEPTH),
+                tables.light_rows, depth, tables.light_count, DEPTH)
+        worst = max(worst, hold_shade(f"cornell depth {depth}", args, {}))
         if depth == 0:
             ms = device_ms(lambda: shade_rows.shade(*args))
             plain_ms = device_ms(
                 lambda: shade_rows.next_rays(shade_rows.shade_step(*args)[0]),
                 PLAIN_LAUNCHES)
             R = width * height
-            nbytes = (R * (20 * 4 + 8 + 40 * 4 + 4 + 27 * 4 + 8 + 16 * 4)
-                      + tables.light_rows.numel() * 4)
+            nbytes = shade_bytes(tables, R)
             b_ms, b_by = bound(nbytes, R * SHADE_OPS)
     print(f"shade: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
@@ -585,6 +644,117 @@ def check_shade(tables, camera, width, height) -> dict:
                 replaces="webgpu_raytracer_tpu/ops/shade_rows.py:264",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
+
+
+def quads_read(tables, state, rng, rowT, idx) -> int:
+    """Texel quads the textured shade kernel reads on one bounce's inputs:
+    one per lane and slot whose index is >= 0, base colour and normal map
+    on hit lanes, metallic-roughness and emissive on live lanes, and the
+    picked light's base colour on every lane."""
+    col = SHADE_COLS["tex"][0]
+    hit = idx >= 0
+    live = (state[0] > 0.5) & hit
+    n = sum(int((mask & (rowT[col + k] >= 0)).sum())
+            for k, mask in ((BASE, hit), (NORMAL, hit), (METAL_ROUGH, live),
+                            (EMISSIVE, live)))
+    lc = tables.light_count
+    _, (r0,) = rand_n(rng, 1)  # the light pick draw
+    pick = torch.clamp((r0 * float(max(lc, 1))).to(torch.int64), 0,
+                       max(lc - 1, 0))
+    return n + int((tables.light_rows[pick, col + BASE] >= 0).sum())
+
+
+def check_shade_textured(cases, cornell) -> dict:
+    """The textured instantiation against shade_step + next_rays with the
+    same texture pyramid, on (label, tables, camera, textures, width,
+    height, depths) cases; the first case's bounce 0 is timed for the JSON
+    line beside its byte bound (the white-texel lane's 432 bytes plus 16
+    per texel quad read), and so is each case's bounce 0 and, at the same
+    lane count, the white-texel kernel on `cornell`: (tables, {(width,
+    height): camera})."""
+    worst, timed = 0.0, []
+    for label, tables, camera, textures, width, height, depths in cases:
+        kw = dict(textures=textures)
+        for depth in depths:
+            inputs = bounce_inputs(tables, camera, width, height, depth,
+                                   DEPTH, textures)
+            args = (*inputs, tables.light_rows, depth, tables.light_count,
+                    DEPTH)
+            worst = max(worst, hold_shade(f"{label} depth {depth}", args,
+                                          kw))
+            if depth != 0:
+                continue
+            R = width * height
+            quads = quads_read(tables, *inputs)
+            nbytes = shade_bytes(tables, R) + 16 * quads
+            ops = R * (SHADE_OPS + TEXCOORD_OPS) + quads * TEXEL_OPS
+            b_ms, b_by = bound(nbytes, ops)
+            ms = device_ms(lambda: shade_rows.shade(*args, **kw))
+            plain_ms = device_ms(lambda: shade_rows.next_rays(
+                shade_rows.shade_step(*args, **kw)[0]), PLAIN_LAUNCHES)
+            c_tables, c_cams = cornell
+            c_args = (*bounce_inputs(c_tables, c_cams[width, height], width,
+                                     height, 0, DEPTH),
+                      c_tables.light_rows, 0, c_tables.light_count, DEPTH)
+            white_ms = device_ms(lambda: shade_rows.shade(*c_args))
+            print(f"shade textured {label} depth 0, {R} lanes, {quads} "
+                  f"quads read ({quads / R:.2f} a lane): kernel {ms:.4f} "
+                  f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}, {nbytes / 1e6:.1f} MB); the white-texel "
+                  f"kernel on cornell at the same lane count {white_ms:.4f} "
+                  f"ms ({ms / white_ms:.2f}x)")
+            timed.append((ms, plain_ms, b_ms, b_by))
+    ms, plain_ms, b_ms, b_by = timed[0]
+    return dict(name="shade_rows_textured", route="cuda",
+                source="webgpu_raytracer_tpu_torch/csrc/shade_rows.cu",
+                replaces="webgpu_raytracer_tpu/ops/shade_rows.py:264",
+                path="every textured scene's bounces at max_depth > 0",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def fma_rounding(a, b, c) -> tuple:
+    """a * b + c of f32 tensors: (rounded through f64 as the plain
+    sampler's `_fma_v3` rounds it, rounded once as one f32 fused
+    multiply-add). a * b is exact in f64 and TwoSum gives the f64 sum's
+    error e, so the two part only where the sum lands on the midpoint of
+    two f32 values with e != 0: the true fma rounds toward e's side, the
+    f64 path to the even neighbour, one ulp apart."""
+    p = a.double() * b.double()
+    c64 = c.double()
+    s = p + c64
+    bb = s - p
+    e = (p - (s - bb)) + (c64 - bb)
+    r = s.float()
+    d = s - r.double()
+    toward = torch.where(d > 0, torch.inf, -torch.inf).to(torch.float32)
+    n = torch.nextafter(r, toward)
+    mid = (d != 0) & (r.double() + n.double() == 2.0 * s)
+    up = mid & (e != 0) & ((e > 0) == (d > 0))
+    return r, torch.where(up, n, r)
+
+
+def fma_ties(level, tex, u, v) -> tuple[int, int]:
+    """The sampler's nine fused multiply-adds a lane (three lerps a
+    channel) on the lanes with tex >= 0: (how many the plain version's f64
+    emulation rounds otherwise than a true f32 fma, how many in all), each
+    fed the plain version's own inputs."""
+    has = tex >= 0
+    rows, wx, wy = texel_rows(level, tex, u, v)
+    q = fetch_quad_plain(level.flat, rows)[has]
+    wx, wy = wx[has], wy[has]
+    corner = [[((q[:, k] >> sh) & 0xFF).to(torch.float32) * (1.0 / 255.0)
+               for sh in (16, 8, 0)] for k in range(4)]
+    bad = total = 0
+    for ch in range(3):
+        c0, c1, c2, c3 = (corner[k][ch] for k in range(4))
+        top, top_x = fma_rounding(c1, wx, c0 * (1 - wx))
+        bot, bot_x = fma_rounding(c3, wx, c2 * (1 - wx))
+        rgb, rgb_x = fma_rounding(top, 1 - wy, bot * wy)
+        for emu, exact in ((top, top_x), (bot, bot_x), (rgb, rgb_x)):
+            bad += int((emu != exact).sum())
+            total += emu.numel()
+    return bad, total
 
 
 def same_worklists(a, b, ct) -> bool:
@@ -1463,33 +1633,27 @@ def sweeps(n: int, multi_tile: bool, narrow: str = "jobs") -> dict:
 
 def rows_launches(seeded: bool, multi_tile: bool = False,
                   narrow: str = "jobs", depth: int = DEPTH) -> dict:
-    """Per frame of the row-state loop (untextured scenes): traced, one
-    primary sweep; seeded, one G-buffer sweep and one seed-row fetch; then
-    per bounce one shade and one fused sweep."""
+    """Per frame of the row-state loop: traced, one primary sweep; seeded,
+    one G-buffer sweep and one seed-row fetch; then per bounce one shade
+    and one fused sweep."""
     return {**sweeps(1 + depth, multi_tile, narrow), "shade_rows": depth,
             "fetch_rows": int(seeded), "fetch_quad": 0}
 
 
 def textured_launches(tables, seeded: bool) -> dict:
-    """Per frame of ray_color_dense (textured scenes). Sweeps: the primary
-    (or G-buffer) sweep, DEPTH - 1 fused sweeps and the last bounce's
-    shadow query. Row fetches: the light rows of every bounce, and the seed
-    rows when seeded. Quad fetches: one per bound base / normal slot at
-    every shaded hit (primary or G-buffer + seed, then DEPTH - 1 extension
-    hits), and one per bound metal-rough / emissive slot and per textured
-    light table at every bounce."""
+    """Per frame of a textured scene at max_depth > 0: the row-state loop,
+    whose shade kernel samples the texels itself, and when seeded the
+    G-buffer pass's quad fetches, one per bound base-colour / normal slot
+    (`render_gbuffer` shades its hits through `intersect_and_shade`)."""
     s = tables.tex_slots
-    per_hit = int(s[BASE]) + int(s[NORMAL])
-    per_bounce = int(s[METAL_ROUGH]) + int(s[EMISSIVE]) + int(tables.light_tex)
-    return {**sweeps(1 + DEPTH, cuda_dense.multi_tile(tables)),
-            "shade_rows": 0, "fetch_rows": DEPTH + int(seeded),
-            "fetch_quad": per_hit * (DEPTH + int(seeded))
-            + per_bounce * DEPTH}
+    return {**rows_launches(seeded, cuda_dense.multi_tile(tables)),
+            "fetch_quad": int(seeded) * (int(s[BASE]) + int(s[NORMAL]))}
 
 
-def drive(label: str, n_frames: int, per_frame: dict, fn, totals: dict):
+def drive(label: str, n_frames: int, per_frame: dict, fn,
+          totals: dict) -> dict:
     """Run one path with the launch counts zeroed just before it; assert
-    its exact counts and add them to the totals."""
+    its exact counts, add them to the totals and return them."""
     kernels.reset_launches()
     fn()
     counts = dict(kernels.launches)
@@ -1498,6 +1662,7 @@ def drive(label: str, n_frames: int, per_frame: dict, fn, totals: dict):
     print(f"launches, {label} ({n_frames} frames): {counts}")
     for k, v in counts.items():
         totals[k] += v
+    return counts
 
 
 FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1631,14 +1796,17 @@ def decode_times(smi_line: str) -> None:
           f"for bit)")
 
 
-def texture_formats(dev, smi_line: str, totals: dict) -> dict:
+def texture_formats(dev, smi_line: str, totals: dict) -> tuple:
     """The texture formats phase: every JPEG fixture decodes to Pillow's
     digest and every written PNG to the pixels it holds; decode times;
     the formats scene (four texture layers: a 4:2:0 JPEG, a progressive
     JPEG, a 16-bit Adam7 PNG and a 4-bit palette PNG) at 1920x1080 d8
-    through `Renderer`, its frames bit-equal to a twin scene whose images
-    are the port's decodes as 8-bit PNGs; the quad fetch on the scene's
-    four-layer level 0 and mip. Returns the quad fetch's kernel row."""
+    through `Renderer`, 8 traced frames and then 4 G-buffer-seeded ones,
+    every frame bit-equal to a twin scene whose images are the port's
+    decodes as 8-bit PNGs; the quad fetch on the scene's four-layer level 0
+    and mip. Returns (the quad fetch's kernel row, whose launches are the
+    seeded frames' G-buffer quad fetches, the shade launches of these
+    frames, the Renderer)."""
     with open(os.path.join(FIXTURE_DIR, "digests.json")) as f:
         digests = json.load(f)
     for name, want in sorted(digests.items()):
@@ -1665,23 +1833,29 @@ def texture_formats(dev, smi_line: str, totals: dict) -> dict:
     assert rf.textures[0].shape == (4, 1024, 1024)
     assert rf.textures[1].shape == (4, 128, 128)  # 4 * 128^2 = KRON_MAX_ROWS
     assert rf.tables.tex_slots == (True, True, True, True)
-    per_frame = textured_launches(rf.tables, False)
-    frames_f, frames_t = [], []
-    drive("Renderer texture formats 1080p", 8, per_frame,
-          lambda: renderer_frames(rf, 8, f"texture formats {HD[0]}x{HD[1]} "
-                                  f"d{DEPTH}", per_frame, keep=frames_f),
-          totals)
-    formats_quads = kernels.launches["fetch_quad"]
-    drive("Renderer texture formats twin (8-bit PNGs) 1080p", 8, per_frame,
-          lambda: renderer_frames(twin, 8, f"texture formats twin "
-                                  f"{HD[0]}x{HD[1]} d{DEPTH}", per_frame,
-                                  keep=frames_t), totals)
-    for i, (a, b) in enumerate(zip(frames_f, frames_t)):
-        assert bits_equal(a, b), f"texture formats: frame {i + 1} differs " \
-            f"from the twin's"
-    print(f"texture formats 1080p d{DEPTH}: mean radiance "
-          f"{float(rf.radiance().mean()):.4f}; all 8 frames bit-equal to "
-          f"the twin's (8-bit PNGs of the port's decodes)")
+    shades, formats_quads = 0, 0
+    for seeded, n in ((False, 8), (True, 4)):
+        per_frame = textured_launches(rf.tables, seeded)
+        tag = " G-buffer seeded" if seeded else ""
+        frames_f, frames_t = [], []
+        for r, keep, name in ((rf, frames_f, "texture formats"),
+                              (twin, frames_t, "texture formats twin "
+                               "(8-bit PNGs)")):
+            r.launches = dict.fromkeys(r.launches, 0)  # this run's only
+            counts = drive(f"Renderer {name} 1080p{tag}", n, per_frame,
+                           lambda: renderer_frames(
+                               r, n, f"{name} {HD[0]}x{HD[1]} d{DEPTH}{tag}",
+                               per_frame, use_gbuffer=seeded, keep=keep),
+                           totals)
+            shades += counts["shade_rows"]
+            if r is rf:
+                formats_quads += counts["fetch_quad"]
+        for i, (a, b) in enumerate(zip(frames_f, frames_t)):
+            assert bits_equal(a, b), f"texture formats{tag}: frame " \
+                f"{i + 1} differs from the twin's"
+        print(f"texture formats 1080p d{DEPTH}{tag}: mean radiance "
+              f"{float(rf.radiance().mean()):.4f}; all {n} frames bit-equal "
+              f"to the twin's (8-bit PNGs of the port's decodes)")
 
     ro, rd = pinhole_rays(rf.camera, *HD)
     hit = intersect_and_shade(rf.tables, rf.textures, ro, rd)
@@ -1694,7 +1868,9 @@ def texture_formats(dev, smi_line: str, totals: dict) -> dict:
          rf.textures[1].flat, rows1),
         ("texture formats level 0 4 x 1024^2, 1080p rows",
          rf.textures[0].flat, rows0)])
-    return dict(row, name="fetch_quad_4_layers", launches=formats_quads)
+    return (dict(row, name="fetch_quad_4_layers", launches=formats_quads,
+                 path="the formats scene's G-buffer pass (base colour and "
+                 "normal map)"), shades, rf)
 
 
 def animated_tick(dev, totals: dict) -> None:
@@ -1977,6 +2153,68 @@ def profile_paths(paths) -> None:
                   f"  {key[:70]}")
 
 
+def frame_times(dev, smi_line: str) -> None:
+    """--frame-times: ms/frame (host clock over frames 2..8, ending in a
+    synchronise), the kernels' launches a frame and a digest of the frames'
+    bits, for cornell 1920x1080 d8 traced, the textured quad 1920x1080 d8
+    traced, the formats scene at 1920x1080 d8 through `Renderer` and the
+    textured quad's `Renderer` at 512^2 d8 with use_gbuffer=True; one JSON
+    line. It calls only what every version of the port since the formats
+    scene has, so one copy of this script, run from the root of two
+    checkouts in one call, compares them (parent, change, change, parent):
+
+        cp chip_smoke.py CHECKOUT/chip_smoke_frames.py
+        cd CHECKOUT && python3 chip_smoke_frames.py --frame-times
+    """
+    n = 8
+    jit0 = torch.zeros(2, device=dev)
+    out = {"frame_ms": {}, "launches": {}, "mean": {}, "digest": {}}
+
+    def timed(label, fn):
+        kernels.reset_launches()
+        frames = [fn(1)]
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in range(2, n + 1):
+            frames.append(fn(f))
+        torch.cuda.synchronize()
+        out["frame_ms"][label] = 1e3 * (time.perf_counter() - t0) / (n - 1)
+        out["launches"][label] = launches
+        out["mean"][label] = float(frames[-1].mean())
+        digest = hashlib.sha256()
+        for x in frames:
+            digest.update(x.cpu().numpy().tobytes())
+        out["digest"][label] = digest.hexdigest()[:16]
+
+    world = NativeWorld("cornell")
+    world.update_camera(*HD)
+    tables = build_world_tables(world, dev)
+    cam = torch.from_numpy(np.asarray(world.camera(), np.float32)).to(dev)
+    timed("cornell 1080p traced", lambda f: trace_pixels_dense(
+        tables, cam, f, jit0, *HD, 1, DEPTH))
+    tq_tables, tq_cam, tq_tex = textured_scene(textured_quad_glb(), *HD, dev)
+    timed("textured quad 1080p traced", lambda f: trace_pixels_dense(
+        tq_tables, tq_cam, f, jit0, *HD, 1, DEPTH, textures=tq_tex))
+
+    def renderer(r, use_gbuffer=False):
+        def frame(_):
+            r.render_frame(use_gbuffer=use_gbuffer)
+            r.present()
+            return r.accum.clone()
+        return frame
+
+    cfg = RenderConfig(width=HD[0], height=HD[1], max_depth=DEPTH)
+    timed("Renderer texture formats 1080p", renderer(Renderer(
+        "viewer", config=cfg, glb_data=formats_scene_glb(), device=dev)))
+    cfg = RenderConfig(width=SMALL[0], height=SMALL[1], max_depth=DEPTH)
+    timed("Renderer textured quad 512^2 G-buffer seeded", renderer(Renderer(
+        "viewer", config=cfg, glb_data=textured_quad_glb(), device=dev),
+        use_gbuffer=True))
+    print(smi_line)
+    print(json.dumps(out))
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -2002,6 +2240,9 @@ def main(argv: list[str]) -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    if "--frame-times" in argv:
+        frame_times(dev, smi_line)
+        return 0
 
     # --- scenes ---
     width, height = SMALL
@@ -2062,9 +2303,27 @@ def main(argv: list[str]) -> int:
           f"{sum(x.numel() * 4 for x in pack_sp[:3]) / 1e6:.1f} MB, built "
           f"in {pack_ms:.3f} ms (host clock, synchronised)")
 
+    fm_tables, fm_cam, fm_tex = textured_scene(formats_scene_glb(), *hd, dev)
+    fm5_tex = textured_scene(formats_scene_glb(), *hd, dev, fifth=True)[2]
+    assert fm5_tex[0].shape == (5, 1024, 1024) and fm5_tex[1] is fm5_tex[0]
+    lq_tables, lq_cam, lq_tex = textured_scene(textured_light_glb(), width,
+                                               height, dev)
+    assert lq_tables.light_tex and lq_tables.light_count > 0
+
     # --- phase 2: each kernel against its plain version ---
-    results = [check_sweep(tables, camera, width, height),
-               check_shade(tables, camera, width, height)]
+    shade_row = check_shade(tables, camera, width, height)
+    shade_tex_row = check_shade_textured([
+                   ("textured quad 1080p", tq_tables, tq_cam, tq_tex, *hd,
+                    (0, 4)),
+                   ("texture formats 1080p", fm_tables, fm_cam, fm_tex, *hd,
+                    (0, 4)),
+                   ("texture formats + a 5th layer (level 1 is level 0) "
+                    "1080p", fm_tables, fm_cam, fm5_tex, *hd, (0,)),
+                   ("textured light 512^2", lq_tables, lq_cam, lq_tex, width,
+                    height, (0, 4))],
+                   (tables, {hd: cam_hd, (width, height): camera}))
+    results = [check_sweep(tables, camera, width, height), shade_row,
+               shade_tex_row]
 
     R_hd = hd[0] * hd[1]
     gb_hd = render_gbuffer(tables, None, cam_hd, *hd)
@@ -2087,15 +2346,28 @@ def main(argv: list[str]) -> int:
                        hit.rowT[SHADE_COLS["tex"][0]].to(torch.int32), -1)
     rows0 = texel_rows(tq_tex[0], base, hit.tex_u, hit.tex_v)[0]
     rows1 = texel_rows(tq_tex[1], base, hit.tex_u, hit.tex_v)[0]
-    results.append(check_fetch_quad([
+    results.append(dict(check_fetch_quad([
         ("mip 128^2, 1080p bounce rows", tq_tex[1].flat, rows1),
-        ("level 0 1024^2, 1080p bounce rows", tq_tex[0].flat, rows0)]))
+        ("level 0 1024^2, 1080p bounce rows", tq_tex[0].flat, rows0)]),
+        path="the G-buffer pass of textured scenes (render_gbuffer)"))
 
     results += check_jobs(sp_tables, sp_cam, width, height)
     results += check_scan(sp_tables, sp_cam, width, height)
     results += check_bvh([
         ("cornell 512^2", bvh_cornell, pack_cornell, camera, tables),
         ("spheres 512^2", bvh_sp, pack_sp, sp_cam, sp_tables)])
+
+    # The plain sampler's f64 fused multiply-add against a true f32 one on
+    # the formats scene's 1080p primary hits, every layer in turn.
+    ro, rd = pinhole_rays(fm_cam, *hd)
+    hit = intersect_and_shade(fm_tables, fm_tex, ro, rd)
+    lane = torch.arange(hd[0] * hd[1], device=dev, dtype=torch.int32)
+    layer = torch.where(hit.wt >= 0, lane % 4, -1)
+    for name, level in (("level 0", fm_tex[0]), ("mip", fm_tex[1])):
+        bad, total = fma_ties(level, layer, hit.tex_u, hit.tex_v)
+        print(f"sampler fused multiply-adds, texture formats 1080p primary "
+              f"hits, {name}: the plain version's f64 emulation rounds {bad} "
+              f"of {total} otherwise than a true f32 fma (one ulp each)")
 
     # --- phase 3: every path, counting launches ---
     totals = {k: 0 for k in kernels.launches}
@@ -2114,11 +2386,18 @@ def main(argv: list[str]) -> int:
                                   f"d{DEPTH}", rows_launches(False)),
           totals)
 
-    drive("textured quad 1080p traced", 8,
-          textured_launches(tq_tables, False),
-          lambda: frames(tq_tables, tq_cam, *hd, 8, "textured_1080p",
-                         textures=tq_tex), totals)
-    results.append(texture_formats(dev, smi_line, totals))
+    tq_launches = textured_launches(tq_tables, False)
+    assert tq_launches == {
+        "dense_sweep": 9, "cluster_cull": 0, "job_sweep": 0,
+        "cluster_cull_keyed": 0, "scan_sweep": 0, "shade_rows": 8,
+        "fetch_rows": 0, "fetch_quad": 0, "bvh_closest": 0, "bvh_shadow": 0}
+    textured_shades = drive(
+        "textured quad 1080p traced", 8, tq_launches,
+        lambda: frames(tq_tables, tq_cam, *hd, 8, "textured_1080p",
+                       textures=tq_tex), totals)["shade_rows"]
+    quad_row, shades, rf = texture_formats(dev, smi_line, totals)
+    results.append(quad_row)
+    textured_shades += shades
 
     seeded_hd = []
     drive("cornell 1080p G-buffer seeded", 8, rows_launches(True),
@@ -2133,13 +2412,14 @@ def main(argv: list[str]) -> int:
                                          max_depth=DEPTH),
                   glb_data=glb, device=dev)
     assert rt.textures is not None and rt.textures[1].shape == (1, 128, 128)
-    drive("Renderer textured quad 512^2 G-buffer seeded", 8,
-          textured_launches(rt.tables, True),
-          lambda: renderer_frames(rt, 8, f"textured quad {width}x{height} "
-                                  f"d{DEPTH} use_gbuffer=True",
-                                  textured_launches(rt.tables, True),
-                                  use_gbuffer=True),
-          totals)
+    textured_shades += drive(
+        "Renderer textured quad 512^2 G-buffer seeded", 8,
+        textured_launches(rt.tables, True),
+        lambda: renderer_frames(rt, 8, f"textured quad {width}x{height} "
+                                f"d{DEPTH} use_gbuffer=True",
+                                textured_launches(rt.tables, True),
+                                use_gbuffer=True),
+        totals)["shade_rows"]
     jobs_sp = []
     drive("spheres 512^2 traced", 4, rows_launches(False, True),
           lambda: jobs_sp.append(frames(sp_tables, sp_cam, width, height, 4,
@@ -2222,6 +2502,15 @@ def main(argv: list[str]) -> int:
                 narrow="scan")),
             ("textured quad 1080p d8", lambda: trace_pixels_dense(
                 tq_tables, tq_cam, 1, jit0, *hd, 1, DEPTH, textures=tq_tex)),
+            ("texture formats 1080p d8", lambda: trace_pixels_dense(
+                rf.tables, rf.camera, 1, jit0, *hd, 1, DEPTH,
+                textures=rf.textures)),
+            ("textured quad 512^2 d8 G-buffer seeded",
+             lambda: trace_pixels_dense(
+                 rt.tables, rt.camera, 1, jit0, width, height, 1, DEPTH,
+                 textures=rt.textures, seed_wt_idx=render_gbuffer(
+                     rt.tables, rt.textures, rt.camera, width, height)
+                 .wt_idx.reshape(-1))),
             ("cornell 1080p d8 seeded", lambda: trace_pixels_dense(
                 tables, cam_hd, 1, jit0, *hd, 1, DEPTH,
                 seed_wt_idx=render_gbuffer(tables, None, cam_hd, *hd)
@@ -2236,6 +2525,9 @@ def main(argv: list[str]) -> int:
                 bvh_sp, sp_cam, 1, jit0, width, height, 1, DEPTH)),
         ])
 
+    # Every shade of a textured scene ran the textured instantiation.
+    shade_tex_row["launches"] = textured_shades
+    shade_row["launches"] = totals["shade_rows"] - textured_shades
     for res in results:  # the formats row holds its own scene's count
         if "launches" not in res:
             res["launches"] = totals[res["name"]]

@@ -30,7 +30,8 @@ from webgpu_raytracer_tpu_torch.ops.dense import (T_MAX, closest_plain,
                                                   scan_shadow_plain,
                                                   shadow_plain, worklist_mask)
 from webgpu_raytracer_tpu_torch.ops.coherence import box6, coherence_sort
-from webgpu_raytracer_tpu_torch.ops.dense_trace import (bounce_rays,
+from webgpu_raytracer_tpu_torch.ops.dense_trace import (bounce_inputs,
+                                                        bounce_rays,
                                                         trace_pixels_dense)
 from webgpu_raytracer_tpu_torch.ops.fetch import (fetch_quad_plain,
                                                   fetch_rows_plain)
@@ -260,23 +261,55 @@ def test_max_depth_zero_on_card(cuda):
     assert close.float().mean() >= 0.95
 
 
-@pytest.mark.parametrize("depth", [0, 4])
-def test_shade_kernel_matches_plain(cuda, depth):
-    tables, ro, rd = _scene("cornell", cuda)
-    R = RES * RES
-    _, idx, rowT = cuda_dense.closest_with_row(tables, ray_stack(ro, rd,
-                                                                 T_MAX))
-    one, zero = torch.ones(R, device=cuda), torch.zeros(R, device=cuda)
-    state = torch.stack([one, *ro, *rd, one, one, one, zero, zero, zero,
-                         zero, one, zero, zero, zero, zero, one])
-    args = (state, init_rng(torch.arange(R, device=cuda), 1), rowT, idx,
-            tables.light_rows, depth, tables.light_count, 8)
-    out, rng, rays8 = shade_rows.shade(*args)
-    out_p, rng_p = shade_rows.shade_step(*args)
-    assert torch.equal(rng, rng_p)
+# Textured scenes of the shade kernel's textured instantiation: GLB maker
+# and whether a fifth layer is added (so level 1 is level 0).
+SHADE_TEXTURED = {"textured": (chip_smoke.textured_quad_glb, False),
+                  "formats": (chip_smoke.formats_scene_glb, False),
+                  "five_layers": (chip_smoke.formats_scene_glb, True),
+                  "textured_light": (chip_smoke.textured_light_glb, False)}
+
+
+@pytest.mark.parametrize("scene,depth", [
+    ("cornell", 0), ("cornell", 4), ("textured", 0), ("textured", 4),
+    ("formats", 0), ("five_layers", 0), ("textured_light", 0)])
+def test_shade_kernel_matches_plain(cuda, scene, depth):
+    """Both instantiations against shade_step: cornell's primary hits shaded
+    as bounce `depth`, a textured scene's inputs advanced `depth` bounces
+    through the kernels. rng words equal, the ray stack equal to the
+    kernel's own rows, >= 99.5% of lanes within rtol 1e-4 and flags equal
+    on as many."""
+    if scene == "cornell":  # the primary hits, shaded as bounce `depth`
+        tables, ro, rd = _scene("cornell", cuda)
+        textures = None
+        R = RES * RES
+        _, idx, rowT = cuda_dense.closest_with_row(tables, ray_stack(ro, rd,
+                                                                     T_MAX))
+        one, zero = torch.ones(R, device=cuda), torch.zeros(R, device=cuda)
+        state = torch.stack([one, *ro, *rd, one, one, one, zero, zero, zero,
+                             zero, one, zero, zero, zero, zero, one])
+        rng = init_rng(torch.arange(R, device=cuda), 1)
+    else:
+        glb, fifth = SHADE_TEXTURED[scene]
+        tables, cam, textures = chip_smoke.textured_scene(glb(), RES, RES,
+                                                          cuda, fifth=fifth)
+        assert (textures[1] is textures[0]) == fifth
+        state, rng, rowT, idx = bounce_inputs(tables, cam, RES, RES, depth,
+                                              8, textures)
+    kw = dict(textures=textures)
+    args = (state, rng, rowT, idx, tables.light_rows, depth,
+            tables.light_count, 8)
+    before = kernels.launches["shade_rows"]
+    out, rng_k, rays8 = shade_rows.shade(*args, **kw)
+    assert kernels.launches["shade_rows"] == before + 1
+    out_p, rng_p = shade_rows.shade_step(*args, **kw)
+    assert torch.equal(rng_k, rng_p)
     assert torch.equal(rays8, shade_rows.next_rays(out))
+    assert torch.isfinite(out).all()
     close = torch.isclose(out, out_p, rtol=1e-4, atol=1e-5).all(0)
     assert close.float().mean() >= 0.995
+    flag_rows = list(shade_rows.FLAG_ROWS)
+    flags = (out[flag_rows] == out_p[flag_rows]).all(0)
+    assert flags.float().mean() >= 0.995
 
 
 # (depth, frames, res, expected, tol) of tests/test_golden.py's GOLDEN,
@@ -395,9 +428,10 @@ def test_fetch_wrappers_reject_bad_inputs(cuda):
 
 def test_textured_renderer_on_card_counts_launches(cuda):
     """The textured quad (base-colour texture only, untextured lights):
-    per frame of depth 5, seeded from the G-buffer: 6 sweeps, 6 row fetches
-    (5 light, 1 seed) and 6 quad fetches (G-buffer, seed, 4 extension
-    hits)."""
+    per frame of depth 5, seeded from the G-buffer: 6 sweeps (G-buffer, 5
+    bounces), 5 shades (the textured instantiation samples the texels), 1
+    row fetch (the seed rows) and 1 quad fetch (the G-buffer's base
+    colour)."""
     r = Renderer("viewer",
                  config=RenderConfig(width=RES, height=RES, max_depth=5),
                  glb_data=chip_smoke.textured_quad_glb(), device="cuda")
@@ -405,8 +439,8 @@ def test_textured_renderer_on_card_counts_launches(cuda):
         r.render_frame(use_gbuffer=True)
         img = r.present()
     assert img.shape == (RES, RES, 3) and np.isfinite(r.radiance()).all()
-    assert r.launches == {"dense_sweep": 2 * 6, "shade_rows": 0,
-                          "fetch_rows": 2 * 6, "fetch_quad": 2 * 6,
+    assert r.launches == {"dense_sweep": 2 * 6, "shade_rows": 2 * 5,
+                          "fetch_rows": 2 * 1, "fetch_quad": 2 * 1,
                           "cluster_cull": 0, "job_sweep": 0,
                           "cluster_cull_keyed": 0, "scan_sweep": 0,
                           "bvh_closest": 0, "bvh_shadow": 0}

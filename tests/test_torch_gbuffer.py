@@ -222,7 +222,7 @@ def test_gbuffer_seed_hit_bit_identical(scene):
 @pytest.mark.parametrize("frame", [1, 3])
 def test_gbuffer_seeded_frame_matches_traced(scene, frame):
     """Whole frames at lens radius 0: seeded equals traced, bit for bit, on
-    the row-state loop (cornell) and on ray_color_dense (textured)."""
+    the row-state loop, untextured (cornell) and textured."""
     _, world, _, tables, _, ptex = scene
     cam = torch.from_numpy(np.asarray(world.camera(), np.float32))
     assert float(cam[3]) == 0.0

@@ -8,7 +8,9 @@
 - the same tolerance on the second slice's paths, frames 1..4: the
   textured quad at 32^2 d4 and the character GLB (1294 tris over 11 tiles,
   2 textures, an emissive-textured collar, a metallic head) at 16^2 d3
-  through the port's `ray_color_dense`, each package with its own decode;
+  through the port's row-state loop, whose `shade_step` samples the
+  textures (JAX traces them with its per-ray `ray_color_dense`), each
+  package with its own decode;
   G-buffer-seeded cornell at 32^2 d4, each seeded from its own G-buffer;
   and `chip_smoke.py`'s texture formats scene at 32^2 d4 (a 4:2:0 and a
   progressive JPEG, a 16-bit Adam7 PNG and a 4-bit palette PNG in the
@@ -26,6 +28,8 @@
   plain versions: coherence sort, exact cull, per-group worklists.
 - present: the port's `postprocess` on the same accum/history: HDR history
   allclose at rtol 1e-5, LDR within 1 code and equal on >= 99%.
+- a textured scene at max_depth > 0 takes the row-state loop, and at
+  max_depth 0 the port's `ray_color_dense`, traced and G-buffer seeded.
 - Renderer: CPU frames are finite, for cornell and for mixed through the
   job-stream path and, with `narrow="scan"`, the scan path (the same
   accumulator bit for bit; an unknown narrow phase raises); "cuda" raises
@@ -417,6 +421,34 @@ def test_renderer_textured_frames_and_gbuffer_seeding():
                                  H, 1, 4, with_stats=True,
                                  textures=seeded.textures, seed_wt_idx=seed)
     assert float(seeded.last_rays) == float(rays) + W * H
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_textured_trace_takes_rows_loop(monkeypatch, depth):
+    """trace_pixels_dense on the textured quad calls ray_color_dense_rows
+    at max_depth > 0 and ray_color_dense only at max_depth 0 (its one
+    shadow-only last bounce), traced and seeded from a G-buffer."""
+    from webgpu_raytracer_tpu_torch.ops import dense_trace as pdt
+
+    world = NativeWorld("viewer", glb_data=textured_quad_glb())
+    world.update_camera(8, 8)
+    tables = build_world_tables(world, "cpu")
+    ptex = device_pyramid(port_textures.build_quad_pyramid(
+        port_textures.decode_world_textures(world)), "cpu")
+    cam = torch.from_numpy(np.asarray(world.camera(), np.float32))
+    calls = []
+    for name in ("ray_color_dense", "ray_color_dense_rows"):
+        def counted(*args, _fn=getattr(pdt, name), _name=name, **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(pdt, name, counted)
+    seed = render_gbuffer(tables, ptex, cam, 8, 8).wt_idx.reshape(-1)
+    for s in (None, seed):
+        col = trace_pixels_dense(tables, cam, 1, torch.zeros(2), 8, 8, 1,
+                                 depth, textures=ptex, seed_wt_idx=s)
+        assert torch.isfinite(col).all() and float(col.mean()) > 0.01
+    want = "ray_color_dense_rows" if depth > 0 else "ray_color_dense"
+    assert calls == [want, want]
 
 
 def test_renderer_large_scene_not_ported():

@@ -6,7 +6,19 @@
 // light sample, Lambert / GGX / dielectric sampling with the
 // geometric-normal guard, Russian roulette after depth 3, and the
 // resolution of the previous bounce's NEE. Six PCG draws, in the same
-// order: 3 NEE, 2 BSDF, 1 RR. Scenes without textures (1x1 white texel).
+// order: 3 NEE, 2 BSDF, 1 RR.
+//
+// Two instantiations. kTextured = false is the TPU kernel's scope, the 1x1
+// white texel (wrt_shade_rows). kTextured = true (wrt_shade_rows_textured)
+// also samples textures as the JAX package's per-ray ray_color_dense does,
+// which the TPU kernel cannot (its texel gathers do not run inside a
+// Pallas kernel): base colour and normal map at level 0 on bounce 0 and at
+// level 1 after it, metallic-roughness (z scales metallic, y roughness),
+// emissive and the picked light's base colour at level 1. A level is the
+// (N, 4) int32 quad table of ops/fetch.py (one 16-byte row holds the four
+// bilinear corners as u8 codes) with its (K, TH, TW); a lane reads a quad
+// only where its slot index is >= 0 (miss lanes' zeroed rows are gated on
+// idx >= 0, metallic-roughness and emissive on the live lanes).
 //
 //   state    (20, n) f32   rows as in ops/shade_rows.py (lane-minor)
 //   rng      (n,) int64    u32 PCG words (computed here as uint32_t)
@@ -23,6 +35,12 @@
 // (jnp.where), this kernel computes the selected branch only; the result
 // is the same. Built without --use_fast_math: '/' and sqrtf are IEEE,
 // sinf / cosf are the precise versions; FMA contraction is nvcc's default.
+// The texture coordinates, the barycentrics that feed them and the
+// sampler's texel position are the exception: they are computed with the
+// __f*_rn intrinsics, each product and sum rounded as the plain version
+// rounds it, since a contracted product can move a floor() across an
+// integer and read another texel; the bilinear lerps are __fmaf_rn where
+// the plain version emulates the fused multiply-add of XLA's sampler.
 //
 // What bounds it on an H100: memory traffic. A lane reads 252 bytes (20
 // state and 40 row floats, its idx and rng word) and writes 180 (27 state
@@ -30,11 +48,14 @@
 // (262,144 lanes), 0.9 GB at 1920x1080, against some 400 flops a lane.
 // Measured on an H100 80GB HBM3 at 700 W: 0.068 ms at 512^2 (half the
 // 3.35 TB/s roofline; the launch is short) and 0.30 ms at 1080p (~90% of
-// it). The design makes it one pass: one thread per lane, every
-// intermediate in registers, loads and stores lane-minor so each warp
-// touches 128 contiguous bytes per row, and the next sweep's ray stack
-// written here rather than assembled by separate copies. The light rows are
-// small and read through the read-only cache.
+// it). The textured instantiation adds 16 bytes per texel quad a lane
+// reads (at most five: base, normal, metallic-roughness, emissive, light),
+// random reads that stay in L2 while the levels read fit it (one 1024^2
+// layer is 16 MB). The design makes it one pass: one thread per lane,
+// every intermediate in registers, loads and stores lane-minor so each
+// warp touches 128 contiguous bytes per row, and the next sweep's ray
+// stack written here rather than assembled by separate copies. The light
+// rows and the texel quads are read through the read-only cache.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -182,6 +203,76 @@ __device__ __forceinline__ float ggx_pdf(V3 n, V3 v, V3 l, float roughness) {
          (4.0f * fmaxf(v_dot_h, 1e-8f));
 }
 
+// One texture level: the quad table's rows and its (K, TH, TW).
+struct TexLevel {
+  const int4* quads;
+  int k, th, tw;
+};
+
+__device__ __forceinline__ float dot_rn(V3 a, V3 b) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)),
+                   __fmul_rn(a.z, b.z));
+}
+
+__device__ __forceinline__ V3 cross_rn(V3 a, V3 b) {
+  return {__fsub_rn(__fmul_rn(a.y, b.z), __fmul_rn(a.z, b.y)),
+          __fsub_rn(__fmul_rn(a.z, b.x), __fmul_rn(a.x, b.z)),
+          __fsub_rn(__fmul_rn(a.x, b.y), __fmul_rn(a.y, b.x))};
+}
+
+// a * wa + b * wb + c * wc, every product and sum rounded, in this order.
+__device__ __forceinline__ float bary_rn(float a, float wa, float b, float wb,
+                                         float c, float wc) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, wa), __fmul_rn(b, wb)),
+                   __fmul_rn(c, wc));
+}
+
+// torch's integer modulo takes the divisor's sign: -1 wraps to m - 1.
+__device__ __forceinline__ int floor_mod(int a, int m) {
+  const int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+__device__ __forceinline__ V3 corner(int word) {
+  const float s = (float)(1.0 / 255.0);
+  return {__fmul_rn((float)((word >> 16) & 0xFF), s),
+          __fmul_rn((float)((word >> 8) & 0xFF), s),
+          __fmul_rn((float)(word & 0xFF), s)};
+}
+
+// a * b + c per component, rounded once.
+__device__ __forceinline__ V3 fma_v3(V3 a, float b, V3 c) {
+  return {__fmaf_rn(a.x, b, c.x), __fmaf_rn(a.y, b, c.y),
+          __fmaf_rn(a.z, b, c.z)};
+}
+
+__device__ __forceinline__ V3 mul_rn(V3 a, float s) {
+  return {__fmul_rn(a.x, s), __fmul_rn(a.y, s), __fmul_rn(a.z, s)};
+}
+
+// ops/fetch.py::sample_texture_v3 for a lane whose slot index is >= 0:
+// the layer clamped to [0, K - 1], repeat wrap, one 16-byte quad read.
+__device__ __forceinline__ V3 sample_tex(const TexLevel& t, int tex, float u,
+                                         float v) {
+  const int layer = min(max(tex, 0), t.k - 1);
+  const float fx =
+      __fsub_rn(__fmul_rn(__fsub_rn(u, floorf(u)), (float)t.tw), 0.5f);
+  const float fy =
+      __fsub_rn(__fmul_rn(__fsub_rn(v, floorf(v)), (float)t.th), 0.5f);
+  const float x0 = floorf(fx);
+  const float y0 = floorf(fy);
+  const int row = (layer * t.th + floor_mod((int)y0, t.th)) * t.tw +
+                  floor_mod((int)x0, t.tw);
+  const int4 q = __ldg(t.quads + row);
+  const float wx = __fsub_rn(fx, x0);
+  const float wy = __fsub_rn(fy, y0);
+  const V3 top = fma_v3(corner(q.y), wx, mul_rn(corner(q.x),
+                                                __fsub_rn(1.0f, wx)));
+  const V3 bot = fma_v3(corner(q.w), wx, mul_rn(corner(q.z),
+                                                __fsub_rn(1.0f, wx)));
+  return fma_v3(top, __fsub_rn(1.0f, wy), mul_rn(bot, wy));
+}
+
 struct Scatter {
   V3 dir;
   float pdf;
@@ -255,13 +346,14 @@ __device__ __forceinline__ Scatter sample_dielectric(V3 dir, V3 normal,
   return {d, 1.0f, albedo, true};
 }
 
+template <bool kTextured>
 __global__ void __launch_bounds__(kThreads)
 shade_rows_kernel(const float* __restrict__ state,
                   const long long* __restrict__ rng,
                   const float* __restrict__ rowT, const int* __restrict__ idx,
                   const float* __restrict__ lrows, int light_count, int depth,
-                  int max_depth, int n, float* __restrict__ out,
-                  long long* __restrict__ rng_out,
+                  int max_depth, int n, TexLevel tex0, TexLevel tex1,
+                  float* __restrict__ out, long long* __restrict__ rng_out,
                   float* __restrict__ rays8) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
@@ -304,20 +396,57 @@ shade_rows_kernel(const float* __restrict__ state,
   const bool nt_on = idx_ok && RW(33) >= 0.0f;  // tex[2]: normal map
   const V3 t_axis = normalize(e1);
   const V3 b_axis = normalize(cross(ln, t_axis));
-  const V3 ln_mapped = normalize(t_axis + b_axis + ln);
+  V3 ln_mapped;
+  V3 albedo = RV(24);
+  [[maybe_unused]] float tex_u = 0.0f, tex_v = 0.0f;
+  if constexpr (kTextured) {
+    // The hit's texture coordinates from barycentrics rounded as the plain
+    // version rounds them; base colour and normal map at level 0 on
+    // bounce 0, at level 1 after it.
+    const V3 h_rn = cross_rn(rd, e2);
+    const float a_rn = dot_rn(e1, h_rn);
+    const float f_rn = 1.0f / (fabsf(a_rn) > 1e-20f ? a_rn : 1e-20f);
+    const float bu = __fmul_rn(f_rn, dot_rn(sv, h_rn));
+    const float bv = __fmul_rn(f_rn, dot_rn(rd, cross_rn(sv, e1)));
+    const float bw = __fsub_rn(__fsub_rn(1.0f, bu), bv);
+    tex_u = bary_rn(RW(18), bw, RW(20), bu, RW(22), bv);
+    tex_v = bary_rn(RW(19), bw, RW(21), bu, RW(23), bv);
+    const TexLevel level = depth == 0 ? tex0 : tex1;
+    const int base_tex = idx_ok ? (int)RW(31) : -1;
+    if (base_tex >= 0) albedo = albedo * sample_tex(level, base_tex, tex_u,
+                                                    tex_v);
+    V3 n_map = {1.0f, 1.0f, 1.0f};
+    if (nt_on) n_map = sample_tex(level, (int)RW(33), tex_u, tex_v) * 2.0f +
+                       -1.0f;
+    ln_mapped = normalize(t_axis * n_map.x + b_axis * n_map.y + ln * n_map.z);
+  } else {
+    ln_mapped = normalize(t_axis + b_axis + ln);
+  }
   const V3 s_normal = sel(nt_on, ln_mapped, ln);
   const V3 s_geom = normalize(cross(e1, e2));
-  const V3 albedo = RV(24);
 
   const V3 hit_p = ro + rd * hit_t;
   const V3 normal = dot(rd, s_normal) < 0.0f ? s_normal : -s_normal;
   const V3 geom_n = dot(rd, s_geom) < 0.0f ? s_geom : -s_geom;
 
   const float mat = RW(27);
-  const float metallic = RW(28);
-  const float roughness = fmaxf(RW(29), 0.005f);
+  float metallic = RW(28);
+  float rough = RW(29);
+  V3 emissive = RV(35);
+  if constexpr (kTextured) {
+    // metallic-roughness and emissive: level 1, live lanes only.
+    const int mr_tex = active ? (int)RW(32) : -1;
+    if (mr_tex >= 0) {
+      const V3 mr = sample_tex(tex1, mr_tex, tex_u, tex_v);
+      metallic = metallic * mr.z;
+      rough = rough * mr.y;
+    }
+    const int em_tex = active ? (int)RW(34) : -1;
+    if (em_tex >= 0) emissive = emissive * sample_tex(tex1, em_tex, tex_u,
+                                                      tex_v);
+  }
+  const float roughness = fmaxf(rough, 0.005f);
   const float ior = RW(30);
-  const V3 emissive = RV(35);
   const V3 f0 = albedo * metallic + 0.04f * (1.0f - metallic);
 
   // --- emissive / light hit with MIS ---
@@ -347,10 +476,24 @@ shade_rows_kernel(const float* __restrict__ state,
   const V3 lv0 = {__ldg(L + 0), __ldg(L + 1), __ldg(L + 2)};
   const V3 le1 = {__ldg(L + 3), __ldg(L + 4), __ldg(L + 5)};
   const V3 le2 = {__ldg(L + 6), __ldg(L + 7), __ldg(L + 8)};
-  const V3 Lc = {__ldg(L + 24), __ldg(L + 25), __ldg(L + 26)};
+  V3 Lc = {__ldg(L + 24), __ldg(L + 25), __ldg(L + 26)};
   const float sqrt_r1 = sqrtf(r1);
   const float lu = 1.0f - sqrt_r1;
   const float lv = r2 * sqrt_r1;
+  if constexpr (kTextured) {
+    // The light's base colour at level 1. Its barycentric order is
+    // uv0 * u + uv1 * v + uv2 * w, not the hit's.
+    const int light_tex = (int)__ldg(L + 31);
+    if (light_tex >= 0) {
+      const float lv_rn = __fmul_rn(r2, sqrt_r1);
+      const float lw_rn = __fsub_rn(__fsub_rn(1.0f, lu), lv_rn);
+      const float lt_u = bary_rn(__ldg(L + 18), lu, __ldg(L + 20), lv_rn,
+                                 __ldg(L + 22), lw_rn);
+      const float lt_v = bary_rn(__ldg(L + 19), lu, __ldg(L + 21), lv_rn,
+                                 __ldg(L + 23), lw_rn);
+      Lc = Lc * sample_tex(tex1, light_tex, lt_u, lt_v);
+    }
+  }
   const V3 lpnt = lv0 + le1 * lv + le2 * (1.0f - lu - lv);
   const V3 lcr = cross(le1, le2);
   const V3 ln_raw = normalize(lcr);
@@ -464,9 +607,28 @@ extern "C" int wrt_shade_rows(const float* state, const long long* rng,
                               void* stream) {
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
-    shade_rows_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+    shade_rows_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         state, rng, rowT, idx, light_rows, light_count, depth, max_depth, n,
-        out, rng_out, rays8);
+        TexLevel{}, TexLevel{}, out, rng_out, rays8);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The textured instantiation: level 0 and level 1 (the same table where
+// the pyramid has one level) as (N, 4) int32 quad rows, 16-byte aligned,
+// with their (K, TH, TW).
+extern "C" int wrt_shade_rows_textured(
+    const float* state, const long long* rng, const float* rowT,
+    const int* idx, const float* light_rows, int light_count, int depth,
+    int max_depth, int n, const void* quads0, int k0, int th0, int tw0,
+    const void* quads1, int k1, int th1, int tw1, float* out,
+    long long* rng_out, float* rays8, void* stream) {
+  if (n > 0) {
+    const int blocks = (n + kThreads - 1) / kThreads;
+    shade_rows_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        state, rng, rowT, idx, light_rows, light_count, depth, max_depth, n,
+        TexLevel{(const int4*)quads0, k0, th0, tw0},
+        TexLevel{(const int4*)quads1, k1, th1, tw1}, out, rng_out, rays8);
   }
   return (int)cudaGetLastError();
 }

@@ -117,6 +117,10 @@ def library() -> ctypes.CDLL:
     lib.wrt_shade_rows.restype = _I
     lib.wrt_shade_rows.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _P, _P, _P, _P]
+    lib.wrt_shade_rows_textured.restype = _I
+    lib.wrt_shade_rows_textured.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I,
+                                            _I, _P, _I, _I, _I, _P, _I, _I,
+                                            _I, _P, _P, _P, _P]
     lib.wrt_fetch_rows_t.restype = _I
     lib.wrt_fetch_rows_t.argtypes = [_P, _I, _I, _P, _I, _P, _P]
     lib.wrt_fetch_quad.restype = _I

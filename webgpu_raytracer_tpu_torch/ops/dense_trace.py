@@ -6,15 +6,17 @@ The port of the JAX package's `ops/dense_trace.py`:
   (unbanded), with the thin-lens ray generation of `_trace_lanes`, traced
   primaries or bounce 0 seeded from a G-buffer id channel (`seed_wt_idx`);
 - `ray_color_dense_rows`: the row-state bounce loop, one CUDA shade launch
-  and one fused 2R-lane sweep a bounce. It serves scenes whose texture
-  operand is the 1x1 white placeholder (`textures=None` here), as the shade
-  kernel covers that texel only;
+  and one fused 2R-lane sweep a bounce, for every scene at `max_depth`
+  > 0: untextured scenes through the shade kernel's white-texel
+  instantiation, textured ones through its textured instantiation, which
+  samples the (level0, level1) quad-table pyramid inside the kernel;
 - `ray_color_dense`: the per-ray pipeline of plain torch ops between the
-  kernels, with texture sampling. It serves scenes with real textures:
-  each bounce runs the fused 2R sweep, except the last, which runs an
-  R-lane shadow-only query. Hits are rebuilt from the winner's shade row
-  (`shade_from_rowT`), light rows come through the row fetch kernel and
-  texels through the quad fetch kernel (`ops/cuda_fetch.py`).
+  kernels, with texture sampling: hits rebuilt from the winner's shade row
+  (`shade_from_rowT`), light rows through the row fetch kernel and texels
+  through the quad fetch kernel (`ops/cuda_fetch.py`). It serves
+  `max_depth` 0 (one shadow-only last bounce) and is the textured
+  reference the tests hold the row-state loop to; its `intersect_and_shade`
+  shades the G-buffer pass (`ops/gbuffer.py`).
 
 Every sweep takes the caller's `narrow` ("jobs", the default, or "scan"),
 threaded explicitly from `Renderer` down as the JAX package threads its
@@ -28,11 +30,17 @@ package. Differences of mechanism, not of result:
   `max_depth` 0 the JAX loop still runs its last, shadow-only bounce (at
   depth -1), and so does the port, through `ray_color_dense` on every
   scene;
+- JAX shades textured scenes with its per-ray loop (its shade kernel
+  cannot gather texels on the TPU); the port's row-state loop samples them
+  as that loop does, and the two give the same frame on the CPU bit for
+  bit;
 - where JAX skips a texture sample when no lane carries that map
-  (`lax.cond(jnp.any(...))`), the port skips the slots that no triangle of
-  the scene binds (`WorldTables.tex_slots` / `light_tex`, host facts from
-  the tables) and samples the rest unconditionally: the same result, and
-  launch counts fixed per frame;
+  (`lax.cond(jnp.any(...))`), `ray_color_dense` skips the slots that no
+  triangle of the scene binds (`WorldTables.tex_slots` / `light_tex`, host
+  facts from the tables) and samples the rest unconditionally, so its
+  launch counts are fixed per frame; `shade_step` skips as JAX does, and
+  the shade kernel reads a texel quad only for a lane whose slot index is
+  >= 0: the same result;
 - the exact ray count is reduced on the device, with no per-bounce sync;
 - the band and tail-compaction knobs of the TPU path are not ported.
 """
@@ -48,16 +56,14 @@ from .bsdf_v3 import PI, power_heuristic
 from .cuda_dense import closest_with_row, shadow
 from .cuda_fetch import fetch_rows_t
 from .dense import T_MAX, ray_stack
-from .fetch import TexLevel, kron_rows
+# The sampler lives in ops/fetch.py; its names are re-exported here.
+from .fetch import sample_texture_v3, tex_level, texel_rows  # noqa: F401
 from .rng import init_rng, rand_n, rand_pcg
-from .shade_rows import _offset_eps, shade
+from .shade_rows import (BASE, EMISSIVE, METAL_ROUGH, NORMAL, _offset_eps,
+                         shade)
 from .v3 import (V3, cross, dot, length, max_component, normalize, sqrt_rn,
                  where)
 from ..render.worldtris import SHADE_COLS, WorldTables
-
-# Texture slots: the four `tex` columns of a shade row.
-BASE, METAL_ROUGH, NORMAL, EMISSIVE = range(4)
-ALL_SLOTS = (True, True, True, True)
 
 
 def _row_v3(rowT, name) -> V3:
@@ -69,76 +75,8 @@ def _row_f(rowT, name, k=0):
     return rowT[SHADE_COLS[name][0] + k]
 
 
-def tex_level(textures, level: int):
-    """Resolve a texture operand that may be a (level0, level1) pyramid.
-
-    Bounce-0 samples read the full-resolution quad table; bounces >= 1
-    read the secondary mip (utils/textures.build_quad_pyramid). A bare
-    TexLevel, or None (the white placeholder), serves every level."""
-    if isinstance(textures, (tuple, list)) \
-            and not isinstance(textures, TexLevel):
-        return textures[min(level, len(textures) - 1)]
-    return textures
-
-
-def texel_rows(level: TexLevel, tex_idx, u, v):
-    """The quad-table rows a bilinear sample reads, and its weights:
-    (rows (R,) int32, wx, wy). Repeat wrap; lanes with tex_idx < 0 read
-    row 0."""
-    K, TH, TW = level.shape
-    idx = torch.clamp(tex_idx, 0, K - 1)
-    uu = u - torch.floor(u)
-    vv = v - torch.floor(v)
-    fx = uu * TW - 0.5
-    fy = vv * TH - 0.5
-    x0 = torch.floor(fx).to(torch.int32)
-    y0 = torch.floor(fy).to(torch.int32)
-    rows = (idx * TH + y0 % TH) * TW + x0 % TW
-    rows = torch.where(tex_idx >= 0, rows, 0).to(torch.int32)
-    return rows, fx - x0, fy - y0
-
-
-def sample_texture_v3(textures: Optional[TexLevel], tex_idx, u, v) -> V3:
-    """Component-SoA bilinear texture sample; tex_idx < 0 returns white.
-
-    `textures` is a TexLevel (packed quad table: one 16-byte row fetch
-    delivers all four bilinear corners as u8 codes), or None: the 1x1
-    white placeholder, or a slot the scene binds nowhere, which both
-    sample as white. Lanes with no texture fetch row 0, and their value is
-    discarded."""
-    one = torch.ones_like(u)
-    if textures is None:
-        return V3(one, one, one)
-    has = tex_idx >= 0
-    rows, wx, wy = texel_rows(textures, tex_idx, u, v)
-    q = kron_rows(textures, rows)
-
-    def corner(c):
-        w = q[:, c]
-        return V3(((w >> 16) & 0xFF).to(torch.float32),
-                  ((w >> 8) & 0xFF).to(torch.float32),
-                  (w & 0xFF).to(torch.float32)) * (1.0 / 255.0)
-
-    c0, c1, c2, c3 = (corner(c) for c in range(4))
-    top = _fma_v3(c1, wx, c0 * (1 - wx))
-    bot = _fma_v3(c3, wx, c2 * (1 - wx))
-    rgb = _fma_v3(top, 1 - wy, bot * wy)
-    return where(has, rgb, V3(one, one, one))
-
-
-def _fma_v3(a: V3, b, c: V3) -> V3:
-    """a * b + c with one rounding to f32, per component.
-
-    The JAX package's sampler body is one compiled XLA computation, whose
-    CPU backend contracts the bilinear lerps into fused multiply-adds:
-    top = fma(c1, wx, c0 * (1 - wx)), likewise bot, and
-    rgb = fma(top, 1 - wy, bot * wy). The port rounds the same way on any
-    device: the product of two f32 values is exact in f64, and the f64
-    sum rounds to the f32 fma result except when that double rounding lands
-    on an f32 tie (about one lane in 2^28)."""
-    bd = b.double()
-    return V3(*((x.double() * bd + z.double()).float()
-                for x, z in zip(a, c)))
+# Every texture slot bound: `shade_from_rowT`'s default.
+ALL_SLOTS = (True, True, True, True)
 
 
 class DenseHit(NamedTuple):
@@ -558,11 +496,11 @@ def pinhole_rays(camera24: torch.Tensor, width: int, height: int):
 
 
 def bounce_inputs(tables: WorldTables, camera24: torch.Tensor, width: int,
-                  height: int, depth: int, max_depth: int):
+                  height: int, depth: int, max_depth: int, textures=None):
     """(state, rng, rowT, idx) entering bounce `depth` of the row-state
     loop, from `pinhole_rays` and frame 1's rng streams: the inputs at
     which the tests and `chip_smoke.py` hold the sweeps and the shade
-    kernel."""
+    kernel. `textures`: the scene's pyramid, or None (white texel)."""
     R = width * height
     ro, rd = pinhole_rays(camera24, width, height)
     rng = init_rng(torch.arange(R, device=tables.device), 1)
@@ -570,29 +508,31 @@ def bounce_inputs(tables: WorldTables, camera24: torch.Tensor, width: int,
     state = _initial_state(ro, rd)
     for d in range(depth):
         out, rng, rays8 = shade(state, rng, rowT, idx, tables.light_rows, d,
-                                tables.light_count, max_depth)
+                                tables.light_count, max_depth, textures)
         state, idx, rowT = _sweep_bounce(tables, out, rays8, R)
     return state, rng, rowT, idx
 
 
 def bounce_rays(tables: WorldTables, camera24: torch.Tensor, width: int,
-                height: int, depth: int, max_depth: int) -> torch.Tensor:
+                height: int, depth: int, max_depth: int,
+                textures=None) -> torch.Tensor:
     """The fused (8, 2R) ray stack that bounce `depth` sweeps (its R NEE
     shadow rays, then its R extension rays)."""
     state, rng, rowT, idx = bounce_inputs(tables, camera24, width, height,
-                                          depth, max_depth)
+                                          depth, max_depth, textures)
     return shade(state, rng, rowT, idx, tables.light_rows, depth,
-                 tables.light_count, max_depth)[2]
+                 tables.light_count, max_depth, textures)[2]
 
 
 def ray_color_dense_rows(tables: WorldTables, ro: V3, rd: V3,
                          rng: torch.Tensor, max_depth: int,
                          hit0: Optional[DenseHit] = None,
-                         narrow: str = "jobs"):
+                         narrow: str = "jobs", textures=None):
     """Row-state bounce loop: one shade launch and one fused 2R-lane sweep
-    a bounce, estimator-identical to ray_color_dense for the 1x1 white
-    texel. `hit0` (only its rowT and wt are read) seeds bounce 0 from a
-    G-buffer instead of tracing primaries.
+    a bounce, estimator-identical to ray_color_dense at max_depth > 0.
+    `textures` is the scene's (level0, level1) pyramid, or None for the
+    1x1 white texel. `hit0` (only its rowT and wt are read) seeds bounce 0
+    from a G-buffer instead of tracing primaries.
 
     Returns (radiance V3, rng, rays): `rays` is a float64 device scalar,
     the EXACT count of rays traced: the R primaries unless seeded, plus, per
@@ -610,7 +550,8 @@ def ray_color_dense_rows(tables: WorldTables, ro: V3, rd: V3,
 
     for depth in range(max_depth):
         out, rng, rays8 = shade(state, rng, rowT, idx, tables.light_rows,
-                                depth, tables.light_count, max_depth)
+                                depth, tables.light_count, max_depth,
+                                textures)
         state, idx, rowT = _sweep_bounce(tables, out, rays8, R, narrow)
         rays = rays + out[15].sum(dtype=torch.float64) \
             + out[26].sum(dtype=torch.float64)
@@ -632,9 +573,9 @@ def trace_pixels_dense(tables: WorldTables, camera24: torch.Tensor,
                        total_spp: Optional[int] = None, sample0: int = 0):
     """One progressive frame over the whole image: thin-lens primaries
     (the JAX package's `_trace_lanes`), traced by `ray_color_dense_rows`
-    when `textures` is None (the 1x1 white placeholder) and by
-    `ray_color_dense` for a (level0, level1) texture pyramid, and at
-    max_depth 0 on every scene (its one last bounce).
+    at max_depth > 0, with `textures` None (the 1x1 white placeholder) or
+    a (level0, level1) texture pyramid, and by `ray_color_dense` at
+    max_depth 0 (its one last bounce).
 
     camera24 (24,) f32 and jitter (2,) f32 live on the tables' device.
     Per-pixel RNG streams depend only on (pixel, frame, sample), as in the
@@ -668,7 +609,7 @@ def trace_pixels_dense(tables: WorldTables, camera24: torch.Tensor,
     px = gx.to(torch.float32)
     py = gy.to(torch.float32)
     p_idx = gy * width + gx
-    rows_path = textures is None and max_depth > 0
+    rows_path = max_depth > 0
     if rows_path and seed_wt_idx is not None:
         seed_rows = seed_rows_from_wt_idx(tables, seed_wt_idx)
 
@@ -693,7 +634,8 @@ def trace_pixels_dense(tables: WorldTables, camera24: torch.Tensor,
         if rows_path:
             hit0 = None if seed_wt_idx is None else seed_rows
             col, _, r = ray_color_dense_rows(tables, ro, d, rng, max_depth,
-                                             hit0=hit0, narrow=narrow)
+                                             hit0=hit0, narrow=narrow,
+                                             textures=textures)
         else:
             hit0 = None
             if seed_wt_idx is not None:

@@ -5,13 +5,23 @@ The port of the JAX package's `ops/shade_rows.py`. `shade_step` is its
 emissive light with MIS, a NEE light sample, Lambert / GGX / dielectric
 sampling with the geometric-normal guard, Russian roulette after depth 3,
 and the resolution of the previous bounce's NEE. Six PCG draws a bounce, in
-the same order: 3 NEE, 2 BSDF, 1 RR. Scope: scenes with no textures (the
-1x1 white texel).
+the same order: 3 NEE, 2 BSDF, 1 RR.
+
+Textures: the JAX kernel covers the 1x1 white texel only (a TPU kernel
+cannot gather texels), and JAX shades textured scenes with its per-ray
+`ray_color_dense`. The port samples textures here as that function does:
+with `textures=None` the white texel, bit for bit as before; with a
+(level0, level1) quad-table pyramid (`ops/fetch.TexLevel`), the base
+colour and the normal map at level 0 on bounce 0 and at level 1 after it,
+and metallic-roughness, emissive and the picked light's base colour at
+level 1 (`ops/fetch.sample_texture_v3`). The plain version skips a
+sample that no lane needs, as JAX skips it (`lax.cond(jnp.any(...))`).
 
 Kernel: `csrc/shade_rows.cu`, which replaces `_shade_kernel` (whose body is
-`shade_step`). It also writes the next fused sweep's (8, 2R) ray stack,
-shadow lanes first, so the bounce loop needs no concatenation; the plain
-path builds the same stack with `next_rays`.
+`shade_step`), instantiated once for the white texel and once with texture
+sampling. It also writes the next fused sweep's (8, 2R) ray stack, shadow
+lanes first, so the bounce loop needs no concatenation; the plain path
+builds the same stack with `next_rays`.
 
 State row layout (f32, (K, R) lane-minor; rows 0-14 shared by input and
 output):
@@ -34,6 +44,7 @@ from .. import kernels
 from . import bsdf_v3 as bsdf
 from .bsdf_v3 import PI, power_heuristic
 from .dense import T_MAX
+from .fetch import TexLevel, sample_texture_v3, tex_level
 from .rng import rand_n, rand_pcg
 from .v3 import (V3, cross, dot, length, max_component, normalize, rows,
                  sqrt_rn, where)
@@ -43,6 +54,10 @@ NS_IN = 20
 NS_OUT = 27
 # Output rows that hold 0/1 flags: active, specular_bounce, nee_lane, do_next
 FLAG_ROWS = (0, 14, 15, 26)
+# Texture slots: the four `tex` columns of a shade row.
+BASE, METAL_ROUGH, NORMAL, EMISSIVE = range(4)
+# First rows of the three vertices' texture coordinates in a shade row.
+UV0, UV1, UV2 = (SHADE_COLS[k][0] for k in ("uv0", "uv1", "uv2"))
 
 
 def _rv3(rowT, name) -> V3:
@@ -59,12 +74,27 @@ def _offset_eps(p: V3):
     return 1e-4 * torch.clamp(m, min=1.0)
 
 
+def _sample(textures, level: int, tex, u, v) -> V3:
+    """A slot's sample at one pyramid level; white where the lane's index
+    is < 0, and for every lane when none needs the sample."""
+    need = bool((tex >= 0).any())
+    return sample_texture_v3(tex_level(textures, level) if need else None,
+                             tex, u, v, plain=True)
+
+
+def _tex_index(rowT, k: int, mask):
+    """Texture slot k's index per lane, -1 where `mask` is False (a miss
+    lane's zeroed row would read as texture 0)."""
+    return torch.where(mask, _rf(rowT, "tex", k), -1.0).to(torch.int32)
+
+
 def shade_step(state, rng, rowT, idx, light_rows, depth: int,
-               light_count: int, max_depth: int):
+               light_count: int, max_depth: int, textures=None):
     """One bounce over (R,) lanes, plain PyTorch.
 
     state (NS_IN, R) f32; rng (R,) int64; rowT (SHADE_K, R) f32 winner rows;
-    idx (R,) int32 winner index (-1 miss); light_rows (L, SHADE_K) f32.
+    idx (R,) int32 winner index (-1 miss); light_rows (L, SHADE_K) f32;
+    textures None (the white texel) or a (level0, level1) TexLevel pyramid.
     Returns (state (NS_OUT, R) f32, rng (R,) int64)."""
     ro = rows(state, 1)
     rd = rows(state, 4)
@@ -100,13 +130,27 @@ def shade_step(state, rng, rowT, idx, light_rows, depth: int,
     ln = normalize(_rv3(rowT, "n0") * w + _rv3(rowT, "n1") * u
                    + _rv3(rowT, "n2") * v)
     nt_on = idx_ok & (_rf(rowT, "tex", 2) >= 0.0)
-    # white texel: n_map = (1,1,1)*2-1 = (1,1,1)
     t_axis = normalize(e1)
     b_axis = normalize(cross(ln, t_axis))
-    ln_mapped = normalize(t_axis + b_axis + ln)
-    s_normal = where(nt_on, ln_mapped, ln)
     s_geom = normalize(cross(e1, e2))
     albedo = _rv3(rowT, "base_color")
+    if textures is None:
+        # white texel: n_map = (1,1,1)*2-1 = (1,1,1)
+        ln_mapped = normalize(t_axis + b_axis + ln)
+    else:
+        # The hit's texture coordinates; base colour and normal map at
+        # level 0 on bounce 0, at level 1 after it.
+        tex_u = rowT[UV0] * w + rowT[UV1] * u + rowT[UV2] * v
+        tex_v = rowT[UV0 + 1] * w + rowT[UV1 + 1] * u + rowT[UV2 + 1] * v
+        level = 0 if depth == 0 else 1
+        albedo = albedo * _sample(textures, level,
+                                  _tex_index(rowT, BASE, idx_ok), tex_u,
+                                  tex_v)
+        n_map = _sample(textures, level, _tex_index(rowT, NORMAL, idx_ok),
+                        tex_u, tex_v) * 2.0 - 1.0
+        ln_mapped = normalize(t_axis * n_map.x + b_axis * n_map.y
+                              + ln * n_map.z)
+    s_normal = where(nt_on, ln_mapped, ln)
 
     hit_p = ro + rd * hit_t
     normal = where(dot(rd, s_normal) < 0.0, s_normal, -s_normal)
@@ -114,9 +158,19 @@ def shade_step(state, rng, rowT, idx, light_rows, depth: int,
 
     mat = _rf(rowT, "mat")
     metallic = _rf(rowT, "mrir", 0)
-    roughness = torch.clamp(_rf(rowT, "mrir", 1), min=0.005)
-    ior = _rf(rowT, "mrir", 2)
+    roughness = _rf(rowT, "mrir", 1)
     emissive = _rv3(rowT, "emissive")
+    if textures is not None:
+        # metallic-roughness and emissive: level 1, live lanes only.
+        tex_mr = _tex_index(rowT, METAL_ROUGH, active)
+        mr = _sample(textures, 1, tex_mr, tex_u, tex_v)
+        metallic = torch.where(tex_mr >= 0, metallic * mr.z, metallic)
+        roughness = torch.where(tex_mr >= 0, roughness * mr.y, roughness)
+        emissive = emissive * _sample(textures, 1,
+                                      _tex_index(rowT, EMISSIVE, active),
+                                      tex_u, tex_v)
+    roughness = torch.clamp(roughness, min=0.005)
+    ior = _rf(rowT, "mrir", 2)
     f0 = albedo * metallic + (0.04 * (1.0 - metallic))
 
     # --- emissive / light hit with MIS ---
@@ -156,6 +210,14 @@ def shade_step(state, rng, rowT, idx, light_rows, depth: int,
     ldir = l_dir * (1.0 / torch.clamp(ldist, min=1e-20))
     cos_theta_l = torch.clamp(dot(ln_raw, -ldir), min=0.0)
     L = _rv3(lrow, "base_color")
+    if textures is not None:
+        # The light's base colour at level 1; its barycentric order is
+        # uv0 * u + uv1 * v + uv2 * w, not the hit's.
+        lw = 1.0 - lu - lv
+        ltex_u = lrow[UV0] * lu + lrow[UV1] * lv + lrow[UV2] * lw
+        ltex_v = lrow[UV0 + 1] * lu + lrow[UV1 + 1] * lv + lrow[UV2 + 1] * lw
+        L = L * _sample(textures, 1, _rf(lrow, "tex", BASE).to(torch.int32),
+                        ltex_u, ltex_v)
     lpdf = dist_sq / torch.clamp(cos_theta_l * larea, min=1e-20) / lc_f
     lvalid = (light_count > 0) & (cos_theta_l >= 1e-6) & (larea > 0.0)
     lpdf = torch.where(lvalid, lpdf, 0.0)
@@ -247,14 +309,28 @@ def next_rays(out: torch.Tensor) -> torch.Tensor:
     return r8
 
 
+def _check_level(level: TexLevel, name: str, dev) -> tuple:
+    """A texture level's (int4 table, K, TH, TW) for the textured kernel."""
+    kernels.check(level.flat, name, torch.int32, device=dev)
+    k, th, tw = level.shape
+    if tuple(level.flat.shape) != (k * th * tw, 4) or min(k, th, tw) < 1:
+        raise ValueError(f"{name}: shape {tuple(level.flat.shape)} for "
+                         f"levels {level.shape}")
+    if level.flat.data_ptr() % 16:
+        raise ValueError(f"{name}: rows must be 16-byte aligned")
+    return kernels.ptr(level.flat), k, th, tw
+
+
 def shade(state, rng, rowT, idx, light_rows, depth: int, light_count: int,
-          max_depth: int):
+          max_depth: int, textures=None):
     """One bounce: (state_out (NS_OUT, R), rng (R,), rays8 (8, 2R)).
 
-    On the CPU: `shade_step` + `next_rays`. On CUDA: the shade kernel."""
+    On the CPU: `shade_step` + `next_rays`. On CUDA: the shade kernel, its
+    textured instantiation when `textures` is a (level0, level1)
+    pyramid."""
     if state.device.type == "cpu":
         out, rng = shade_step(state, rng, rowT, idx, light_rows, depth,
-                              light_count, max_depth)
+                              light_count, max_depth, textures)
         return out, rng, next_rays(out)
     dev = state.device
     R = state.shape[1]
@@ -267,16 +343,23 @@ def shade(state, rng, rowT, idx, light_rows, depth: int, light_count: int,
             or light_rows.shape[0] < max(light_count, 1):
         raise ValueError(f"light_rows: shape {tuple(light_rows.shape)} "
                          f"for {light_count} lights")
+    if textures is not None:
+        levels = (*_check_level(tex_level(textures, 0), "textures[0]", dev),
+                  *_check_level(tex_level(textures, 1), "textures[1]", dev))
     out = torch.empty((NS_OUT, R), dtype=torch.float32, device=dev)
     rng_out = torch.empty(R, dtype=torch.int64, device=dev)
     rays8 = torch.empty((8, 2 * R), dtype=torch.float32, device=dev)
     lib = kernels.library()
-    with torch.cuda.device(dev):
-        code = lib.wrt_shade_rows(
-            kernels.ptr(state), kernels.ptr(rng), kernels.ptr(rowT),
+    args = (kernels.ptr(state), kernels.ptr(rng), kernels.ptr(rowT),
             kernels.ptr(idx), kernels.ptr(light_rows), light_count, depth,
-            max_depth, R, kernels.ptr(out), kernels.ptr(rng_out),
-            kernels.ptr(rays8), kernels.stream(dev))
+            max_depth, R)
+    outs = (kernels.ptr(out), kernels.ptr(rng_out), kernels.ptr(rays8),
+            kernels.stream(dev))
+    with torch.cuda.device(dev):
+        if textures is None:
+            code = lib.wrt_shade_rows(*args, *outs)
+        else:
+            code = lib.wrt_shade_rows_textured(*args, *levels, *outs)
     kernels.raise_on_error(code, "shade_rows")
     kernels.launches["shade_rows"] += 1
     return out, rng_out, rays8

@@ -8,8 +8,9 @@ package: "dense" on CUDA, and on the CPU up to 16,384 world triangles;
 "bvh" above that on the CPU (`ops/trace.trace_pixels` over a
 `DeviceScene`). A scene's textures are decoded, packed into the (level 0,
 mip) quad-table pyramid and uploaded once, at construction; the BVH path
-samples level 0 at every bounce. On the dense path untextured scenes take
-the row-state loop (the shade kernel), textured ones `ray_color_dense`;
+samples level 0 at every bounce. On the dense path every scene takes the
+row-state loop (the shade kernel, which samples a textured scene's
+pyramid itself; `ray_color_dense` serves `max_depth` 0);
 `render_frame(use_gbuffer=True)` renders the G-buffer first and seeds
 bounce 0 from it (dense only, as in the JAX package). `narrow` ("jobs",
 the default, or "scan") picks the narrow phase of a multi-tile scene's
