@@ -6,7 +6,9 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py            # add --profile for a torch.profiler
                                      # device-time split of each path
     python3 chip_smoke.py --frame-times   # only frame times and digests
-                                          # of four paths (see frame_times)
+                                          # of six paths (see frame_times;
+                                          # --profile adds the BVH paths')
+                                          # launches and busy share)
 
 It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
 (and the shared native scene compiler), then:
@@ -46,7 +48,11 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
    cornell's and `spheres`' 512^2 primaries and bounce-1 rays, and on the
    primaries with every 3rd lane given NaN or inf in o, d or t_max (the
    kernel's exact slab test beside its fast one), over the scene's
-   `WalkPack`, built once for these checks.
+   `WalkPack`, built once for these checks. The BVH bounce kernel
+   (`csrc/bvh_shade.cu`) against `bvh_shade_step` on cornell, the
+   textured quad, the textured light and `spheres` at 512^2, bounces 0
+   and 4: rng words equal, flags equal on every lane, values within rtol
+   1e-4 (near-mirror GGX lanes 5e-2).
    Kernel times are many launches between one pair of CUDA events;
 2. drives every path of the port with the launch counts set to 0 just
    before it and read just after, and asserts each kernel's exact count:
@@ -85,9 +91,10 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
      (1 + 8 keyed culls and scan sweeps and 8 shades a frame, no job sweep
      and no dense sweep), the same golden, frame 1 bit-equal to the job
      path's, then `Renderer("spheres", narrow="scan")` x 4;
-   - the BVH path (`trace_pixels`: a closest and a shadow walk a bounce, no
-     extension walk after the last) on cornell 512^2 d8 x 32 and `spheres`
-     512^2 d8 x 4, the same goldens, ms/frame beside the dense path's;
+   - the BVH path (`trace_pixels`: a shade, a shadow walk and a closest
+     walk a bounce, no closest walk after the last) on cornell 512^2 d8
+     x 32 and `spheres` 512^2 d8 x 4, the same goldens, ms/frame beside
+     the dense path's;
      `get_tracer("bvh")` and `get_tracer("dense")` on one cornell frame;
    - the sharded steps (backend "bvh") on cornell 512^2 d8: a world of one
      NCCL rank runs the tile, sample and 2-D steps (the tile step
@@ -166,7 +173,8 @@ from webgpu_raytracer_tpu_torch.ops.fetch import (device_pyramid,
 from webgpu_raytracer_tpu_torch.ops.gbuffer import render_gbuffer
 from webgpu_raytracer_tpu_torch.ops.intersect import T_MIN
 from webgpu_raytracer_tpu_torch.ops.rng import init_rng, rand_n
-from webgpu_raytracer_tpu_torch.ops.trace import accumulate, trace_pixels
+from webgpu_raytracer_tpu_torch.ops.trace import (accumulate, load_hit,
+                                                  trace_pixels)
 from webgpu_raytracer_tpu_torch.parallel import sharding
 from webgpu_raytracer_tpu_torch.parallel.cluster import (
     Coordinator, WorkerClient, _default_renderer_factory)
@@ -222,6 +230,11 @@ BVH_NODE_OPS = 25  # f32 operations of one node's slab test (bvh_walk.cu)
 # more, BVH_TRI_OPS_UNPACKED); its bound is printed beside this one.
 BVH_TRI_OPS = 55
 BVH_TRI_OPS_UNPACKED = 61
+# f32 operations of one found lane's BVH bounce (bvh_shade.cu: load_hit,
+# the hit's light pdf, the light sample, one BSDF value and pdf, one
+# sample), each a separately rounded instruction (the file is built with
+# --fmad=false), sin and cos not counted.
+BVH_SHADE_OPS = 650
 ANIM_FRAMES = 24  # bench.py's anim_pass window (config 4)
 SOAK_FRAMES = 16  # the checkpoint resume: 8, save, load, 8 against 16
 FRAME_MS = {}  # path -> (ms/frame, Mrays/s) of frames 2..n in this run
@@ -243,10 +256,11 @@ def device_ms(fn, launches: int = KERNEL_LAUNCHES, warmup: int = 3) -> float:
     return a.elapsed_time(b) / launches
 
 
-def bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+def bound(nbytes: float, ops: float = 0.0,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     """The least time the card could take: (ms, the bound that decides)."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * ops / F32_OPS_PER_S
+    t_ops = 1e3 * ops / ops_per_s
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1375,10 +1389,193 @@ def check_bvh(cases) -> list[dict]:
 
 def bvh_launches(depth: int = DEPTH, spp: int = 1) -> dict:
     """Per BVH frame (`trace_pixels`): the primary and depth - 1 extension
-    walks, depth shadow walks, a sample each; no other kernel."""
+    walks, depth shades and depth shadow walks, a sample each; no other
+    kernel."""
     counts = {k: 0 for k in kernels.launches}
-    counts.update(bvh_closest=spp * depth, bvh_shadow=spp * depth)
+    counts.update(bvh_closest=spp * depth, bvh_shadow=spp * depth,
+                  bvh_shade=spp * depth)
     return counts
+
+
+def bvh_scene(name: str, width: int, height: int, dev,
+              glb_data: bytes | None = None) -> tuple:
+    """(DeviceScene, camera) of a preset, or of a GLB in the viewer scene
+    with its textures decoded into the level-0 quad table."""
+    world = NativeWorld(name, glb_data=glb_data)
+    world.update_camera(width, height)
+    camera = torch.from_numpy(np.asarray(world.camera(), np.float32)).to(dev)
+    return build_device_scene(world, textures=decode_world_textures(world),
+                              device=dev), camera
+
+
+def bvh_bounce_inputs(scene, camera, width, height, depth: int,
+                      pack=None) -> tuple:
+    """`bvh_shade`'s arguments entering bounce `depth` of a BVH frame of
+    depth DEPTH: `pinhole_rays` and frame 1's rng streams past the lens
+    draws, advanced through the shade kernel and the walks on the card
+    (their plain versions on the CPU), as `ray_color_rows` advances them."""
+    from webgpu_raytracer_tpu_torch.ops import bvh_shade
+
+    ro3, rd3 = pinhole_rays(camera, width, height)
+    ro = torch.stack(list(ro3), 1).contiguous()
+    rd = torch.stack(list(rd3), 1).contiguous()
+    R = width * height
+    rng, _ = rand_n(init_rng(torch.arange(R, device=ro.device), 1), 2)
+    hit = intersect.intersect_closest(scene, ro, rd, pack=pack)
+    state = bvh_shade.initial_state(R, ro.device)
+    active = occluded = None
+    for d in range(depth):
+        state, rng, nxt = bvh_shade.bvh_shade(
+            scene, state, rng, ro, rd, active, hit.tri_idx, hit.inst_idx,
+            occluded, d, DEPTH)
+        occluded = intersect.intersect_shadow(
+            scene, nxt.sro, nxt.srd, nxt.s_tmax, active=nxt.nee_lane,
+            pack=pack)
+        ro, rd, active = nxt.ro, nxt.rd, nxt.do_next
+        hit = intersect.intersect_closest(scene, ro, rd, active=active,
+                                          pack=pack)
+    return (scene, state, rng, ro, rd, active, hit.tri_idx, hit.inst_idx,
+            occluded, depth, DEPTH)
+
+
+def near_mirror(args) -> torch.Tensor:
+    """Lanes that sample GGX near its roughness floor (a metal whose
+    roughness is under 0.01, or scaled by a texture), where
+    `1 + (a*a - 1) * r2` cancels and an ulp of sin / cos moves the pdf."""
+    scene, tri = args[0], args[6]
+    t = tri.clamp(0, scene.tri_v.shape[0] - 1).long()
+    return (scene.tri_mat[t] == 1) & ((scene.tri_mrir[t, 1] < 0.01)
+                                      | (scene.tri_tex[t, 1] >= 0))
+
+
+def hold_bvh_shade(label: str, args: tuple) -> float:
+    """The BVH shade kernel against `bvh_shade_step` on one bounce's
+    inputs: rng words equal; the flags (specular, pend, do_next, nee_lane)
+    equal on every lane; every other output (state rows, rays, t_max)
+    within rtol 1e-4 / atol 1e-5 on every lane but near-mirror GGX ones,
+    held at 5e-2. Returns the largest |error| outside the near-mirror
+    lanes."""
+    from webgpu_raytracer_tpu_torch.ops import bvh_shade
+
+    out_k, rng_k, nxt_k = bvh_shade.bvh_shade(*args)
+    out_p, rng_p, nxt_p = bvh_shade.bvh_shade_step(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(rng_k, rng_p), f"{label}: rng words differ"
+    flag_rows = list(bvh_shade.FLAG_ROWS)
+    flags = ((out_k[flag_rows] == out_p[flag_rows]).all(0)
+             & (nxt_k.do_next == nxt_p.do_next)
+             & (nxt_k.nee_lane == nxt_p.nee_lane))
+    rows = [r for r in range(bvh_shade.NS) if r not in flag_rows]
+
+    def values(out, nxt):  # (K, R) of every non-flag output
+        return torch.cat([out[rows], nxt.ro.T, nxt.rd.T, nxt.sro.T,
+                          nxt.srd.T, nxt.s_tmax[None]])
+
+    vk, vp = values(out_k, nxt_k), values(out_p, nxt_p)
+    assert bool(torch.isfinite(vk).all()), f"{label}: non-finite output"
+    mirror = near_mirror(args)
+    close = torch.isclose(vk, vp, rtol=1e-4, atol=1e-5).all(0)
+    close_m = torch.isclose(vk, vp, rtol=5e-2, atol=1e-5).all(0)
+    held = torch.where(mirror, close_m, close)
+    err = float((vk - vp).abs()[:, ~mirror].max()) if bool(
+        (~mirror).any()) else 0.0
+    equal = float((vk == vp).all(0).float().mean())
+    found = args[7] >= 0 if args[5] is None else args[5] & (args[7] >= 0)
+    mirror_held = float(close_m[mirror].float().mean()) if bool(
+        mirror.any()) else 1.0
+    print(f"bvh shade {label}: flags equal on "
+          f"{float(flags.float().mean()):.6f} of lanes, values close on "
+          f"{float(close.float().mean()):.6f} (near-mirror lanes "
+          f"{int(mirror.sum())}, {mirror_held:.6f} of them at 5e-2), "
+          f"bit-equal {equal:.6f}, max abs err {err:.3e}; found "
+          f"{float(found.float().mean()):.3f}, nee "
+          f"{float(nxt_k.nee_lane.float().mean()):.3f}, next "
+          f"{float(nxt_k.do_next.float().mean()):.3f}")
+    assert bool(flags.all()), f"{label}: flags differ"
+    assert bool(held.all()), f"{label}: values differ"
+    return err
+
+
+def bvh_shade_bytes(args) -> int:
+    """Bytes the BVH shade must move on one bounce's inputs: each lane's
+    inputs and outputs once, and the distinct rows its found lanes gather:
+    triangles (hit and light), their vertices, instances, light rows, and
+    the texel quads of the hit's texture slots (the light's quads are not
+    counted, so this undercounts a textured light)."""
+    scene, state, rng, ro, rd, active, tri, inst, occluded = args[:9]
+    R = ro.shape[0]
+    lane_in = 13 * 4 + 8 + 24 + 8 + (active is not None) + (
+        occluded is not None)
+    lane_out = 13 * 4 + 8 + 24 + 1 + 24 + 4 + 1
+    found = inst >= 0 if active is None else active & (inst >= 0)
+    lc = scene.light_count
+    _, (r0,) = rand_n(rng, 1)  # the light pick draw
+    pick = torch.clamp((r0 * float(max(lc, 1))).to(torch.int64), 0,
+                       max(lc - 1, 0))[found]
+    lights = scene.lights[pick].long()
+    tris = torch.unique(torch.cat([tri[found].long(), lights[:, 1]]))
+    verts = torch.unique(scene.tri_v[tris].reshape(-1))
+    insts = torch.unique(torch.cat([inst[found].long(), lights[:, 0]]))
+    nbytes = (R * (lane_in + lane_out) + tris.numel() * (12 + 12 + 4 + 12
+                                                         + 16 + 12)
+              + verts.numel() * (12 + 12 + 8) + insts.numel() * 2 * 64
+              + torch.unique(pick).numel() * 8)
+    tex = scene.textures
+    if not tex.is_floating_point():
+        k, th, tw = tex.shape[:3]
+        hd = load_hit(scene, ro[found], rd[found], tri[found], inst[found])
+        slots = scene.tri_tex[tri[found].long()]
+        u = hd.tex_uv[:, 0] - torch.floor(hd.tex_uv[:, 0])
+        v = hd.tex_uv[:, 1] - torch.floor(hd.tex_uv[:, 1])
+        x0 = torch.floor(u * tw - 0.5).long()
+        y0 = torch.floor(v * th - 0.5).long()
+        quads = [((slots[:, c].clamp(0, k - 1) * th + y0 % th) * tw
+                  + x0 % tw)[slots[:, c] >= 0] for c in range(4)]
+        nbytes += torch.unique(torch.cat(quads)).numel() * 16
+    return nbytes
+
+
+def check_bvh_shade(cases) -> dict:
+    """`csrc/bvh_shade.cu` against `bvh_shade_step` on (label, DeviceScene,
+    camera) cases at 512^2, bounces 0 and 4 of a DEPTH frame; each case's
+    bounce 0 timed (kernel over 200 launches, plain step over 20) beside
+    its bound. The JSON line takes the last case (`spheres`). Imported
+    here, as in the functions above, so that --frame-times runs from a
+    checkout older than the kernel."""
+    from webgpu_raytracer_tpu_torch.ops import bvh_shade
+
+    width, height = SMALL
+    worst, timed = 0.0, None
+    for label, scene, camera in cases:
+        pack = intersect.pack_walk(scene)
+        for depth in (0, 4):
+            args = bvh_bounce_inputs(scene, camera, width, height, depth,
+                                     pack)
+            worst = max(worst, hold_bvh_shade(f"{label} depth {depth}",
+                                              args))
+            if depth != 0:
+                continue
+            ms = device_ms(lambda: bvh_shade.bvh_shade(*args))
+            plain_ms = device_ms(lambda: bvh_shade.bvh_shade_step(*args),
+                                 PLAIN_LAUNCHES)
+            nbytes = bvh_shade_bytes(args)
+            found = int((args[7] >= 0).sum())
+            b_ms, b_by = bound(nbytes, found * BVH_SHADE_OPS,
+                               F32_ROUNDED_OPS_PER_S)
+            print(f"bvh shade {label} depth 0, {width * height} lanes "
+                  f"({found} found): kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                  f"{nbytes / 1e6:.1f} MB, {found} x {BVH_SHADE_OPS} ops "
+                  f"at one an instruction); {DEPTH} launches a frame")
+            timed = (ms, plain_ms, b_ms, b_by)
+    ms, plain_ms, b_ms, b_by = timed
+    return dict(name="bvh_shade", route="cuda",
+                source="webgpu_raytracer_tpu_torch/csrc/bvh_shade.cu",
+                replaces="webgpu_raytracer_tpu/ops/trace.py:307",
+                path="the BVH path's bounces (trace_pixels, get_tracer"
+                "(\"bvh\"), the sharded steps)",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
 def bvh_frames(scene, camera, width, height, n, golden_key) -> torch.Tensor:
@@ -1628,7 +1825,7 @@ def sweeps(n: int, multi_tile: bool, narrow: str = "jobs") -> dict:
     scan = n if multi_tile and narrow == "scan" else 0
     return {"dense_sweep": 0 if multi_tile else n, "cluster_cull": jobs,
             "job_sweep": jobs, "cluster_cull_keyed": scan, "scan_sweep": scan,
-            "bvh_closest": 0, "bvh_shadow": 0}
+            "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0}
 
 
 def rows_launches(seeded: bool, multi_tile: bool = False,
@@ -2153,20 +2350,25 @@ def profile_paths(paths) -> None:
                   f"  {key[:70]}")
 
 
-def frame_times(dev, smi_line: str) -> None:
+def frame_times(dev, smi_line: str, profile: bool = False) -> None:
     """--frame-times: ms/frame (host clock over frames 2..8, ending in a
     synchronise), the kernels' launches a frame and a digest of the frames'
     bits, for cornell 1920x1080 d8 traced, the textured quad 1920x1080 d8
-    traced, the formats scene at 1920x1080 d8 through `Renderer` and the
-    textured quad's `Renderer` at 512^2 d8 with use_gbuffer=True; one JSON
-    line. It calls only what every version of the port since the formats
-    scene has, so one copy of this script, run from the root of two
+    traced, the formats scene at 1920x1080 d8 through `Renderer`, the
+    textured quad's `Renderer` at 512^2 d8 with use_gbuffer=True, and
+    cornell's and `spheres`' 512^2 d8 BVH frames (`trace_pixels`); one
+    JSON line. It calls only what every version of the port since the
+    formats scene has, so one copy of this script, run from the root of two
     checkouts in one call, compares them (parent, change, change, parent):
 
         cp chip_smoke.py CHECKOUT/chip_smoke_frames.py
         cd CHECKOUT && python3 chip_smoke_frames.py --frame-times
+
+    With --profile it then profiles the two BVH paths (`profile_paths`):
+    their device kernels a frame and the device's busy share.
     """
     n = 8
+    bvh_paths = []
     jit0 = torch.zeros(2, device=dev)
     out = {"frame_ms": {}, "launches": {}, "mean": {}, "digest": {}}
 
@@ -2211,6 +2413,19 @@ def frame_times(dev, smi_line: str) -> None:
     timed("Renderer textured quad 512^2 G-buffer seeded", renderer(Renderer(
         "viewer", config=cfg, glb_data=textured_quad_glb(), device=dev),
         use_gbuffer=True))
+    for name in ("cornell", "spheres"):
+        world = NativeWorld(name)
+        world.update_camera(*SMALL)
+        scene = build_device_scene(world, device=dev)
+        cam = torch.from_numpy(np.asarray(world.camera(),
+                                          np.float32)).to(dev)
+        label = f"{name} 512^2 BVH"
+        timed(label, lambda f: trace_pixels(scene, cam, f, jit0, *SMALL, 1,
+                                            DEPTH))
+        bvh_paths.append((label, lambda s=scene, c=cam: trace_pixels(
+            s, c, 1, jit0, *SMALL, 1, DEPTH)))
+    if profile:
+        profile_paths(bvh_paths)
     print(smi_line)
     print(json.dumps(out))
 
@@ -2241,7 +2456,7 @@ def main(argv: list[str]) -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
     if "--frame-times" in argv:
-        frame_times(dev, smi_line)
+        frame_times(dev, smi_line, "--profile" in argv)
         return 0
 
     # --- scenes ---
@@ -2356,6 +2571,13 @@ def main(argv: list[str]) -> int:
     results += check_bvh([
         ("cornell 512^2", bvh_cornell, pack_cornell, camera, tables),
         ("spheres 512^2", bvh_sp, pack_sp, sp_cam, sp_tables)])
+    results.append(check_bvh_shade([
+        ("cornell 512^2", bvh_cornell, camera),
+        ("textured quad 512^2", *bvh_scene("viewer", width, height, dev,
+                                           glb)),
+        ("textured light 512^2", *bvh_scene("viewer", width, height, dev,
+                                            textured_light_glb())),
+        ("spheres 512^2", bvh_sp, sp_cam)]))
 
     # The plain sampler's f64 fused multiply-add against a true f32 one on
     # the formats scene's 1080p primary hits, every layer in turn.
@@ -2390,7 +2612,8 @@ def main(argv: list[str]) -> int:
     assert tq_launches == {
         "dense_sweep": 9, "cluster_cull": 0, "job_sweep": 0,
         "cluster_cull_keyed": 0, "scan_sweep": 0, "shade_rows": 8,
-        "fetch_rows": 0, "fetch_quad": 0, "bvh_closest": 0, "bvh_shadow": 0}
+        "fetch_rows": 0, "fetch_quad": 0, "bvh_closest": 0, "bvh_shadow": 0,
+        "bvh_shade": 0}
     textured_shades = drive(
         "textured quad 1080p traced", 8, tq_launches,
         lambda: frames(tq_tables, tq_cam, *hd, 8, "textured_1080p",
@@ -2434,7 +2657,8 @@ def main(argv: list[str]) -> int:
     assert scan_launches == {
         "dense_sweep": 0, "cluster_cull": 0, "job_sweep": 0,
         "cluster_cull_keyed": 9, "scan_sweep": 9, "shade_rows": 8,
-        "fetch_rows": 0, "fetch_quad": 0, "bvh_closest": 0, "bvh_shadow": 0}
+        "fetch_rows": 0, "fetch_quad": 0, "bvh_closest": 0, "bvh_shadow": 0,
+        "bvh_shade": 0}
     scan_sp = []
     drive("spheres 512^2 traced narrow=scan", 4, scan_launches,
           lambda: scan_sp.append(frames(sp_tables, sp_cam, width, height, 4,
@@ -2481,7 +2705,7 @@ def main(argv: list[str]) -> int:
 
     drive("get_tracer bvh + dense, cornell 512^2", 1,
           {**rows_launches(False), "bvh_closest": DEPTH,
-           "bvh_shadow": DEPTH}, both_tracers, totals)
+           "bvh_shadow": DEPTH, "bvh_shade": DEPTH}, both_tracers, totals)
     sharding_on_one_card(dev)
 
     # --- phase 4: the product surface ---

@@ -18,8 +18,8 @@ import chip_smoke
 
 from webgpu_raytracer_tpu_torch import NativeWorld, Renderer, RenderConfig
 from webgpu_raytracer_tpu_torch import kernels
-from webgpu_raytracer_tpu_torch.ops import (cuda_dense, cuda_fetch, cuda_jobs,
-                                            cuda_scan, shade_rows)
+from webgpu_raytracer_tpu_torch.ops import (bvh_shade, cuda_dense, cuda_fetch,
+                                            cuda_jobs, cuda_scan, shade_rows)
 from webgpu_raytracer_tpu_torch.ops.cluster_cull import (keys_plain,
                                                          worklists_plain)
 from webgpu_raytracer_tpu_torch.ops.dense import (T_MAX, closest_plain,
@@ -255,7 +255,7 @@ def test_max_depth_zero_on_card(cuda):
     assert counts == {"dense_sweep": 2, "shade_rows": 0, "fetch_rows": 1,
                       "fetch_quad": 0, "cluster_cull": 0, "job_sweep": 0,
                       "cluster_cull_keyed": 0, "scan_sweep": 0,
-                      "bvh_closest": 0, "bvh_shadow": 0}
+                      "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0}
     assert frames[1].mean() > 0.01
     close = torch.isclose(frames[1], frames[0], rtol=1e-3, atol=1e-5).all(1)
     assert close.float().mean() >= 0.95
@@ -353,7 +353,7 @@ def test_renderer_on_card_counts_launches(cuda):
                           "fetch_rows": 0, "fetch_quad": 0,
                           "cluster_cull": 0, "job_sweep": 0,
                           "cluster_cull_keyed": 0, "scan_sweep": 0,
-                          "bvh_closest": 0, "bvh_shadow": 0}
+                          "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0}
 
 
 @pytest.mark.parametrize("n,k", [(1, 40), (40, 40), (1408, 40), (300, 3)])
@@ -443,7 +443,7 @@ def test_textured_renderer_on_card_counts_launches(cuda):
                           "fetch_rows": 2 * 1, "fetch_quad": 2 * 1,
                           "cluster_cull": 0, "job_sweep": 0,
                           "cluster_cull_keyed": 0, "scan_sweep": 0,
-                          "bvh_closest": 0, "bvh_shadow": 0}
+                          "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0}
 
 
 # --- the job-stream path (multi-tile scenes) ---------------------------------
@@ -535,7 +535,7 @@ def test_renderer_spheres_on_card_counts_launches(cuda):
                           "job_sweep": 2 * 4, "shade_rows": 2 * 3,
                           "fetch_rows": 0, "fetch_quad": 0,
                           "cluster_cull_keyed": 0, "scan_sweep": 0,
-                          "bvh_closest": 0, "bvh_shadow": 0}
+                          "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0}
 
 
 # --- the scan path (narrow="scan") -------------------------------------------
@@ -717,7 +717,7 @@ def test_renderer_spheres_scan_on_card_counts_launches(cuda):
                           "job_sweep": 0, "cluster_cull_keyed": 2 * 4,
                           "scan_sweep": 2 * 4, "shade_rows": 2 * 3,
                           "fetch_rows": 0, "fetch_quad": 0,
-                          "bvh_closest": 0, "bvh_shadow": 0}
+                          "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0}
 
 
 # --- the cooperative walk behind the queue of touching lanes -----------------
@@ -1062,8 +1062,9 @@ def test_bvh_walk_edges(cuda):
 
 def test_bvh_trace_on_card_counts_launches(cuda):
     """trace_pixels at depth 3, spp 2: 2 x 3 closest walks (the primary,
-    two extensions) and 2 x 3 shadow walks a frame; the frame close to the
-    plain walk's on the CPU (>= 95% of lanes at rel < 1e-3)."""
+    two extensions), 2 x 3 shades and 2 x 3 shadow walks a frame; the frame
+    close to the plain versions' on the CPU (>= 95% of lanes at rel <
+    1e-3)."""
     from webgpu_raytracer_tpu_torch.ops.trace import trace_pixels
     from webgpu_raytracer_tpu_torch.render.resources import \
         build_device_scene
@@ -1078,10 +1079,53 @@ def test_bvh_trace_on_card_counts_launches(cuda):
         frames.append(trace_pixels(scene, cam, 1, torch.zeros(2, device=dev),
                                    32, 32, 2, 3).cpu())
     counts = {k: v for k, v in kernels.launches.items() if v}
-    assert counts == {"bvh_closest": 6, "bvh_shadow": 6}
+    assert counts == {"bvh_closest": 6, "bvh_shadow": 6, "bvh_shade": 6}
     assert frames[1].mean() > 0.05
     close = torch.isclose(frames[1], frames[0], rtol=1e-3, atol=1e-5).all(1)
     assert close.float().mean() >= 0.95
+
+
+# BVH shade cases: preset, or GLB maker in the viewer scene.
+BVH_SHADE = {"cornell": ("cornell", None), "mixed": ("mixed", None),
+             "textured": ("viewer", chip_smoke.textured_quad_glb),
+             "textured_light": ("viewer", chip_smoke.textured_light_glb),
+             "formats": ("viewer", chip_smoke.formats_scene_glb)}
+
+
+@pytest.mark.parametrize("scene,depth", [
+    ("cornell", 0), ("cornell", 4), ("mixed", 0), ("mixed", 2),
+    ("textured", 0), ("textured", 4), ("textured_light", 0),
+    ("textured_light", 4), ("formats", 0), ("formats", 2)])
+def test_bvh_shade_kernel_matches_plain(cuda, scene, depth):
+    """`csrc/bvh_shade.cu` (both instantiations) against `bvh_shade_step`
+    on bounce `depth` of a 64^2 frame, advanced there through the kernels:
+    rng words equal, flags equal on every lane, values within rtol 1e-4
+    (near-mirror GGX lanes 5e-2), one launch
+    (`chip_smoke.hold_bvh_shade`)."""
+    name, glb = BVH_SHADE[scene]
+    sc, cam = chip_smoke.bvh_scene(name, RES, RES, cuda,
+                                   glb() if glb else None)
+    assert sc.textures.is_floating_point() == (glb is None)
+    args = chip_smoke.bvh_bounce_inputs(sc, cam, RES, RES, depth)
+    before = kernels.launches["bvh_shade"]
+    chip_smoke.hold_bvh_shade(f"{scene} depth {depth}", args)
+    assert kernels.launches["bvh_shade"] == before + 1
+
+
+def test_bvh_shade_rejects_bad_inputs(cuda):
+    """The wrapper checks every tensor before it launches: a wrong dtype,
+    shape or device raises and counts no launch."""
+    sc, cam = chip_smoke.bvh_scene("cornell", 16, 16, cuda)
+    args = list(chip_smoke.bvh_bounce_inputs(sc, cam, 16, 16, 1))
+    before = kernels.launches["bvh_shade"]
+    for k, bad in ((2, args[2].to(torch.int32)), (3, args[3][:, :2]),
+                   (5, args[5].float()), (6, args[6].cpu()),
+                   (1, args[1][:-1])):
+        broken = list(args)
+        broken[k] = bad
+        with pytest.raises((TypeError, ValueError)):
+            bvh_shade.bvh_shade(*broken)
+    assert kernels.launches["bvh_shade"] == before
 
 
 def _walk_bit_equal(scene, ro, rd, t_max, active, pack=None):

@@ -31,13 +31,16 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+# Flags of one source only. bvh_shade.cu rounds every product and sum on its
+# own, as its plain version's tensor operations do: no FMA contraction.
+SOURCE_FLAGS = {"bvh_shade.cu": ("--fmad=false",)}
 
 # Launch counts by kernel. A wrapper adds one where it launches its kernel
 # and nowhere else, so a run can show that its path went through it.
 launches = {"dense_sweep": 0, "shade_rows": 0, "fetch_rows": 0,
             "fetch_quad": 0, "cluster_cull": 0, "job_sweep": 0,
             "cluster_cull_keyed": 0, "scan_sweep": 0, "bvh_closest": 0,
-            "bvh_shadow": 0}
+            "bvh_shadow": 0, "bvh_shade": 0}
 
 
 def reset_launches() -> None:
@@ -57,10 +60,15 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def _source_flags(src: str) -> tuple[str, ...]:
+    return SOURCE_FLAGS.get(os.path.basename(src), ())
+
+
 def _library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources() + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         h.update(os.path.basename(src).encode())
+        h.update(" ".join(_source_flags(src)).encode())
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libwrt_kernels_{h.hexdigest()[:16]}.so")
@@ -82,7 +90,8 @@ def build(extra_flags: tuple[str, ...] = ()) -> tuple[str, float, str]:
     for src in _sources():
         obj = f"{stem}.{os.path.basename(src)}.o"
         jobs.append((obj, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", obj, src],
+            [nvcc, *NVCC_FLAGS, *_source_flags(src), *extra_flags, "-c",
+             "-o", obj, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log = [proc.communicate()[0] for _, proc in jobs]  # wait for all
     for (_, proc), out in zip(jobs, log):
@@ -143,6 +152,10 @@ def library() -> ctypes.CDLL:
     lib.wrt_bvh_walk.argtypes = [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P,
                                  _F, _F, _P, _I, _I, _P, _P, _P, _P, _P, _P,
                                  _P]
+    lib.wrt_bvh_shade.restype = _I
+    lib.wrt_bvh_shade.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P]
     return lib
 
 

@@ -6,7 +6,11 @@ thin-lens depth of field, pixel jitter, MIS between NEE and BSDF sampling
 Russian roulette after depth 3, and sum + count accumulation. Rays are
 (R, 3) tensors, as in the JAX package; every walk goes through
 `ops/intersect.py` (`csrc/bvh_walk.cu` on the card, the plain walk on the
-CPU), and the glue between walks is plain PyTorch, as it is XLA there.
+CPU). `trace_pixels` runs `ray_color_rows`: the bounce between the walks is
+one `ops/bvh_shade.py` launch (`csrc/bvh_shade.cu` on the card, its plain
+`bvh_shade_step` on the CPU), where XLA compiles `ray_color`'s loop body
+into one program. `ray_color`, the bounce in plain PyTorch between the
+walks, stays as the reference the rows loop equals bit for bit on the CPU.
 
 Differences of mechanism, not of result:
 - the last bounce runs no extension walk: its lanes may not continue
@@ -231,8 +235,9 @@ def _col(mask):
 def ray_color(scene, ro, rd, rng, max_depth: int, pack=None):
     """Trace rays to completion: (radiance (R, 3), rng, rays), `rays` the
     exact float64 device count of rays traced (primaries, NEE shadow lanes
-    and extension lanes actually walked). On the card the walks read `pack`
-    (`intersect.pack_walk(scene)`, which `trace_pixels` builds)."""
+    and extension lanes actually walked). The plain reference of
+    `ray_color_rows`: its bounce is torch ops between the walks. On the card
+    the walks read `pack` (`intersect.pack_walk(scene)`)."""
     R = ro.shape[0]
     dev = ro.device
     primary = intersect_closest(scene, ro, rd, pack=pack)
@@ -365,6 +370,40 @@ def ray_color(scene, ro, rd, rng, max_depth: int, pack=None):
     return radiance, rng, rays
 
 
+def ray_color_rows(scene, ro, rd, rng, max_depth: int, pack=None):
+    """`ray_color` on a row state, one shade launch a bounce: the primary
+    closest walk, then per bounce one `bvh_shade` (`csrc/bvh_shade.cu` on
+    the card, `bvh_shade_step` on the CPU), one any-hit walk over its
+    shadow rays and, but after the last bounce, one closest walk over its
+    extension rays; a last fold adds the last bounce's NEE where its
+    shadow walk found nothing. Equal to `ray_color` bit for bit on the
+    CPU: (radiance (R, 3), rng, rays), rays summed in float64 on the
+    device. At max_depth 0 no walk runs: zero radiance, R rays."""
+    # Imported here: ops/bvh_shade.py builds on this module's functions.
+    from .bvh_shade import RAYS, bvh_shade, initial_state, resolve
+
+    R = ro.shape[0]
+    dev = ro.device
+    rays = torch.full((), float(R), dtype=torch.float64, device=dev)
+    if max_depth <= 0:
+        return torch.zeros((R, 3), dtype=torch.float32, device=dev), rng, rays
+    hit = intersect_closest(scene, ro, rd, pack=pack)
+    state = initial_state(R, dev)
+    active = occluded = None
+    for depth in range(max_depth):
+        state, rng, nxt = bvh_shade(scene, state, rng, ro, rd, active,
+                                    hit.tri_idx, hit.inst_idx, occluded,
+                                    depth, max_depth)
+        occluded = intersect_shadow(scene, nxt.sro, nxt.srd, t_max=nxt.s_tmax,
+                                    active=nxt.nee_lane, pack=pack)
+        if depth == max_depth - 1:
+            break  # no lane may continue: the last bounce walks no more
+        ro, rd, active = nxt.ro, nxt.rd, nxt.do_next
+        hit = intersect_closest(scene, ro, rd, active=active, pack=pack)
+    rays = rays + state[RAYS].sum(dtype=torch.float64)
+    return resolve(state, occluded).T, rng, rays
+
+
 # ---------------------------------------------------------------------------
 # Per-frame entry: camera rays, the spp loop
 # ---------------------------------------------------------------------------
@@ -383,8 +422,9 @@ def trace_pixels(scene, camera24, frame_count: int, jitter, width: int,
                  total_spp: int | None = None, sample0: int = 0,
                  with_stats: bool = False):
     """One frame's radiance, (H*W, 3) averaged over spp; with with_stats,
-    (radiance, rays) with the exact float64 device ray count. On the card
-    the scene's `WalkPack` is built once a call, for all its walks.
+    (radiance, rays) with the exact float64 device ray count. Each sample
+    runs `ray_color_rows`; on the card the scene's `WalkPack` is built once
+    a call, for all its walks.
 
     row0 / full_height: this call renders rows [row0, row0 + height) of a
     full_height-tall frame with the frame's pixel indices and jitter (tile
@@ -424,7 +464,7 @@ def trace_pixels(scene, camera24, frame_count: int, jitter, width: int,
              + v[:, None] * cam["vertical"][None] - cam["origin"][None]
              - off)
         ro = cam["origin"][None, :] + off
-        col, _, r = ray_color(scene, ro, d, rng, max_depth, pack)
+        col, _, r = ray_color_rows(scene, ro, d, rng, max_depth, pack)
         acc = acc + col
         rays = rays + r
     col = acc / spp
