@@ -49,11 +49,21 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
    primaries with every 3rd lane given NaN or inf in o, d or t_max (the
    kernel's exact slab test beside its fast one), over the scene's
    `WalkPack`, built once for these checks. The BVH bounce kernel
-   (`csrc/bvh_shade.cu`) against `bvh_shade_step` on cornell, the
-   textured quad, the textured light and `spheres` at 512^2, bounces 0
-   and 4: rng words equal, flags equal on every lane, values within rtol
-   1e-4 (near-mirror GGX lanes 5e-2).
-   Kernel times are many launches between one pair of CUDA events;
+   (`csrc/bvh_shade.cu`, over the scene's `ShadePack`) against
+   `bvh_shade_step` on cornell, the textured quad, the textured light and
+   `spheres` at 512^2 and 1920x1080, bounces 0 and 4: rng words equal,
+   flags equal on every lane, values within rtol 1e-4 (near-mirror GGX
+   lanes 5e-2); its back-to-back graph time cross-checked against the
+   profiler's own device time a launch.
+   Each kernel's time is `kernel_ms`: 200 calls of its wrapper captured in
+   one CUDA graph and replayed between a pair of CUDA events, so the host's
+   cost of the calls is not in it, each call after a 256 MB read that
+   empties the L2 (the graph of the reads alone subtracted), so a call
+   moves its bytes through memory as the bound counts them; beside it the
+   same calls back to back (L2 warm), the host-paced time of the calls
+   made from Python (`device_ms`, the slower of device and host) and the
+   wrapper's host us a call. Plain versions and whole paths are
+   host-paced;
 2. drives every path of the port with the launch counts set to 0 just
    before it and read just after, and asserts each kernel's exact count:
    - cornell 512^2 d8 x 32 and 1920x1080 d8 x 8 (`trace_pixels_dense`, the
@@ -240,20 +250,116 @@ SOAK_FRAMES = 16  # the checkpoint resume: 8, save, load, 8 against 16
 FRAME_MS = {}  # path -> (ms/frame, Mrays/s) of frames 2..n in this run
 
 
-def device_ms(fn, launches: int = KERNEL_LAUNCHES, warmup: int = 3) -> float:
-    """Device ms per call of fn: `launches` calls between one pair of CUDA
-    events, after `warmup` calls."""
+def host_paced(fn, launches: int = KERNEL_LAUNCHES,
+               warmup: int = 3) -> tuple[float, float]:
+    """(ms a call, host us a call) of `launches` calls of fn made from the
+    host between one pair of CUDA events, after `warmup` calls. The ms is
+    the slower of the device's work and the host's pace of enqueueing it;
+    the host us is the host clock over the same calls, with no synchronise
+    inside (the wrapper's own cost, its launch included)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
+    t0 = time.perf_counter()
     for _ in range(launches):
         fn()
+    host_us = 1e6 * (time.perf_counter() - t0) / launches
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / launches
+    return a.elapsed_time(b) / launches, host_us
+
+
+def device_ms(fn, launches: int = KERNEL_LAUNCHES, warmup: int = 3) -> float:
+    """Host-paced ms a call of fn (`host_paced`): the yardstick of plain
+    versions and of paths that synchronise."""
+    return host_paced(fn, launches, warmup)[0]
+
+
+L2_FLUSH_BYTES = 256 << 20  # a read of five times the H100's 50 MB L2
+_FLUSH = []  # the flush buffer, made at the first kernel_ms
+
+
+def graph_ms(body, reps: int = 3) -> float:
+    """Device ms of body() captured once in a CUDA graph: the median of
+    `reps` replays, each between a pair of CUDA events, after one replay to
+    warm up. A capture that fails raises."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    graph.reset()
+    return sorted(times)[reps // 2]
+
+
+def kernel_ms(fn, launches: int = KERNEL_LAUNCHES, warmup: int = 3,
+              flush: bool = True) -> float:
+    """Device ms a call of fn without the host's cost: `launches` calls
+    captured in one CUDA graph (every wrapper launches on torch's current
+    stream, `kernels.stream`, so the capture holds its launches). What the
+    calls run on the device counts: the kernel, and any torch work of the
+    wrapper (none of the port's kernel wrappers has any). A capture that
+    fails raises; there is no host-paced fallback.
+
+    With flush (the kernels' yardstick) each call follows a read of
+    L2_FLUSH_BYTES, which evicts the last call's inputs and writes its
+    outputs back, so a call reads and writes memory as the bound counts:
+    the graph of (read, call) pairs less the graph of the reads alone.
+    Without it the calls run back to back, and a working set that fits the
+    L2 stays there: faster than the bytes allow, a share of the bound over
+    1 says so."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    if not flush:
+        return graph_ms(lambda: [fn() for _ in range(launches)]) / launches
+    if not _FLUSH:
+        _FLUSH.append(torch.zeros(L2_FLUSH_BYTES // 4, device="cuda"))
+    buf = _FLUSH[0]
+
+    def pairs():
+        for _ in range(launches):
+            buf.sum()
+            fn()
+
+    def reads():
+        for _ in range(launches):
+            buf.sum()
+
+    return (graph_ms(pairs) - graph_ms(reads)) / launches
+
+
+def kernel_times(fn, launches: int = KERNEL_LAUNCHES) -> dict:
+    """A kernel wrapper's times: ms (`kernel_ms`, the kernel's time, L2
+    flushed before each call), l2_warm_ms (`kernel_ms` back to back),
+    host_ms and host_us (`host_paced`, the old yardstick and the wrapper's
+    host cost a call)."""
+    ms = kernel_ms(fn, launches)
+    warm = kernel_ms(fn, launches, flush=False)
+    host_ms, host_us = host_paced(fn, launches)
+    return dict(ms=ms, l2_warm_ms=warm, host_ms=host_ms, host_us=host_us)
+
+
+def times_text(t: dict) -> str:
+    return (f"kernel {t['ms']:.4f} ms (graph, L2 flushed; back to back "
+            f"{t['l2_warm_ms']:.4f}; host-paced {t['host_ms']:.4f} ms, "
+            f"wrapper {t['host_us']:.1f} us a call on the host)")
 
 
 def bound(nbytes: float, ops: float = 0.0,
@@ -561,11 +667,11 @@ def check_sweep(tables, camera, width, height) -> dict:
     rays8 = stacks["synthetic"]
 
     times = {label: (
-        device_ms(lambda: cuda_dense.closest_with_row(tables, st, R)),
-        device_ms(lambda: cuda_dense.closest_with_row(tables, st, 2 * R)),
-        device_ms(lambda: cuda_dense.shadow(tables, st)))
+        kernel_times(lambda: cuda_dense.closest_with_row(tables, st, R)),
+        kernel_ms(lambda: cuda_dense.closest_with_row(tables, st, 2 * R)),
+        kernel_ms(lambda: cuda_dense.shadow(tables, st)))
         for label, st in stacks.items()}
-    ms, ms_norows, ms_any = times["synthetic"]
+    t, ms_norows, ms_any = times["synthetic"]
     plain_ms = device_ms(lambda: rows_plain(
         tables.shade_table, closest_plain(tables, rays8)[1][R:]),
         PLAIN_LAUNCHES)
@@ -578,19 +684,19 @@ def check_sweep(tables, camera, width, height) -> dict:
     ops = active * tables.valid_count * SWEEP_OPS
     b_ms, b_by = bound(nbytes, ops)
     floor_ms = 1e3 * ops / F32_ROUNDED_OPS_PER_S
-    print(f"sweep closest+rows: kernel {ms:.4f} ms (without rows "
+    print(f"sweep closest+rows: {times_text(t)} (without rows "
           f"{ms_norows:.4f}, any-hit {ms_any:.4f}), plain {plain_ms:.4f} ms "
           f"(any-hit {plain_any:.4f}), bound {b_ms:.4f} ms ({b_by}, "
           f"{nbytes / 1e6:.1f} MB; {active} live lanes x "
           f"{tables.valid_count} x {SWEEP_OPS} ops), floor of separately "
           f"rounded operations {floor_ms:.4f} ms")
     a, b, c = times["bounce 1"]
-    print(f"sweep on the bounce-1 stack: closest+rows {a:.4f} ms, without "
-          f"rows {b:.4f}, any-hit {c:.4f}")
+    print(f"sweep on the bounce-1 stack: closest+rows {times_text(a)}, "
+          f"without rows {b:.4f}, any-hit {c:.4f} (graph, L2 flushed)")
     return dict(name="dense_sweep", route="cuda",
                 source="webgpu_raytracer_tpu_torch/csrc/dense_sweep.cu",
                 replaces="webgpu_raytracer_tpu/ops/pallas_dense.py:57",
-                max_abs_err=t_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                max_abs_err=t_err, **t, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
 
@@ -644,19 +750,19 @@ def check_shade(tables, camera, width, height) -> dict:
                 tables.light_rows, depth, tables.light_count, DEPTH)
         worst = max(worst, hold_shade(f"cornell depth {depth}", args, {}))
         if depth == 0:
-            ms = device_ms(lambda: shade_rows.shade(*args))
+            t = kernel_times(lambda: shade_rows.shade(*args))
             plain_ms = device_ms(
                 lambda: shade_rows.next_rays(shade_rows.shade_step(*args)[0]),
                 PLAIN_LAUNCHES)
             R = width * height
             nbytes = shade_bytes(tables, R)
             b_ms, b_by = bound(nbytes, R * SHADE_OPS)
-    print(f"shade: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    print(f"shade: {times_text(t)}, plain {plain_ms:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
     return dict(name="shade_rows", route="cuda",
                 source="webgpu_raytracer_tpu_torch/csrc/shade_rows.cu",
                 replaces="webgpu_raytracer_tpu/ops/shade_rows.py:264",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                max_abs_err=worst, **t, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
 
@@ -703,27 +809,27 @@ def check_shade_textured(cases, cornell) -> dict:
             nbytes = shade_bytes(tables, R) + 16 * quads
             ops = R * (SHADE_OPS + TEXCOORD_OPS) + quads * TEXEL_OPS
             b_ms, b_by = bound(nbytes, ops)
-            ms = device_ms(lambda: shade_rows.shade(*args, **kw))
+            t = kernel_times(lambda: shade_rows.shade(*args, **kw))
             plain_ms = device_ms(lambda: shade_rows.next_rays(
                 shade_rows.shade_step(*args, **kw)[0]), PLAIN_LAUNCHES)
             c_tables, c_cams = cornell
             c_args = (*bounce_inputs(c_tables, c_cams[width, height], width,
                                      height, 0, DEPTH),
                       c_tables.light_rows, 0, c_tables.light_count, DEPTH)
-            white_ms = device_ms(lambda: shade_rows.shade(*c_args))
+            white_ms = kernel_ms(lambda: shade_rows.shade(*c_args))
             print(f"shade textured {label} depth 0, {R} lanes, {quads} "
-                  f"quads read ({quads / R:.2f} a lane): kernel {ms:.4f} "
-                  f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"quads read ({quads / R:.2f} a lane): {times_text(t)}, "
+                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
                   f"({b_by}, {nbytes / 1e6:.1f} MB); the white-texel "
                   f"kernel on cornell at the same lane count {white_ms:.4f} "
-                  f"ms ({ms / white_ms:.2f}x)")
-            timed.append((ms, plain_ms, b_ms, b_by))
-    ms, plain_ms, b_ms, b_by = timed[0]
+                  f"ms (graph; {t['ms'] / white_ms:.2f}x)")
+            timed.append((t, plain_ms, b_ms, b_by))
+    t, plain_ms, b_ms, b_by = timed[0]
     return dict(name="shade_rows_textured", route="cuda",
                 source="webgpu_raytracer_tpu_torch/csrc/shade_rows.cu",
                 replaces="webgpu_raytracer_tpu/ops/shade_rows.py:264",
                 path="every textured scene's bounces at max_depth > 0",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                max_abs_err=worst, **t, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
 
@@ -885,11 +991,11 @@ def check_jobs(tables, camera, width, height) -> list[dict]:
 
     sort_ms = device_ms(lambda: coherence_sort(rays8, tables.box, g, R),
                         PLAIN_LAUNCHES)
-    cull_ms = device_ms(cull)
+    cull_t = kernel_times(cull)
     cull_plain_ms = device_ms(lambda: worklists_plain(
         spheres, rays_s[:, :L], g, box_plain), PLAIN_LAUNCHES)
-    job_ms = device_ms(lambda: jobs(False))
-    job_any_ms = device_ms(lambda: jobs(True))
+    job_t = kernel_times(lambda: jobs(False))
+    job_any_ms = kernel_ms(lambda: jobs(True))
     job_plain_ms = device_ms(lambda: jobs_closest_plain(tables, *sub, g), 3)
     path_ms = device_ms(lambda: cuda_dense.closest_with_row(tables, rays8, R),
                         20)
@@ -915,13 +1021,14 @@ def check_jobs(tables, camera, width, height) -> list[dict]:
     jb_ms, jb_by = bound(job_bytes, lane_pairs * 128 * SWEEP_OPS)
     print(f"coherence sort (torch sort + gather, {2 * R} lanes): "
           f"{sort_ms:.4f} ms")
-    print(f"cull: kernel {cull_ms:.4f} ms, plain {cull_plain_ms:.4f} ms on "
+    print(f"cull: {times_text(cull_t)}, plain {cull_plain_ms:.4f} ms on "
           f"the first {JOB_PLAIN_GROUPS} groups ({L} lanes), bound "
           f"{cb_ms:.4f} ms ({cb_by}, {live} live lanes x {ct} x {CULL_OPS} "
           f"ops, {cull_bytes / 1e6:.1f} MB), floor of separately rounded "
           f"operations {cull_floor_ms:.4f} ms")
-    print(f"job sweep closest+rows: kernel {job_ms:.4f} ms (any-hit "
-          f"{job_any_ms:.4f} ms), plain {job_plain_ms:.4f} ms on the first "
+    print(f"job sweep closest+rows: {times_text(job_t)} (any-hit "
+          f"{job_any_ms:.4f} ms, graph), plain {job_plain_ms:.4f} ms on the "
+          f"first "
           f"{JOB_PLAIN_GROUPS} groups, bound {jb_ms:.4f} ms ({jb_by}, "
           f"{lane_pairs} (lane, tile) pairs a lane's segment up to its hit "
           f"touches x 128 x {SWEEP_OPS} ops; walked: "
@@ -935,12 +1042,12 @@ def check_jobs(tables, camera, width, height) -> list[dict]:
                  source="webgpu_raytracer_tpu_torch/csrc/job_sweep.cu",
                  replaces="webgpu_raytracer_tpu/ops/pallas_dense.py:991",
                  max_abs_err=max_abs_diff(t_p[keep], t[lanes[keep]]),
-                 ms=job_ms, plain_ms=job_plain_ms, bound_ms=jb_ms,
+                 **job_t, plain_ms=job_plain_ms, bound_ms=jb_ms,
                  bound_by=jb_by, library_ms=None),
             dict(name="cluster_cull", route="cuda",
                  source="webgpu_raytracer_tpu_torch/csrc/cluster_cull.cu",
                  replaces="webgpu_raytracer_tpu/ops/cluster_cull.py:26",
-                 max_abs_err=cull_err, ms=cull_ms, plain_ms=cull_plain_ms,
+                 max_abs_err=cull_err, **cull_t, plain_ms=cull_plain_ms,
                  bound_ms=cb_ms, bound_by=cb_by, library_ms=None)]
 
 
@@ -1068,17 +1175,17 @@ def check_scan(tables, camera, width, height) -> list[dict]:
     def path(narrow):
         return cuda_dense.closest_with_row(tables, rays8, R, narrow=narrow)
 
-    cull_ms = device_ms(cull)
+    cull_t = kernel_times(cull)
     cull_plain_ms = device_ms(lambda: keys_plain(spheres, sub_s, m, box_plain),
                               PLAIN_LAUNCHES)
     sort_ms = device_ms(lambda: sort_keyed(key_map))
     cone_ms = device_ms(lambda: cuda_scan.worklists_keyed(
         spheres, rays_s, m, tables.box, "cone"), PLAIN_LAUNCHES)
-    job_a = device_ms(jobs, 50)
-    scan_ms = device_ms(lambda: scan(False))
-    scan_any_ms = device_ms(lambda: scan(True))
-    job_b = device_ms(jobs, 50)
-    scan_cone_ms = device_ms(lambda: scan(False, cone), 50)
+    job_a = kernel_ms(jobs, 50)
+    scan_t = kernel_times(lambda: scan(False))
+    scan_any_ms = kernel_ms(lambda: scan(True))
+    job_b = kernel_ms(jobs, 50)
+    scan_cone_ms = kernel_ms(lambda: scan(False, cone), 50)
     scan_plain_ms = device_ms(lambda: scan_closest_plain(tables, *sub, m),
                               1, warmup=1)
     path_jobs_a = device_ms(lambda: path("jobs"), 20)
@@ -1101,16 +1208,16 @@ def check_scan(tables, camera, width, height) -> list[dict]:
                   + tiles_read * 25 * 128 * 4 + 2 * R * 8 + R * 40 * 4
                   + ext_hits * 40 * 4)
     sb_ms, sb_by = bound(scan_bytes, lane_pairs * 128 * SWEEP_OPS)
-    print(f"keyed cull: kernel {cull_ms:.4f} ms, plain {cull_plain_ms:.4f} "
+    print(f"keyed cull: {times_text(cull_t)}, plain {cull_plain_ms:.4f} "
           f"ms on {len(tiles)} tiles ({len(tiles) * m} lanes), bound "
           f"{cb_ms:.4f} ms ({cb_by}, {live} live lanes x {ct} x "
           f"{KEYED_CULL_OPS} ops, {cull_bytes / 1e6:.1f} MB), floor of "
           f"separately rounded operations {cull_floor_ms:.4f} ms; torch.sort "
           f"of the ({T}, {ct}) keys {sort_ms:.4f} ms; cone cull (plain torch, "
           f"sort included) {cone_ms:.4f} ms")
-    print(f"scan sweep closest+rows: kernel {scan_ms:.4f} ms (any-hit "
+    print(f"scan sweep closest+rows: {times_text(scan_t)} (any-hit "
           f"{scan_any_ms:.4f} ms; on the cone cull's worklists "
-          f"{scan_cone_ms:.4f} ms), plain {scan_plain_ms:.4f} ms on "
+          f"{scan_cone_ms:.4f} ms; graph), plain {scan_plain_ms:.4f} ms on "
           f"{len(tiles)} tiles, bound {sb_ms:.4f} ms ({sb_by}, {lane_pairs} "
           f"(lane, tile) pairs a lane's segment up to its hit touches x 128 "
           f"x {SWEEP_OPS} ops; walked: {int(stats[:, 3].sum())} pairs "
@@ -1118,19 +1225,20 @@ def check_scan(tables, camera, width, height) -> list[dict]:
           f"processed entries and {n_entries * m} in the worklists; "
           f"{tiles_read} tiles read, "
           f"{scan_bytes / 1e6:.1f} MB); job sweep in the same call "
-          f"{job_a:.4f} / {job_b:.4f} ms (before / after); whole path (sort "
+          f"{job_a:.4f} / {job_b:.4f} ms (graph, before / after); whole path "
+          f"(sort "
           f"+ cull + sweep) scan {path_ms:.4f} ms, jobs {path_jobs_a:.4f} / "
           f"{path_jobs_b:.4f} ms")
     return [dict(name="scan_sweep", route="cuda",
                  source="webgpu_raytracer_tpu_torch/csrc/scan_sweep.cu",
                  replaces="webgpu_raytracer_tpu/ops/pallas_dense.py:323",
                  max_abs_err=max_abs_diff(t_p[keep], t[lanes[keep]]),
-                 ms=scan_ms, plain_ms=scan_plain_ms,
+                 **scan_t, plain_ms=scan_plain_ms,
                  bound_ms=sb_ms, bound_by=sb_by, library_ms=None),
             dict(name="cluster_cull_keyed", route="cuda",
                  source="webgpu_raytracer_tpu_torch/csrc/cluster_cull.cu",
                  replaces="webgpu_raytracer_tpu/ops/cluster_cull.py:26",
-                 max_abs_err=key_err, ms=cull_ms, plain_ms=cull_plain_ms,
+                 max_abs_err=key_err, **cull_t, plain_ms=cull_plain_ms,
                  bound_ms=cb_ms, bound_by=cb_by, library_ms=None)]
 
 
@@ -1166,14 +1274,17 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def time_fetch(label, kernel, plain, library, nbytes) -> dict:
-    ms = device_ms(kernel)
+    """The fetch kernel graph-timed and host-paced, its plain version
+    host-paced, the library call graph-timed (one torch call: its own
+    device time, as the kernel's)."""
+    t = kernel_times(kernel)
     plain_ms = device_ms(plain)
-    library_ms = device_ms(library)
+    library_ms = kernel_ms(library)
     b_ms, b_by = bound(nbytes)
-    print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-          f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-          f"{nbytes / 1e6:.1f} MB)")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    print(f"{label}: {times_text(t)}, plain {plain_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms (graph, L2 flushed), bound {b_ms:.4f} ms "
+          f"({b_by}, {nbytes / 1e6:.1f} MB)")
+    return dict(**t, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=b_ms, bound_by=b_by)
 
 
@@ -1361,7 +1472,7 @@ def check_bvh(cases) -> list[dict]:
                  err_c),
                 ("bvh_closest ext", ext, False, st_e, True, err_e),
                 ("bvh_shadow", shadow, True, st_s, True, err_s)):
-            ms = device_ms(lambda: intersect.walk_cuda(
+            t = kernel_times(lambda: intersect.walk_cuda(
                 scene, args[0], args[1], T_MIN, args[2], args[3], any_hit,
                 pack=pack))
             t0 = time.perf_counter()
@@ -1372,13 +1483,13 @@ def check_bvh(cases) -> list[dict]:
             b_ms, b_by, mb, gops = walk_bound(scene, args[0], any_hit, tl, st)
             b_old = walk_bound(scene, args[0], any_hit, tl, st,
                                BVH_TRI_OPS_UNPACKED)[0]
-            print(f"{name} {label}: kernel {ms:.4f} ms, plain walk "
+            print(f"{name} {label}: {times_text(t)}, plain walk "
                   f"{plain_ms:.1f} ms (host clock, one call), bound "
                   f"{b_ms:.4f} ms ({b_by}; {mb:.1f} MB, {gops:.3f} G ops: "
                   f"{BVH_NODE_OPS} a node, {BVH_TRI_OPS} a triangle); at "
                   f"{BVH_TRI_OPS_UNPACKED} a triangle, as the unpacked walk "
                   f"counted, {b_old:.4f} ms")
-            out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            out[name] = dict(**t, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, max_abs_err=err)
     return [dict(name=name, route="cuda",
                  source="webgpu_raytracer_tpu_torch/csrc/bvh_walk.cu",
@@ -1408,13 +1519,28 @@ def bvh_scene(name: str, width: int, height: int, dev,
                               device=dev), camera
 
 
+def shade_kw(scene) -> dict:
+    """`bvh_shade`'s keywords for a CUDA scene: its ShadePack, built once,
+    where the checkout has one (--frame-times also runs from checkouts
+    older than the pack); none on the CPU, where the pack is not read."""
+    from webgpu_raytracer_tpu_torch.ops import bvh_shade
+
+    if scene.tri_v.device.type != "cuda" or not hasattr(bvh_shade,
+                                                         "pack_shade"):
+        return {}
+    return {"pack": bvh_shade.pack_shade(scene)}
+
+
 def bvh_bounce_inputs(scene, camera, width, height, depth: int,
-                      pack=None) -> tuple:
+                      pack=None, kw=None) -> tuple:
     """`bvh_shade`'s arguments entering bounce `depth` of a BVH frame of
     depth DEPTH: `pinhole_rays` and frame 1's rng streams past the lens
     draws, advanced through the shade kernel and the walks on the card
-    (their plain versions on the CPU), as `ray_color_rows` advances them."""
+    (their plain versions on the CPU), as `ray_color_rows` advances them.
+    `pack` is the walks' WalkPack, `kw` the shade's (`shade_kw`)."""
     from webgpu_raytracer_tpu_torch.ops import bvh_shade
+
+    kw = shade_kw(scene) if kw is None else kw
 
     ro3, rd3 = pinhole_rays(camera, width, height)
     ro = torch.stack(list(ro3), 1).contiguous()
@@ -1427,7 +1553,7 @@ def bvh_bounce_inputs(scene, camera, width, height, depth: int,
     for d in range(depth):
         state, rng, nxt = bvh_shade.bvh_shade(
             scene, state, rng, ro, rd, active, hit.tri_idx, hit.inst_idx,
-            occluded, d, DEPTH)
+            occluded, d, DEPTH, **kw)
         occluded = intersect.intersect_shadow(
             scene, nxt.sro, nxt.srd, nxt.s_tmax, active=nxt.nee_lane,
             pack=pack)
@@ -1535,47 +1661,168 @@ def bvh_shade_bytes(args) -> int:
     return nbytes
 
 
-def check_bvh_shade(cases) -> dict:
-    """`csrc/bvh_shade.cu` against `bvh_shade_step` on (label, DeviceScene,
-    camera) cases at 512^2, bounces 0 and 4 of a DEPTH frame; each case's
-    bounce 0 timed (kernel over 200 launches, plain step over 20) beside
-    its bound. The JSON line takes the last case (`spheres`). Imported
-    here, as in the functions above, so that --frame-times runs from a
-    checkout older than the kernel."""
+def profile_kernels(fn, n: int, tries: int = 3) -> tuple[list, float]:
+    """([(kernel, self device us, count)], wall us) of n calls of fn under
+    torch.profiler: the device's own events (a CPU op's device time repeats
+    its kernels'), and the host clock over the calls, ending in a
+    synchronise. The profiler can drop device records (a path once read 0
+    launches): a profile that sees fewer device launches than the port's
+    own counters counted is taken again, up to `tries` times, then raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        before = dict(kernels.launches)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        ours = sum(v - before.get(k, 0) for k, v in kernels.launches.items())
+        events = [(e.key, e.self_device_time_total, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        seen = sum(c for _, _, c in events)
+        if seen >= max(ours, 1):
+            return events, wall_us
+        print(f"profile: {seen} device launches seen, the port counted "
+              f"{ours}; profiling again")
+    raise AssertionError(f"the profiler saw {seen} device launches in "
+                         f"{tries} tries; the port counted {ours}")
+
+
+def profiled_ms(fn, name: str, n: int = 20) -> float:
+    """The profiler's own device ms a launch of the kernels whose name
+    holds `name`, over n calls of fn (`profile_kernels`, as
+    `profile_paths` reads a frame). Back to back, so L2 stays warm."""
+    fn()
+    torch.cuda.synchronize()
+    events = [e for e in profile_kernels(fn, n)[0] if name in e[0]]
+    count = sum(c for _, _, c in events)
+    assert count == n, f"profiled {count} launches of {name}, expected {n}"
+    return sum(t for _, t, _ in events) / count / 1e3
+
+
+def time_bvh_shade(label: str, args: tuple, kw: dict) -> dict:
+    """`bvh_shade` on one bounce's inputs: kernel_times (over the pack in
+    `kw`), the byte bound and share (bound / kernel ms). Prints one line."""
     from webgpu_raytracer_tpu_torch.ops import bvh_shade
 
-    width, height = SMALL
-    worst, timed = 0.0, None
-    for label, scene, camera in cases:
+    t = kernel_times(lambda: bvh_shade.bvh_shade(*args, **kw))
+    nbytes = bvh_shade_bytes(args)
+    found = int((args[7] >= 0).sum()) if args[5] is None else int(
+        (args[5] & (args[7] >= 0)).sum())
+    b_ms, b_by = bound(nbytes, found * BVH_SHADE_OPS, F32_ROUNDED_OPS_PER_S)
+    print(f"bvh shade {label}, {args[3].shape[0]} lanes ({found} found): "
+          f"{times_text(t)}, bound {b_ms:.4f} ms ({b_by}, "
+          f"{nbytes / 1e6:.1f} MB, {found} x {BVH_SHADE_OPS} ops at one an "
+          f"instruction), share of the bound {b_ms / t['ms']:.3f}")
+    return dict(t, bound_ms=b_ms, bound_by=b_by, share=b_ms / t["ms"])
+
+
+def bvh_shade_host_split(args, kw, n: int = KERNEL_LAUNCHES) -> dict:
+    """Host us a call of the parts of one `bvh_shade` wrapper call over the
+    ShadePack in `kw`, each timed on the host clock over n calls with no
+    synchronise (and one after): the per-lane checks, the nine output
+    allocations, the device context, the stream lookup, the ctypes launch
+    alone (into outputs made once), and the whole wrapper, allocating its
+    outputs or writing into `out`. Prints one line."""
+    import ctypes
+
+    from webgpu_raytracer_tpu_torch.ops import bvh_shade as bs
+
+    scene, state, rng, ro, rd, active, tri, inst, occ, depth, md = args
+    dev, R = state.device, ro.shape[0]
+    pack = kw["pack"]
+    lanes = ((state, torch.float32, (bs.NS, R)), (rng, torch.int64, (R,)),
+             (ro, torch.float32, (R, 3)), (rd, torch.float32, (R, 3)),
+             (tri, torch.int32, (R,)), (inst, torch.int32, (R,)))
+
+    def checks():
+        for t, dtype, shape in lanes:
+            kernels.check(t, "t", dtype, shape, dev)
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    state_o, rng_o, nxt_o = outs = bs.shade_outputs(R, dev)
+    p = kernels.ptr
+
+    def launch():
+        kernels.library().wrt_bvh_shade(
+            ctypes.addressof(pack.view), int(pack.textured), p(state),
+            p(rng), p(ro), p(rd), p(active), p(tri), p(inst), p(occ), depth,
+            md, R, p(state_o), p(rng_o), *(p(t) for t in nxt_o),
+            kernels.stream(dev))
+
+    res = {}
+    for name, fn in (("checks", checks),
+                     ("allocations", lambda: bs.shade_outputs(R, dev)),
+                     ("device context", context),
+                     ("stream", lambda: kernels.stream(dev)),
+                     ("ctypes launch", launch),
+                     ("wrapper", lambda: bs.bvh_shade(*args, **kw)),
+                     ("wrapper into out", lambda: bs.bvh_shade(
+                         *args, **kw, out=outs))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        res[name] = 1e6 * (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+    print("bvh_shade wrapper, host us a call: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in res.items()))
+    return res
+
+
+def check_bvh_shade(cases) -> dict:
+    """`csrc/bvh_shade.cu` against `bvh_shade_step` on (label, DeviceScene,
+    camera, (width, height)) cases, bounces 0 and 4 of a DEPTH frame, each
+    timed (`time_bvh_shade`), the plain step at bounce 0 over 20 calls. The
+    profiler's own device time a launch (back to back) cross-checks the
+    back-to-back graph time at `spheres` 512^2 bounce 0, whose numbers go
+    to the JSON line. Imported here, as in the functions above, so that
+    --frame-times runs from a checkout older than the kernel."""
+    from webgpu_raytracer_tpu_torch.ops import bvh_shade
+
+    worst, row = 0.0, None
+    for label, scene, camera, (width, height) in cases:
         pack = intersect.pack_walk(scene)
+        kw = shade_kw(scene)
         for depth in (0, 4):
             args = bvh_bounce_inputs(scene, camera, width, height, depth,
-                                     pack)
-            worst = max(worst, hold_bvh_shade(f"{label} depth {depth}",
-                                              args))
+                                     pack, kw)
+            tag = f"{label} depth {depth}"
+            worst = max(worst, hold_bvh_shade(tag, args))
+            t = time_bvh_shade(tag, args, kw)
             if depth != 0:
                 continue
-            ms = device_ms(lambda: bvh_shade.bvh_shade(*args))
             plain_ms = device_ms(lambda: bvh_shade.bvh_shade_step(*args),
                                  PLAIN_LAUNCHES)
-            nbytes = bvh_shade_bytes(args)
-            found = int((args[7] >= 0).sum())
-            b_ms, b_by = bound(nbytes, found * BVH_SHADE_OPS,
-                               F32_ROUNDED_OPS_PER_S)
-            print(f"bvh shade {label} depth 0, {width * height} lanes "
-                  f"({found} found): kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-                  f"{nbytes / 1e6:.1f} MB, {found} x {BVH_SHADE_OPS} ops "
-                  f"at one an instruction); {DEPTH} launches a frame")
-            timed = (ms, plain_ms, b_ms, b_by)
-    ms, plain_ms, b_ms, b_by = timed
+            print(f"bvh shade {tag}: plain {plain_ms:.4f} ms; {DEPTH} "
+                  f"launches a frame")
+            if label == "spheres 512^2":
+                prof = profiled_ms(lambda: bvh_shade.bvh_shade(*args, **kw),
+                                   "bvh_shade_kernel")
+                print(f"bvh shade {tag}: profiler's own device time "
+                      f"{prof:.4f} ms a launch, back to back (graph back "
+                      f"to back {t['l2_warm_ms']:.4f}, L2 flushed "
+                      f"{t['ms']:.4f})")
+                row = dict(t, plain_ms=plain_ms, profiled_ms=prof)
     return dict(name="bvh_shade", route="cuda",
                 source="webgpu_raytracer_tpu_torch/csrc/bvh_shade.cu",
                 replaces="webgpu_raytracer_tpu/ops/trace.py:307",
                 path="the BVH path's bounces (trace_pixels, get_tracer"
                 "(\"bvh\"), the sharded steps)",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                max_abs_err=worst, library_ms=None,
+                **{k: row[k] for k in ("ms", "l2_warm_ms", "host_ms",
+                                       "host_us", "plain_ms", "bound_ms",
+                                       "bound_by", "profiled_ms")})
 
 
 def bvh_frames(scene, camera, width, height, n, golden_key) -> torch.Tensor:
@@ -2312,12 +2559,12 @@ def cli_and_preview() -> None:
 
 
 def profile_paths(paths) -> None:
-    """torch.profiler over 2 frames of each path: device time by kernel and
-    the device's busy share of the same 2 frames' wall time, taken inside
-    the profiled window (the tracer's start and stop fall outside it; its
-    cost per launch does not, so the share is a floor). Only the kernels'
-    own events count (a CPU op's device time repeats its kernels')."""
-    from torch.autograd import DeviceType
+    """torch.profiler over 2 frames of each path (`profile_kernels`, which
+    fails when it sees fewer device launches than the port counted):
+    device time by kernel and the device's busy share of the same 2
+    frames' wall time, taken inside the profiled window (the tracer's start
+    and stop fall outside it; its cost per launch does not, so the share is
+    a floor)."""
     from torch.profiler import ProfilerActivity, profile
 
     # The first profile of a process also pays the tracer's start-up:
@@ -2328,17 +2575,7 @@ def profile_paths(paths) -> None:
     for label, fn in paths:
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(2):
-                fn()
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        events = [(e.key, e.self_device_time_total, e.count)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0]
+        events, wall_us = profile_kernels(fn, 2)
         busy = sum(t for _, t, _ in events)
         launches = sum(c for _, _, c in events)
         print(f"profile {label}: device busy {busy / 2e3:.3f} ms/frame in "
@@ -2364,6 +2601,12 @@ def frame_times(dev, smi_line: str, profile: bool = False) -> None:
         cp chip_smoke.py CHECKOUT/chip_smoke_frames.py
         cd CHECKOUT && python3 chip_smoke_frames.py --frame-times
 
+    Then `bvh_shade` alone on cornell's, `spheres`' and mixed's (Lambert,
+    metal and glass lanes in a warp) bounces 0 and 4 at 512^2 and
+    1920x1080 (`time_bvh_shade`: graph-timed and host-paced ms, the
+    wrapper's host us, bound and share), in the JSON line's "bvh_shade",
+    and, where the checkout has the ShadePack, the wrapper's host cost
+    split into its parts (`bvh_shade_host_split`, three times).
     With --profile it then profiles the two BVH paths (`profile_paths`):
     their device kernels a frame and the device's busy share.
     """
@@ -2424,6 +2667,22 @@ def frame_times(dev, smi_line: str, profile: bool = False) -> None:
                                             DEPTH))
         bvh_paths.append((label, lambda s=scene, c=cam: trace_pixels(
             s, c, 1, jit0, *SMALL, 1, DEPTH)))
+    out["bvh_shade"] = {}
+    for name in ("cornell", "spheres", "mixed"):
+        world = NativeWorld(name)
+        scene = build_device_scene(world, device=dev)
+        pack, kw = intersect.pack_walk(scene), shade_kw(scene)
+        for size in (SMALL, HD):
+            world.update_camera(*size)
+            cam = torch.from_numpy(np.asarray(world.camera(),
+                                              np.float32)).to(dev)
+            for depth in (0, 4):
+                label = f"{name} {size[0]}x{size[1]} depth {depth}"
+                args = bvh_bounce_inputs(scene, cam, *size, depth, pack, kw)
+                out["bvh_shade"][label] = time_bvh_shade(label, args, kw)
+                if label == "spheres 512x512 depth 0" and kw:
+                    out["bvh_shade host us"] = [
+                        bvh_shade_host_split(args, kw) for _ in range(3)]
     if profile:
         profile_paths(bvh_paths)
     print(smi_line)
@@ -2453,7 +2712,7 @@ def main(argv: list[str]) -> int:
     kernels.library()
     print(f"build: {seconds:.1f} s -> {path}")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(k in line for k in ("entry function", "registers", "spill")):
             print(f"  ptxas: {line.strip()}")
     if "--frame-times" in argv:
         frame_times(dev, smi_line, "--profile" in argv)
@@ -2571,13 +2830,21 @@ def main(argv: list[str]) -> int:
     results += check_bvh([
         ("cornell 512^2", bvh_cornell, pack_cornell, camera, tables),
         ("spheres 512^2", bvh_sp, pack_sp, sp_cam, sp_tables)])
-    results.append(check_bvh_shade([
-        ("cornell 512^2", bvh_cornell, camera),
-        ("textured quad 512^2", *bvh_scene("viewer", width, height, dev,
-                                           glb)),
-        ("textured light 512^2", *bvh_scene("viewer", width, height, dev,
-                                            textured_light_glb())),
-        ("spheres 512^2", bvh_sp, sp_cam)]))
+    sp_world.update_camera(*hd)
+    sp_cam_hd = torch.from_numpy(np.asarray(sp_world.camera(),
+                                            np.float32)).to(dev)
+    shade_cases = [("cornell", bvh_cornell, camera, cam_hd),
+                   ("spheres", bvh_sp, sp_cam, sp_cam_hd)]
+    for name, glb_data in (("textured quad", glb),
+                           ("textured light", textured_light_glb())):
+        sc, c_small = bvh_scene("viewer", width, height, dev, glb_data)
+        shade_cases.append((name, sc, c_small, bvh_scene(
+            "viewer", *hd, dev, glb_data)[1]))
+    results.append(check_bvh_shade(
+        [(f"{name} 512^2", sc, c_small, (width, height))
+         for name, sc, c_small, _ in shade_cases]
+        + [(f"{name} 1920x1080", sc, c_hd, hd)
+           for name, sc, _, c_hd in shade_cases]))
 
     # The plain sampler's f64 fused multiply-add against a true f32 one on
     # the formats scene's 1080p primary hits, every layer in turn.

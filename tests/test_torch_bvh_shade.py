@@ -1,12 +1,16 @@
 """The BVH path's row-state bounce loop on the CPU (`ops/bvh_shade.py`,
 `ops/trace.ray_color_rows`).
 
-- `ray_color_rows` over the plain `bvh_shade_step` equals `ray_color`, the
-  plain reference, bit for bit in radiance, rng words and ray count: on
+- `ray_color_rows` over the plain `bvh_shade_step` (given the scene's
+  `ShadePack`, as `trace_pixels` gives it on the card) equals `ray_color`,
+  the plain reference, bit for bit in radiance, rng words and ray count: on
   cornell, mixed, special, the textured quad GLB, the textured light
   GLB (a quad light with a textured base colour) and the texture formats
   GLB (base colour, metallic-roughness, normal map and emissive textures),
   at max_depth 0, 1, 2, 5 and 8.
+- `pack_shade`: every field of every record holds its table row's bits
+  (a light's world corners `_light_tri_world`'s), unused words are zero,
+  and the records are 16-byte aligned rows of 16-byte quads.
 - `bvh_shade_step` is lane-independent: permuting the lanes of every input
   permutes every output, bit for bit.
 - A lane that does not walk (inactive, or a miss) advances its rng word by
@@ -20,6 +24,8 @@
 The kernel, `csrc/bvh_shade.cu`, is held to `bvh_shade_step` on the card in
 `tests/test_torch_cuda.py` and `chip_smoke.py`.
 """
+
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +43,7 @@ from webgpu_raytracer_tpu_torch import kernels
 from webgpu_raytracer_tpu_torch.ops import bvh_shade
 from webgpu_raytracer_tpu_torch.ops import trace as pt
 from webgpu_raytracer_tpu_torch.ops.rng import rand_pcg
+from webgpu_raytracer_tpu_torch.ops.trace import _light_tri_world, _rows
 
 RES = 16
 # Preset, or GLB maker in the viewer scene.
@@ -74,7 +81,8 @@ def test_rows_loop_equals_ray_color(case, depth):
     if SCENES[case][1] is not None:
         assert not scene.textures.is_floating_point()
     a = pt.ray_color(scene, ro, rd, rng, depth)
-    b = pt.ray_color_rows(scene, ro, rd, rng, depth)
+    b = pt.ray_color_rows(scene, ro, rd, rng, depth,
+                          shade_pack=bvh_shade.pack_shade(scene))
     for name, x, y in zip(("radiance", "rng", "rays"), a, b):
         assert x.dtype == y.dtype and torch.equal(x, y), (case, depth, name)
     if depth:
@@ -143,12 +151,129 @@ def test_bvh_shade_on_cpu_is_the_plain_step():
     scene, cam = _scene("cornell")
     args = chip_smoke.bvh_bounce_inputs(scene, cam, RES, RES, 2)
     before = dict(kernels.launches)
-    a = bvh_shade.bvh_shade(*args)
+    a = bvh_shade.bvh_shade(*args, pack=bvh_shade.pack_shade(args[0]))
     b = bvh_shade.bvh_shade_step(*args)
     assert kernels.launches == before
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     for x, y in zip(a[2], b[2]):
         assert torch.equal(x, y)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32) if x.is_floating_point() \
+        else x.to(torch.int32)
+
+
+@pytest.mark.parametrize("case", sorted(SCENES))
+def test_shade_pack_fields_equal_table_rows(case):
+    """Every field of the triangle, light and instance records holds its
+    table rows' bits (a field of the vertices their three rows in vertex
+    order); a light's corners are `_light_tri_world`'s; every word no
+    field holds is zero."""
+    scene, _ = _scene(case)
+    pack = bvh_shade.pack_shade(scene)
+    T, L = scene.tri_v.shape[0], scene.lights.shape[0]
+    vidx = scene.tri_v.long()
+    want = {"p": scene.pos[vidx].reshape(T, 9),
+            "n": scene.nrm[vidx].reshape(T, 9),
+            "uv": scene.uv[vidx].reshape(T, 6),
+            "base_color": scene.tri_base_color, "mat": scene.tri_mat[:, None],
+            "mrir": scene.tri_mrir, "tex": scene.tri_tex,
+            "emissive": scene.tri_emissive}
+    lref = scene.lights
+    v0, v1, v2, lvidx = _light_tri_world(scene, lref[:, 1], lref[:, 0])
+    lwant = {"v": torch.cat([v0, v1, v2], dim=1),
+             "uv": scene.uv[lvidx].reshape(L, 6),
+             "base_color": _rows(scene.tri_base_color, lref[:, 1]),
+             "tex": _rows(scene.tri_tex, lref[:, 1])[:, :1]}
+    iwant = {"inst_inv": scene.inst_inv[:, :3].reshape(-1, 12),
+             "inst_tf": scene.inst_tf[:, :3].reshape(-1, 12)}
+    for records, layout, table in (
+            (pack.tris, bvh_shade.TRI_LAYOUT, want),
+            (pack.lights, bvh_shade.LIGHT_LAYOUT, lwant),
+            (pack.insts, bvh_shade.INST_LAYOUT, iwant)):
+        words = bvh_shade.layout_words(layout)
+        assert records.dtype == torch.int32 and set(words) == set(table)
+        assert records.shape[1] == sum(width for _, width in layout)
+        held = set()
+        for name, (w, width) in words.items():
+            assert torch.equal(records[:, w:w + width],
+                               _bits(table[name])), (case, name)
+            held.update(range(w, w + width))
+        free = [w for w in range(records.shape[1]) if w not in held]
+        assert not bool(records[:, free].any())
+    assert pack.tris.shape[0] == T and pack.lights.shape[0] == L
+    assert pack.textures is scene.textures
+    assert pack.light_count == scene.light_count
+    assert pack.textured == (not scene.textures.is_floating_point())
+    assert pack.view is None  # the kernel's struct is built on CUDA only
+
+
+def test_shade_pack_records_are_16_byte_aligned():
+    """Each record (160, 80 and 96 bytes) is a whole number of 16-byte
+    quads and every row starts 16-byte aligned."""
+    for layout, words in ((bvh_shade.TRI_LAYOUT, 40),
+                          (bvh_shade.LIGHT_LAYOUT, 20),
+                          (bvh_shade.INST_LAYOUT, 24)):
+        assert sum(width for _, width in layout) == words
+        assert words % 4 == 0
+    for case in ("cornell", "textured_light"):
+        pack = bvh_shade.pack_shade(_scene(case)[0])
+        for records in (pack.tris, pack.lights, pack.insts):
+            assert records.is_contiguous()
+            assert records.data_ptr() % 16 == 0
+            assert records.stride(0) * 4 % 16 == 0
+
+
+def _fresh(case):
+    """A DeviceScene of its own (cloned tables), so that a test may edit it
+    without touching the module's cached one."""
+    scene, _ = _scene(case)
+    return type(scene)(*(t.clone() if isinstance(t, torch.Tensor) else t
+                         for t in scene))
+
+
+def test_scene_packs_are_rebuilt_for_an_edited_or_another_scene():
+    """`trace.scene_packs` returns the same packs while a scene's tensors
+    are unchanged; a write in place, a table swapped by `_replace` and a
+    second scene each get packs of their own, built from their tables."""
+    scene = _fresh("cornell")
+    first = pt.scene_packs(scene)
+    assert pt.scene_packs(scene) is first
+    assert torch.equal(first[1].tris, bvh_shade.pack_shade(scene).tris)
+
+    scene.tri_base_color[0, 0] += 0.25
+    edited = pt.scene_packs(scene)
+    assert edited is not first
+    assert torch.equal(edited[1].tris, bvh_shade.pack_shade(scene).tris)
+    assert not torch.equal(edited[1].tris, first[1].tris)
+    assert pt.scene_packs(scene) is edited
+
+    moved = scene._replace(pos=scene.pos + 1.0)
+    swapped = pt.scene_packs(moved)
+    assert swapped is not edited
+    assert torch.equal(swapped[0].tris, pt.pack_walk(moved).tris)
+    assert not torch.equal(swapped[0].tris, edited[0].tris)
+
+    other = _fresh("mixed")
+    packs = pt.scene_packs(other)
+    assert packs is not swapped
+    assert packs[1].tris.shape[0] == other.tri_v.shape[0]
+    assert torch.equal(packs[1].tris, bvh_shade.pack_shade(other).tris)
+
+
+def test_scene_packs_live_as_long_as_their_scene():
+    """The cache holds no scene alive: dropping the scene drops its entry,
+    and with it the packs."""
+    import gc
+
+    scene = _fresh("cornell")
+    pt.scene_packs(scene)
+    key = weakref.ref(scene.tri_v)
+    assert key() in pt._packs
+    del scene
+    gc.collect()
+    assert key() is None
 
 
 _jax_trace = jax.jit(jt.trace_pixels, static_argnames=(

@@ -1087,6 +1087,7 @@ def test_bvh_trace_on_card_counts_launches(cuda):
 
 # BVH shade cases: preset, or GLB maker in the viewer scene.
 BVH_SHADE = {"cornell": ("cornell", None), "mixed": ("mixed", None),
+             "special": ("special", None),
              "textured": ("viewer", chip_smoke.textured_quad_glb),
              "textured_light": ("viewer", chip_smoke.textured_light_glb),
              "formats": ("viewer", chip_smoke.formats_scene_glb)}
@@ -1112,6 +1113,114 @@ def test_bvh_shade_kernel_matches_plain(cuda, scene, depth):
     assert kernels.launches["bvh_shade"] == before + 1
 
 
+def _lanes(args, keep, ro_offset=0):
+    """bvh_shade's arguments cut to the lanes in `keep`, every per-lane
+    tensor contiguous; ro and rd start `ro_offset` floats into a buffer
+    (not 16-byte aligned when ro_offset % 4)."""
+    scene, state, rng, ro, rd, active, tri, inst, occ, depth, md = args
+
+    def cut(x):
+        return None if x is None else x[keep].contiguous()
+
+    def shifted(x):
+        x = x[keep]
+        buf = torch.empty(x.numel() + ro_offset, dtype=x.dtype,
+                          device=x.device)
+        out = buf[ro_offset:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    return (scene, state[:, keep].contiguous(), cut(rng), shifted(ro),
+            shifted(rd), cut(active), cut(tri), cut(inst), cut(occ), depth,
+            md)
+
+
+@pytest.mark.parametrize("scene,depth,cut,offset", [
+    ("cornell", 0, 37, 0), ("mixed", 2, 1, 1), ("special", 0, 255, 0),
+    ("textured_light", 4, 129, 3)])
+def test_bvh_shade_kernel_ragged_and_unaligned(cuda, scene, depth, cut,
+                                               offset):
+    """R one to 255 lanes short of a whole block (the last block's rows
+    staged one float a thread), and ro / rd not 16-byte aligned (the
+    staged loads' scalar path): the kernel against `bvh_shade_step`."""
+    name, glb = BVH_SHADE[scene]
+    sc, cam = chip_smoke.bvh_scene(name, RES, RES, cuda,
+                                   glb() if glb else None)
+    args = chip_smoke.bvh_bounce_inputs(sc, cam, RES, RES, depth)
+    keep = torch.arange(RES * RES - cut, device=cuda)
+    args = _lanes(args, keep, offset)
+    assert args[3].shape[0] % 256 and (args[3].data_ptr() % 16 != 0) == (
+        offset % 4 != 0)
+    chip_smoke.hold_bvh_shade(f"{scene} depth {depth}, {keep.numel()} "
+                              f"lanes, ro offset {offset}", args)
+
+
+def test_bvh_shade_kernel_all_inactive(cuda):
+    """No lane walked: every lane draws six, keeps its state (radiance
+    plus the resolved pending NEE) and walks nothing, as the plain step."""
+    sc, cam = chip_smoke.bvh_scene("cornell", RES, RES, cuda)
+    args = list(chip_smoke.bvh_bounce_inputs(sc, cam, RES, RES, 2))
+    args[5] = torch.zeros_like(args[5])
+    chip_smoke.hold_bvh_shade("cornell depth 2, all inactive", tuple(args))
+    out, _, nxt = bvh_shade.bvh_shade(*args)
+    assert not bool(nxt.do_next.any() | nxt.nee_lane.any())
+    assert not bool(out[bvh_shade.PEND].any())
+    for x in (nxt.ro, nxt.rd, nxt.sro, nxt.srd, nxt.s_tmax):
+        assert not bool(x.any())
+
+
+@pytest.mark.parametrize("scene", ["mixed", "special"])
+def test_bvh_shade_kernel_three_material_mix(cuda, scene):
+    """Bounce 0 of a scene whose hits mix Lambert, GGX metal and
+    dielectric lanes in one warp: the kernel against the plain step."""
+    sc, cam = chip_smoke.bvh_scene(scene, RES, RES, cuda)
+    args = chip_smoke.bvh_bounce_inputs(sc, cam, RES, RES, 0)
+    found = args[7] >= 0
+    mats = sc.tri_mat[args[6][found].long()]
+    assert all(bool((mats == m).any()) for m in (0, 1, 2))
+    warp_mats = torch.where(found, sc.tri_mat[args[6].clamp(min=0).long()],
+                            -1).reshape(-1, 32)
+    mixed = [(warp_mats == m).any(1) for m in (0, 1, 2)]
+    assert bool((mixed[0] & mixed[1] & mixed[2]).any())
+    chip_smoke.hold_bvh_shade(f"{scene} depth 0, three materials", args)
+
+
+@pytest.mark.parametrize("scene", sorted(BVH_SHADE))
+def test_shade_pack_on_card_equals_cpu(cuda, scene):
+    """`pack_shade` on the card holds the same bits as on the CPU (the
+    light corners' products and sums included), with the kernel's view."""
+    name, glb = BVH_SHADE[scene]
+    data = glb() if glb else None
+    packs = [bvh_shade.pack_shade(chip_smoke.bvh_scene(
+        name, 16, 16, dev, data)[0]) for dev in ("cpu", cuda)]
+    for a, b in zip(packs[0][:3], packs[1][:3]):
+        assert torch.equal(a, b.cpu())
+    assert packs[0].view is None and packs[1].view is not None
+    assert packs[1].textured == (glb is not None)
+
+
+def test_bvh_shade_writes_into_out(cuda):
+    """`out=`: the kernel writes into an earlier call's outputs, bit-equal
+    to a call that makes its own; an `out` of another lane count raises
+    and launches nothing."""
+    sc, cam = chip_smoke.bvh_scene("mixed", RES, RES, cuda)
+    args = chip_smoke.bvh_bounce_inputs(sc, cam, RES, RES, 1)
+    pack = bvh_shade.pack_shade(sc)
+    want = bvh_shade.bvh_shade(*args, pack=pack)
+    out = bvh_shade.shade_outputs(RES * RES, cuda)
+    for t in (out[0], out[1], *out[2]):
+        t.fill_(7)
+    got = bvh_shade.bvh_shade(*args, pack=pack, out=out)
+    assert got is out
+    for a, b in zip((want[0], want[1], *want[2]), (out[0], out[1], *out[2])):
+        assert torch.equal(a, b)
+    before = kernels.launches["bvh_shade"]
+    with pytest.raises(ValueError):
+        bvh_shade.bvh_shade(*args, pack=pack,
+                            out=bvh_shade.shade_outputs(RES, cuda))
+    assert kernels.launches["bvh_shade"] == before
+
+
 def test_bvh_shade_rejects_bad_inputs(cuda):
     """The wrapper checks every tensor before it launches: a wrong dtype,
     shape or device raises and counts no launch."""
@@ -1125,6 +1234,12 @@ def test_bvh_shade_rejects_bad_inputs(cuda):
         broken[k] = bad
         with pytest.raises((TypeError, ValueError)):
             bvh_shade.bvh_shade(*broken)
+    # A pack of another scene, or built on the CPU.
+    other = chip_smoke.bvh_scene("mixed", 16, 16, cuda)[0]
+    for pack in (bvh_shade.pack_shade(other), bvh_shade.pack_shade(
+            chip_smoke.bvh_scene("cornell", 16, 16, "cpu")[0])):
+        with pytest.raises(ValueError):
+            bvh_shade.bvh_shade(*args, pack=pack)
     assert kernels.launches["bvh_shade"] == before
 
 

@@ -40,8 +40,8 @@
 // NaN-propagating min / max, each a compare, a select and an fminf. What
 // this version does:
 //
-// 1. Packed records (ops/intersect.py::pack_walk, built once a
-//    trace_pixels call). A node is 32 bytes, (min.xyz, skip | max.xyz, data), read as
+// 1. Packed records (ops/intersect.py::pack_walk, built once for a
+//    DeviceScene: ops/trace.py::scene_packs). A node is 32 bytes, (min.xyz, skip | max.xyz, data), read as
 //    two 16-byte loads from one sector. A triangle is 48 bytes, (p0, e1 =
 //    p1 - p0, e2 = p2 - p0), three 16-byte loads with no index; e1 and e2
 //    are one f32 subtraction each, made by torch exactly as Moller-Trumbore

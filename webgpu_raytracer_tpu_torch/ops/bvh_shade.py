@@ -203,22 +203,89 @@ def bvh_shade_step(scene, state, rng, ro, rd, active, tri, inst, occluded,
     return state_out, rng, nxt
 
 
+# The kernel's packed records (`pack_shade`): (field, 32-bit words) in
+# record order, None a zero word; `csrc/bvh_shade.cu` reads each field at
+# its first word (kP ... there, `layout_words`). A field of the vertices
+# ("p", "n", "uv") holds the triangle's three vertices' rows in vertex
+# order. A triangle: its vertices' object-space positions (not the walk's
+# e1 / e2: the hit's world corners transform each vertex), normals and
+# texture coordinates, then its material rows; 160 bytes.
+TRI_LAYOUT = (("p", 9), ("n", 9), ("uv", 6), ("base_color", 3), ("mat", 1),
+              ("mrir", 3), (None, 1), ("tex", 4), ("emissive", 3), (None, 1))
+# A light row: its triangle's world corners v (`trace._light_tri_world`'s
+# bits), texture coordinates, base colour and base-colour texture slot.
+LIGHT_LAYOUT = (("v", 9), ("uv", 6), ("base_color", 3), ("tex", 1),
+                (None, 1))
+# An instance: rows 0-2 of inst_inv, then rows 0-2 of inst_tf.
+INST_LAYOUT = (("inst_inv", 12), ("inst_tf", 12))
+
+
+def layout_words(layout) -> dict:
+    """{field: (first word, words)} of a record layout."""
+    out, w = {}, 0
+    for name, width in layout:
+        if name is not None:
+            out[name] = (w, width)
+        w += width
+    return out
+
+
 class _Scene(ctypes.Structure):
-    """The scene tables as `csrc/bvh_shade.cu` reads them (`BvhScene`)."""
+    """A ShadePack as `csrc/bvh_shade.cu` reads it (`BvhScene`)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "tri_v", "base_color", "mat", "mrir", "tex", "emissive", "pos", "nrm",
-        "uv", "inst_tf", "inst_inv", "lights", "textures")] + [
+        "tris", "lights", "insts", "textures")] + [
         (name, ctypes.c_int) for name in (
             "n_tri", "n_inst", "light_count", "tex_k", "tex_h", "tex_w")]
 
 
-def _scene_struct(scene, dev) -> tuple[_Scene, bool]:
-    """(the kernel's view of `scene`, whether its textures are a quad
-    table), every table checked for dtype, shape and device."""
+class ShadePack(NamedTuple):
+    """A DeviceScene as `csrc/bvh_shade.cu` reads it: one 16-byte-aligned
+    record a triangle, a light row and an instance, with the tables' bits
+    (`TRI_LAYOUT`, `LIGHT_LAYOUT`, `INST_LAYOUT`), and the texture table.
+    On CUDA also the kernel's view of it, checked when it was built."""
+
+    tris: torch.Tensor    # (T, 40) int32
+    lights: torch.Tensor  # (L, 20) int32
+    insts: torch.Tensor   # (I, 24) int32
+    textures: torch.Tensor
+    light_count: int
+    view: _Scene | None   # the kernel's struct (CUDA), None on the CPU
+    textured: bool        # the textures are a level-0 quad table
+
+
+def _records(layout, cols: dict) -> torch.Tensor:
+    """(n, words) int32 records of `layout`: each field's columns as 32-bit
+    words, zero words for None. One cat, no host sync."""
+    col0 = next(iter(cols.values()))
+    n, dev = col0.shape[0], col0.device
+    parts = []
+    for name, width in layout:
+        if name is None:
+            parts.append(torch.zeros((n, width), dtype=torch.int32,
+                                     device=dev))
+            continue
+        col = cols[name].reshape(n, width)
+        parts.append(col.view(torch.int32) if col.is_floating_point()
+                     else col.to(torch.int32))
+    return torch.cat(parts, dim=1)
+
+
+def _world_corners(scene, tri_idx, inst_idx):
+    """(v (n, 3 corners, 3) world corners, vertex indices (n, 3)): the
+    bits of `trace._light_tri_world`, each row of the instance transform a
+    left-to-right dot product plus its translation, for all three corners
+    in one pass."""
+    m = _rows(scene.inst_tf, inst_idx)[:, None, :3, :]  # (n, 1, row, col)
+    vidx = _rows(scene.tri_v, tri_idx).long()
+    p = scene.pos[vidx][:, :, None, :]                   # (n, corner, 1, xyz)
+    return (p[..., 0] * m[..., 0] + p[..., 1] * m[..., 1]
+            + p[..., 2] * m[..., 2] + m[..., 3]), vidx
+
+
+def _check_tables(scene, dev) -> None:
     T, I = scene.tri_v.shape[0], scene.inst_inv.shape[0]
-    V = scene.pos.shape[0]
-    L = scene.lights.shape[0]
+    V, L = scene.pos.shape[0], scene.lights.shape[0]
     for name, dtype, shape in (
             ("tri_v", torch.int32, (T, 3)),
             ("tri_base_color", torch.float32, (T, 3)),
@@ -236,36 +303,100 @@ def _scene_struct(scene, dev) -> tuple[_Scene, bool]:
         raise ValueError(f"scene: {T} triangles, {I} instances, {V} "
                          f"vertices, {L} light rows for "
                          f"{scene.light_count} lights")
-    tex = scene.textures
-    textured = not tex.is_floating_point()
-    if textured:
-        kernels.check(tex, "textures", torch.int32, device=dev)
-        if tex.dim() != 4 or tex.shape[3] != 4 or min(tex.shape) < 1:
-            raise ValueError(f"textures: shape {tuple(tex.shape)}")
-        if tex.data_ptr() % 16:
-            raise ValueError("textures: rows must be 16-byte aligned")
-        k, th, tw = tex.shape[:3]
-    else:
+
+
+def _texture_view(tex, dev) -> tuple[bool, int, int, int]:
+    """(whether `tex` is a quad table, K, TH, TW), checked for the kernel."""
+    if tex.is_floating_point():
         kernels.check(tex, "textures", torch.float32, (1, 1, 1, 3), dev)
-        k = th = tw = 1
-    p = kernels.ptr
-    return _Scene(
-        p(scene.tri_v), p(scene.tri_base_color), p(scene.tri_mat),
-        p(scene.tri_mrir), p(scene.tri_tex), p(scene.tri_emissive),
-        p(scene.pos), p(scene.nrm), p(scene.uv), p(scene.inst_tf),
-        p(scene.inst_inv), p(scene.lights), p(tex), T, I,
-        int(scene.light_count), k, th, tw), textured
+        return False, 1, 1, 1
+    kernels.check(tex, "textures", torch.int32, device=dev)
+    if tex.dim() != 4 or tex.shape[3] != 4 or min(tex.shape) < 1:
+        raise ValueError(f"textures: shape {tuple(tex.shape)}")
+    if tex.data_ptr() % 16:
+        raise ValueError("textures: rows must be 16-byte aligned")
+    return (True, *tex.shape[:3])
+
+
+def pack_shade(scene) -> ShadePack:
+    """The kernel's records of `scene`, on its device, in plain torch with
+    no host sync; `trace.scene_packs` builds it with the walks'
+    `intersect.pack_walk`, once for a DeviceScene. On CUDA the tables are
+    checked here, once, and the pack carries the kernel's view; `bvh_shade`
+    then checks only the per-lane tensors."""
+    dev = scene.tri_v.device
+    if dev.type == "cuda":
+        _check_tables(scene, dev)
+    vidx = scene.tri_v.long()
+    tris = _records(TRI_LAYOUT, {
+        "p": scene.pos[vidx], "n": scene.nrm[vidx], "uv": scene.uv[vidx],
+        "base_color": scene.tri_base_color, "mat": scene.tri_mat,
+        "mrir": scene.tri_mrir, "tex": scene.tri_tex,
+        "emissive": scene.tri_emissive})
+    lref = scene.lights
+    corners, lvidx = _world_corners(scene, lref[:, 1], lref[:, 0])
+    lights = _records(LIGHT_LAYOUT, {
+        "v": corners, "uv": scene.uv[lvidx],
+        "base_color": _rows(scene.tri_base_color, lref[:, 1]),
+        "tex": _rows(scene.tri_tex, lref[:, 1])[:, 0]})
+    insts = _records(INST_LAYOUT, {
+        "inst_inv": scene.inst_inv[:, :3], "inst_tf": scene.inst_tf[:, :3]})
+    tex = scene.textures
+    view, textured = None, not tex.is_floating_point()
+    if dev.type == "cuda":
+        textured, k, th, tw = _texture_view(tex, dev)
+        if any(x.data_ptr() % 16 for x in (tris, lights, insts)):
+            raise ValueError("pack: records must be 16-byte aligned")
+        p = kernels.ptr
+        view = _Scene(p(tris), p(lights), p(insts), p(tex), tris.shape[0],
+                      insts.shape[0], int(scene.light_count), k, th, tw)
+    return ShadePack(tris, lights, insts, tex, int(scene.light_count), view,
+                     textured)
+
+
+# The kernel's outputs (name, dtype, shape; None is R), in its order.
+_OUTPUTS = (("state_out", torch.float32, (NS, None)),
+            ("rng_out", torch.int64, (None,)),
+            ("ro_next", torch.float32, (None, 3)),
+            ("rd_next", torch.float32, (None, 3)),
+            ("do_next", torch.bool, (None,)),
+            ("sro", torch.float32, (None, 3)),
+            ("srd", torch.float32, (None, 3)),
+            ("s_tmax", torch.float32, (None,)),
+            ("nee_lane", torch.bool, (None,)))
+
+
+def shade_outputs(R: int, dev) -> tuple:
+    """New (state (NS, R), rng (R,), Bounce) tensors for `bvh_shade`."""
+    t = [torch.empty(tuple(R if k is None else k for k in shape),
+                     dtype=dtype, device=dev) for _, dtype, shape in _OUTPUTS]
+    return t[0], t[1], Bounce(*t[2:])
 
 
 def bvh_shade(scene, state, rng, ro, rd, active, tri, inst, occluded,
-              depth: int, max_depth: int):
+              depth: int, max_depth: int, pack: ShadePack | None = None,
+              out: tuple | None = None):
     """One bounce: (state (NS, R), rng (R,), Bounce). On the CPU
-    `bvh_shade_step`; on CUDA the kernel (its textured instantiation when
-    the scene's textures are a quad table), which raises on a bad input."""
+    `bvh_shade_step` (which reads `scene`'s tables; `pack` and `out` are not
+    read); on CUDA the kernel over `pack` (`pack_shade(scene)` when not
+    given; its textured instantiation when the textures are a quad table),
+    which raises on a bad input. The kernel writes into `out`, an earlier
+    call's (state, rng, Bounce) at the same lane count that no input
+    aliases, or into new tensors."""
     if state.device.type == "cpu":
         return bvh_shade_step(scene, state, rng, ro, rd, active, tri, inst,
                               occluded, depth, max_depth)
     dev = state.device
+    if pack is None:
+        pack = pack_shade(scene)
+    elif (pack.tris.shape[0], pack.lights.shape[0], pack.insts.shape[0],
+          pack.light_count) != (scene.tri_v.shape[0], scene.lights.shape[0],
+                                scene.inst_inv.shape[0],
+                                int(scene.light_count)):
+        raise ValueError("pack: not built from this scene (triangle, light "
+                         "or instance counts differ)")
+    if pack.view is None or pack.tris.device != dev:
+        raise ValueError(f"pack: built on {pack.tris.device}, not on {dev}")
     R = ro.shape[0]
     kernels.check(state, "state", torch.float32, (NS, R), dev)
     kernels.check(rng, "rng", torch.int64, (R,), dev)
@@ -276,24 +407,22 @@ def bvh_shade(scene, state, rng, ro, rd, active, tri, inst, occluded,
     for name, mask in (("active", active), ("occluded", occluded)):
         if mask is not None:
             kernels.check(mask, name, torch.bool, (R,), dev)
-    view, textured = _scene_struct(scene, dev)
 
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    def mask():
-        return torch.empty(R, dtype=torch.bool, device=dev)
-
-    out = f32(NS, R)
-    rng_out = torch.empty(R, dtype=torch.int64, device=dev)
-    nxt = Bounce(f32(R, 3), f32(R, 3), mask(), f32(R, 3), f32(R, 3), f32(R),
-                 mask())
+    if out is None:
+        out = shade_outputs(R, dev)
+    else:
+        for t, (name, dtype, shape) in zip((out[0], out[1], *out[2]),
+                                           _OUTPUTS):
+            kernels.check(t, name, dtype, tuple(R if k is None else k
+                                                for k in shape), dev)
+    state_out, rng_out, nxt = out
     p = kernels.ptr
     with torch.cuda.device(dev):
         code = kernels.library().wrt_bvh_shade(
-            ctypes.addressof(view), int(textured), p(state), p(rng), p(ro),
-            p(rd), p(active), p(tri), p(inst), p(occluded), depth, max_depth,
-            R, p(out), p(rng_out), *(p(t) for t in nxt), kernels.stream(dev))
+            ctypes.addressof(pack.view), int(pack.textured), p(state), p(rng),
+            p(ro), p(rd), p(active), p(tri), p(inst), p(occluded), depth,
+            max_depth, R, p(state_out), p(rng_out), *(p(t) for t in nxt),
+            kernels.stream(dev))
     kernels.raise_on_error(code, "bvh_shade")
     kernels.launches["bvh_shade"] += 1
-    return out, rng_out, nxt
+    return out

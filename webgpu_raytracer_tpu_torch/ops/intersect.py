@@ -17,9 +17,9 @@ compares across spaces.
   the card and what was measured against its design.
 - `pack_walk`: the scene as the kernel reads it (`WalkPack`): a node in
   32 bytes, a triangle as (p0, e1, e2) in 48, an instance's matrix rows and
-  BLAS span in 64, and whether every node bound is finite. Built once a
-  `trace_pixels` call; the walks take it as `pack=`, or build it when it is
-  not given.
+  BLAS span in 64, and whether every node bound is finite. Built once for
+  a DeviceScene (`trace.scene_packs`); the walks take it as `pack=`, or
+  build it when it is not given.
 
 `intersect_closest` and `intersect_shadow` launch the kernel for CUDA
 tensors and take the plain walk (on the unpacked arrays) for CPU tensors;

@@ -7,10 +7,11 @@ Russian roulette after depth 3, and sum + count accumulation. Rays are
 (R, 3) tensors, as in the JAX package; every walk goes through
 `ops/intersect.py` (`csrc/bvh_walk.cu` on the card, the plain walk on the
 CPU). `trace_pixels` runs `ray_color_rows`: the bounce between the walks is
-one `ops/bvh_shade.py` launch (`csrc/bvh_shade.cu` on the card, its plain
-`bvh_shade_step` on the CPU), where XLA compiles `ray_color`'s loop body
-into one program. `ray_color`, the bounce in plain PyTorch between the
-walks, stays as the reference the rows loop equals bit for bit on the CPU.
+one `ops/bvh_shade.py` launch (`csrc/bvh_shade.cu` on the card, over the
+scene's `ShadePack`, its plain `bvh_shade_step` on the CPU), where XLA
+compiles `ray_color`'s loop body into one program. `ray_color`, the bounce
+in plain PyTorch between the walks, stays as the reference the rows loop
+equals bit for bit on the CPU.
 
 Differences of mechanism, not of result:
 - the last bounce runs no extension walk: its lanes may not continue
@@ -29,9 +30,11 @@ shadow-only bounce there instead, in both packages).
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import bsdf
 from .bsdf import PI, cross, dot, norm, normalize, power_heuristic
@@ -370,7 +373,8 @@ def ray_color(scene, ro, rd, rng, max_depth: int, pack=None):
     return radiance, rng, rays
 
 
-def ray_color_rows(scene, ro, rd, rng, max_depth: int, pack=None):
+def ray_color_rows(scene, ro, rd, rng, max_depth: int, pack=None,
+                   shade_pack=None):
     """`ray_color` on a row state, one shade launch a bounce: the primary
     closest walk, then per bounce one `bvh_shade` (`csrc/bvh_shade.cu` on
     the card, `bvh_shade_step` on the CPU), one any-hit walk over its
@@ -378,7 +382,9 @@ def ray_color_rows(scene, ro, rd, rng, max_depth: int, pack=None):
     extension rays; a last fold adds the last bounce's NEE where its
     shadow walk found nothing. Equal to `ray_color` bit for bit on the
     CPU: (radiance (R, 3), rng, rays), rays summed in float64 on the
-    device. At max_depth 0 no walk runs: zero radiance, R rays."""
+    device. At max_depth 0 no walk runs: zero radiance, R rays. On the
+    card the walks read `pack` (`intersect.pack_walk(scene)`) and every
+    shade `shade_pack` (`bvh_shade.pack_shade(scene)`)."""
     # Imported here: ops/bvh_shade.py builds on this module's functions.
     from .bvh_shade import RAYS, bvh_shade, initial_state, resolve
 
@@ -390,10 +396,13 @@ def ray_color_rows(scene, ro, rd, rng, max_depth: int, pack=None):
     hit = intersect_closest(scene, ro, rd, pack=pack)
     state = initial_state(R, dev)
     active = occluded = None
+    # Two sets of shade outputs in turn: a bounce writes the set its inputs
+    # did not come from, which the bounce before last filled.
+    outs = [None, None]
     for depth in range(max_depth):
-        state, rng, nxt = bvh_shade(scene, state, rng, ro, rd, active,
-                                    hit.tri_idx, hit.inst_idx, occluded,
-                                    depth, max_depth)
+        state, rng, nxt = outs[depth % 2] = bvh_shade(
+            scene, state, rng, ro, rd, active, hit.tri_idx, hit.inst_idx,
+            occluded, depth, max_depth, shade_pack, outs[depth % 2])
         occluded = intersect_shadow(scene, nxt.sro, nxt.srd, t_max=nxt.s_tmax,
                                     active=nxt.nee_lane, pack=pack)
         if depth == max_depth - 1:
@@ -416,6 +425,35 @@ def camera_unpack(camera24):
                 v_axis=camera24[20:23])
 
 
+# scene.tri_v -> (weak references to the scene's tensors, each field's
+# `_version` or value, (WalkPack, ShadePack)). The entry goes when tri_v
+# does, so the packs live as long as their scene; of its tables they hold
+# only the texture one.
+_packs = WeakIdKeyDictionary()
+
+
+def scene_packs(scene):
+    """(WalkPack, ShadePack) of a DeviceScene: built at its first
+    `trace_pixels` call on the card and reused while the scene holds the
+    same tensors, none written in place since (their `_version`), so a
+    frame of a 257k-triangle scene does not rebuild 50 MB of records. An
+    edited scene, in place or by `_replace`, gets fresh packs. Plain torch,
+    on the scene's device."""
+    is_t = [isinstance(f, torch.Tensor) for f in scene]
+    key = [f._version if t else f for f, t in zip(scene, is_t)]
+    entry = _packs.get(scene.tri_v)
+    if entry is not None and entry[1] == key and all(
+            r() is f for r, f in zip(entry[0], scene) if r is not None):
+        return entry[2]
+    # Imported here: ops/bvh_shade.py builds on this module's functions.
+    from .bvh_shade import pack_shade
+
+    packs = (pack_walk(scene), pack_shade(scene))
+    _packs[scene.tri_v] = ([weakref.ref(f) if t else None
+                            for f, t in zip(scene, is_t)], key, packs)
+    return packs
+
+
 def trace_pixels(scene, camera24, frame_count: int, jitter, width: int,
                  height: int, spp: int, max_depth: int, row0: int = 0,
                  full_height: int | None = None,
@@ -423,8 +461,8 @@ def trace_pixels(scene, camera24, frame_count: int, jitter, width: int,
                  with_stats: bool = False):
     """One frame's radiance, (H*W, 3) averaged over spp; with with_stats,
     (radiance, rays) with the exact float64 device ray count. Each sample
-    runs `ray_color_rows`; on the card the scene's `WalkPack` is built once
-    a call, for all its walks.
+    runs `ray_color_rows`; on the card its walks and shades read the
+    scene's packs (`scene_packs`).
 
     row0 / full_height: this call renders rows [row0, row0 + height) of a
     full_height-tall frame with the frame's pixel indices and jitter (tile
@@ -438,7 +476,8 @@ def trace_pixels(scene, camera24, frame_count: int, jitter, width: int,
     cam = camera_unpack(camera24)
     dev = camera24.device
     R = width * height
-    pack = pack_walk(scene) if dev.type == "cuda" else None
+    pack, shade_pack = (scene_packs(scene) if dev.type == "cuda"
+                        else (None, None))
     lane = torch.arange(R, dtype=torch.int64, device=dev)
     gx = lane % width
     gy = lane // width + row0
@@ -464,7 +503,8 @@ def trace_pixels(scene, camera24, frame_count: int, jitter, width: int,
              + v[:, None] * cam["vertical"][None] - cam["origin"][None]
              - off)
         ro = cam["origin"][None, :] + off
-        col, _, r = ray_color_rows(scene, ro, d, rng, max_depth, pack)
+        col, _, r = ray_color_rows(scene, ro, d, rng, max_depth, pack,
+                                   shade_pack)
         acc = acc + col
         rays = rays + r
     col = acc / spp
