@@ -70,7 +70,7 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
      row-state loop: 1 + 8 sweeps and 8 shades a frame), each mean within
      2% of bench.py's golden;
    - `Renderer("cornell", 512x512, d8)`: `render_frame()` + `present()`
-     x 16;
+     x 16 (each `Renderer` frame and present one CUDA graph replay);
    - the textured quad GLB (bench.py's config 3) at 1920x1080 d8 x 8 through
      the row-state loop with the textured shade kernel (9 sweeps and 8
      shades a frame, no row or quad fetch), mean within 2% of 0.2739, from
@@ -110,6 +110,23 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
      NCCL rank runs the tile, sample and 2-D steps (the tile step
      bit-equal to `trace_pixels`, the others at 2e-5), then two gloo ranks
      in subprocesses share the card (`--shard-rank`, an internal option);
+   - the compiled frame steps: every `Renderer` cell (cornell 512^2 and
+     1080p, the textured quad 512^2 G-buffer seeded, the formats scene
+     1080p, `spheres` 512^2 through both narrow phases, and cornell 512^2
+     on the BVH path, `render_step(backend="bvh")`) runs n x
+     (`render_frame` + `present`) four times on one Renderer, with its
+     steps eager (`EagerSteps`), captured (`CapturedSteps`: a CUDA graph
+     a step key), captured, eager: every frame's accumulator, image and
+     ray count bit-equal across the four, the launch counts exact in each,
+     two captures in each captured run (three past frame 16: the present
+     without the un-jitter resample); then `present_step`'s device ms at
+     512^2 and 1080p with and without the resample; prints ms/frame, frame
+     1's ms,
+     capture ms, the graphs' pool MB and a JSON line of all of it. Every
+     other `Renderer` run of the script (the cells above, the animated
+     tick, the resume, the recorder, the farm, the CLI) goes through
+     captured steps; the animated tick's reuploads of equal shapes
+     capture nothing;
 3. drives the product surface on the card, with exact launch counts
    where one process renders alone:
    - bench.py's config 4: the skinned strip GLB (2 triangles) at 512^2 d8,
@@ -2059,9 +2076,140 @@ def renderer_frames(r: Renderer, n: int, label: str, per_frame: dict,
     assert np.isfinite(r.radiance()).all()
     want = {k: n * v for k, v in per_frame.items()}
     assert r.launches == want, f"Renderer launches {r.launches}, not {want}"
+    captures = [round(ms, 1) for _, ms in r.steps.captures]
     print(f"Renderer {label}: {n} x (render_frame + present), frames "
           f"2..{n} {1e3 * seconds / (n - 1):.3f} ms/frame, "
-          f"{rays / seconds / 1e6:.2f} Mrays/s, image mean {img.mean():.2f}")
+          f"{rays / seconds / 1e6:.2f} Mrays/s, image mean {img.mean():.2f}; "
+          f"captured steps so far: {len(captures)}, ms {captures}")
+
+
+STEP_ARMS = ("eager", "graph", "graph", "eager")
+
+
+def bvh_renderer(dev, width: int, height: int) -> Renderer:
+    """Renderer("cornell") on the BVH path (`choose_backend`'s path for
+    large scenes on the CPU): its steps are `render_step(backend="bvh")`
+    and `present_step`."""
+    r = Renderer("cornell", config=RenderConfig(
+        width=width, height=height, max_depth=DEPTH), device=dev)
+    r.backend, r.tables = "bvh", None
+    r.reupload_scene(reset=False)
+    return r
+
+
+def step_arm(r: Renderer, arm: str, n: int, use_gbuffer: bool) -> dict:
+    """n x (render_frame + present) of `r` with its steps eager
+    (`EagerSteps`) or captured (a new `CapturedSteps`), from a reset
+    accumulation: ms of frame 1 (its captures) and the mean ms/frame of
+    frames 2..n but those that captured a step (frame 17: the present
+    without the un-jitter resample), each on the host clock (`present`
+    copies the image to the host, so every frame ends in a synchronise),
+    the capture ms and the graphs' pool MB, and a digest of every frame's
+    accumulator, image and ray count."""
+    # Imported here: `--frame-times` runs in checkouts without them.
+    from webgpu_raytracer_tpu_torch.render.renderer import (CapturedSteps,
+                                                            EagerSteps)
+
+    r.steps = EagerSteps() if arm == "eager" else CapturedSteps(r.device)
+    r.reset_accumulation()
+    r.launches = dict.fromkeys(r.launches, 0)
+    captures = getattr(r.steps, "captures", [])
+    kept, times = [], []
+    torch.cuda.synchronize()
+    for _ in range(n):
+        before = len(captures)
+        t0 = time.perf_counter()
+        r.render_frame(use_gbuffer=use_gbuffer)
+        kept.append((r.accum.clone(), r.present(), r.last_rays))
+        times.append((time.perf_counter() - t0, len(captures) > before))
+    steady = [t for t, captured in times[1:] if not captured]
+    digest = hashlib.sha256()
+    for acc, img, rays in kept:
+        digest.update(acc.cpu().numpy().tobytes())
+        digest.update(img.tobytes())
+        digest.update(np.float64(float(rays)).tobytes())
+    return {"first_ms": 1e3 * times[0][0],
+            "ms": 1e3 * sum(steady) / len(steady),
+            "capture_ms": [round(ms, 3) for _, ms in captures],
+            "pool_mb": (r.steps.pool_bytes() / 2 ** 20 if arm == "graph"
+                        else 0.0),
+            "launches": dict(r.launches), "digest": digest.hexdigest(),
+            "mean": float(img.mean())}
+
+
+def compiled_steps(cells, totals: dict) -> dict:
+    """The frame steps eager and captured on every `Renderer` cell, in
+    turns eager / graph / graph / eager on one Renderer each: every arm's
+    frames bit-equal (accumulator, image, ray count), the launch counts n
+    x the path's per frame in every arm (a capture's own not counted), one
+    capture per step key. Prints ms/frame, first-frame ms, capture ms,
+    pool MB and launches; returns {label: [arm results]}."""
+    out = {}
+    for label, r, use_gbuffer, n, per_frame in cells:
+        arms = []
+        for arm in STEP_ARMS:
+            res = {}
+            drive(f"compiled steps, {label} {arm}", n, per_frame,
+                  lambda: res.update(step_arm(r, arm, n, use_gbuffer)),
+                  totals)
+            want = {k: n * v for k, v in per_frame.items()}
+            assert res["launches"] == want, (label, arm, res["launches"])
+            # render_step, present_step, and from frame 17 present_step
+            # without the un-jitter resample
+            assert len(res["capture_ms"]) == (
+                2 + (n > 16) if arm == "graph" else 0)
+            arms.append(res)
+            print(f"compiled steps, {label} {arm}: {res['ms']:.3f} ms/frame "
+                  f"(frames 2..{n} but a capture's; frame 1 "
+                  f"{res['first_ms']:.1f} ms), "
+                  f"capture ms {res['capture_ms']}, pool "
+                  f"{res['pool_mb']:.1f} MB, image mean {res['mean']:.2f}")
+        assert len({a["digest"] for a in arms}) == 1, \
+            f"{label}: the captured frames differ from the eager ones"
+        eager = [a["ms"] for a in arms if a["capture_ms"] == []]
+        graph = [a["ms"] for a in arms if a["capture_ms"]]
+        print(f"compiled steps, {label}: eager {eager[0]:.3f} / "
+              f"{eager[1]:.3f}, graph {graph[0]:.3f} / {graph[1]:.3f} "
+              f"ms/frame; all four arms' {n} frames bit-equal; launches a "
+              f"frame {dict((k, v) for k, v in per_frame.items() if v)}")
+        out[label] = arms
+    return out
+
+
+def present_costs(dev) -> dict:
+    """Device ms of `present_step` and of the un-jitter resample inside it
+    (`unjittered_radiance`: a present past frame 16 with unjitter=True, the
+    JAX package's form, computes it and selects the clean image; with
+    unjitter=False, `Renderer`'s past frame 16, it skips it) at 512^2 and
+    1920x1080, on random HDR inputs: `kernel_ms` of 20 back-to-back calls
+    in one graph."""
+    from webgpu_raytracer_tpu_torch.ops.postprocess import (
+        firefly_clamp, get_radiance, unjittered_radiance)
+    from webgpu_raytracer_tpu_torch.render.renderer import present_step
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = {}
+    for w, h in (SMALL, HD):
+        acc = torch.rand((w * h, 4), device=dev, generator=gen) + 0.5
+        hist = torch.rand((h, w, 3), device=dev, generator=gen)
+        avg = torch.tensor([0.3 / w, -0.2 / h], device=dev)
+        clean = firefly_clamp(get_radiance(acc.view(h, w, 4)))
+        row = {}
+        for f in (10, 17):
+            frame = torch.full((), f, dtype=torch.int64, device=dev)
+            row[f"present frame {f}"] = kernel_ms(
+                lambda: present_step(acc, hist, frame, avg, width=w,
+                                     height=h), 20, flush=False)
+        row["present frame 17 unjitter=False"] = kernel_ms(
+            lambda: present_step(acc, hist, frame, avg, width=w, height=h,
+                                 unjitter=False), 20, flush=False)
+        row["resample"] = kernel_ms(
+            lambda: unjittered_radiance(clean, frame, avg), 20, flush=False)
+        out[f"{w}x{h}"] = row
+        print(f"present_step {w}x{h}: device "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items())
+              + " (back-to-back graph of 20 calls)")
+    return out
 
 
 def sweeps(n: int, multi_tile: bool, narrow: str = "jobs") -> dict:
@@ -2371,6 +2519,9 @@ def animated_tick(dev, totals: dict) -> None:
 
     drive("skinned strip 512^2 sequential ticks", ANIM_FRAMES,
           rows_launches(False), sequential, totals)
+    # Every tick reuploads tables of the same shapes: copied into the
+    # captured step's, never captured again.
+    assert len(over.steps.captures) == 1 and len(seq.steps.captures) == 1
 
     def unsynced():  # update_scene(t) + render, one sync at the end
         for t in times:
@@ -2592,9 +2743,11 @@ def frame_times(dev, smi_line: str, profile: bool = False) -> None:
     synchronise), the kernels' launches a frame and a digest of the frames'
     bits, for cornell 1920x1080 d8 traced, the textured quad 1920x1080 d8
     traced, the formats scene at 1920x1080 d8 through `Renderer`, the
-    textured quad's `Renderer` at 512^2 d8 with use_gbuffer=True, and
-    cornell's and `spheres`' 512^2 d8 BVH frames (`trace_pixels`); one
-    JSON line. It calls only what every version of the port since the
+    textured quad's `Renderer` at 512^2 d8 with use_gbuffer=True, cornell's
+    `Renderer` at 512^2 d8 (each `Renderer` eager, and again through
+    captured steps as "... graph" where the checkout has them, with the
+    same digest), and cornell's and `spheres`' 512^2 d8 BVH frames
+    (`trace_pixels`); one JSON line. It calls only what every version of the port since the
     formats scene has, so one copy of this script, run from the root of two
     checkouts in one call, compares them (parent, change, change, parent):
 
@@ -2649,13 +2802,36 @@ def frame_times(dev, smi_line: str, profile: bool = False) -> None:
             return r.accum.clone()
         return frame
 
+    try:  # a checkout with the captured frame steps
+        from webgpu_raytracer_tpu_torch.render.renderer import (
+            CapturedSteps, EagerSteps)
+    except ImportError:  # an older one: its Renderer is eager
+        CapturedSteps = EagerSteps = None
+
+    def renderers(label, make, use_gbuffer=False):
+        """The Renderer's frames eager and, where the checkout has them,
+        through captured steps (label + " graph"); the same digest."""
+        r = make()
+        if EagerSteps is not None:
+            r.steps = EagerSteps()
+        timed(label, renderer(r, use_gbuffer))
+        if CapturedSteps is not None:
+            r.steps = CapturedSteps(dev)
+            r.reset_accumulation()
+            timed(label + " graph", renderer(r, use_gbuffer))
+            assert out["digest"][label + " graph"] == out["digest"][label]
+
     cfg = RenderConfig(width=HD[0], height=HD[1], max_depth=DEPTH)
-    timed("Renderer texture formats 1080p", renderer(Renderer(
-        "viewer", config=cfg, glb_data=formats_scene_glb(), device=dev)))
+    renderers("Renderer texture formats 1080p", lambda: Renderer(
+        "viewer", config=cfg, glb_data=formats_scene_glb(), device=dev))
     cfg = RenderConfig(width=SMALL[0], height=SMALL[1], max_depth=DEPTH)
-    timed("Renderer textured quad 512^2 G-buffer seeded", renderer(Renderer(
-        "viewer", config=cfg, glb_data=textured_quad_glb(), device=dev),
-        use_gbuffer=True))
+    renderers("Renderer textured quad 512^2 G-buffer seeded",
+              lambda: Renderer("viewer", config=cfg,
+                               glb_data=textured_quad_glb(), device=dev),
+              use_gbuffer=True)
+    renderers("Renderer cornell 512^2", lambda: Renderer(
+        "cornell", config=RenderConfig(width=SMALL[0], height=SMALL[1],
+                                       max_depth=DEPTH), device=dev))
     for name in ("cornell", "spheres"):
         world = NativeWorld(name)
         world.update_camera(*SMALL)
@@ -2975,6 +3151,28 @@ def main(argv: list[str]) -> int:
            "bvh_shadow": DEPTH, "bvh_shade": DEPTH}, both_tracers, totals)
     sharding_on_one_card(dev)
 
+    # The frame steps eager and captured on every Renderer cell.
+    step_cells = [
+        ("Renderer cornell 512^2", r, False, 24, rows_launches(False)),
+        ("Renderer cornell 1080p", Renderer("cornell", config=RenderConfig(
+            width=hd[0], height=hd[1], max_depth=DEPTH), device=dev), False,
+         8, rows_launches(False)),
+        ("Renderer textured quad 512^2 G-buffer seeded", rt, True, 8,
+         textured_launches(rt.tables, True)),
+        ("Renderer texture formats 1080p", rf, False, 8,
+         textured_launches(rf.tables, False)),
+        ("Renderer spheres 512^2", rs, False, 8, rows_launches(False, True)),
+        ("Renderer spheres 512^2 narrow=scan", rsc, False, 8, scan_launches),
+        ("Renderer cornell 512^2 BVH (render_step backend=\"bvh\")",
+         bvh_renderer(dev, width, height), False, 16, bvh_launches())]
+    steps_out = compiled_steps(step_cells, totals)
+    steps_out["present device ms"] = present_costs(dev)
+    textured_shades += sum(len(STEP_ARMS) * n * pf["shade_rows"]
+                           for _, rr, _, n, pf in step_cells
+                           if rr.textures is not None)
+    print(smi_line)
+    print(json.dumps({"compiled steps": steps_out}))
+
     # --- phase 4: the product surface ---
     animated_tick(dev, totals)
     checkpoint_resume(dev, totals)
@@ -2984,8 +3182,30 @@ def main(argv: list[str]) -> int:
     print(f"launches on the main paths (all of the above): {totals}")
 
     if "--profile" in argv:
+        from webgpu_raytracer_tpu_torch.render.renderer import (
+            CapturedSteps, EagerSteps)
+
+        def renderer_frame(rr, steps, use_gbuffer=False):
+            def frame():  # a Renderer frame with these steps (one cache)
+                rr.steps = steps
+                rr.render_frame(use_gbuffer=use_gbuffer)
+                rr.present()
+            return frame
+
         jit0 = torch.zeros(2, device=dev)
         profile_paths([
+            ("Renderer cornell 512^2 d8 eager", renderer_frame(
+                r, EagerSteps())),
+            ("Renderer cornell 512^2 d8 graph", renderer_frame(
+                r, CapturedSteps(dev))),
+            ("Renderer textured quad 512^2 d8 seeded eager", renderer_frame(
+                rt, EagerSteps(), True)),
+            ("Renderer textured quad 512^2 d8 seeded graph", renderer_frame(
+                rt, CapturedSteps(dev), True)),
+            ("Renderer spheres 512^2 d8 eager", renderer_frame(
+                rs, EagerSteps())),
+            ("Renderer spheres 512^2 d8 graph", renderer_frame(
+                rs, CapturedSteps(dev))),
             ("spheres 512^2 d8", lambda: trace_pixels_dense(
                 sp_tables, sp_cam, 1, jit0, width, height, 1, DEPTH)),
             ("spheres 512^2 d8 narrow=scan", lambda: trace_pixels_dense(

@@ -1326,3 +1326,137 @@ def test_bvh_walk_more_rays_than_the_card_holds(cuda):
     hit = _walk_bit_equal(scene, ro, rd, t_max, active, pack)
     live_hits = ((hit.inst_idx >= 0) & active).sum() / active.sum()
     assert float(live_hits) > 0.8  # the box is open towards the camera
+
+
+# --- the captured frame steps (render/renderer.py) ---------------------------
+
+# path -> (scene, GLB maker, use_gbuffer, narrow)
+STEP_PATHS = {"single-tile": ("cornell", None, False, "jobs"),
+              "jobs": ("spheres", None, False, "jobs"),
+              "scan": ("spheres", None, False, "scan"),
+              "textured": ("viewer", chip_smoke.textured_quad_glb, False,
+                           "jobs"),
+              "seeded": ("viewer", chip_smoke.textured_quad_glb, True,
+                         "jobs")}
+
+
+def _eager_and_captured(name, glb, narrow, dev, depth=3):
+    from webgpu_raytracer_tpu_torch.render.renderer import (CapturedSteps,
+                                                            EagerSteps)
+
+    cfg = dict(width=RES, height=RES, max_depth=depth)
+    eager, graph = (Renderer(name, config=RenderConfig(**cfg), device=dev,
+                             glb_data=glb() if glb else None, narrow=narrow)
+                    for _ in range(2))
+    eager.steps = EagerSteps()
+    assert isinstance(graph.steps, CapturedSteps)
+    return eager, graph
+
+
+def _bit_equal_frames(eager, graph, n, use_gbuffer=False):
+    for _ in range(n):
+        a = eager.render_frame(use_gbuffer).clone()
+        b = graph.render_frame(use_gbuffer).clone()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+            graph.frame_count
+        assert float(eager.last_rays) == float(graph.last_rays)
+        np.testing.assert_array_equal(eager.present(), graph.present())
+
+
+@pytest.mark.parametrize("path", sorted(STEP_PATHS))
+def test_captured_steps_bit_equal_to_eager(cuda, path):
+    """18 frames (past the resample's 16) through captured steps against
+    the eager steps: accumulator, image and ray count bit for bit; one
+    capture per step key (render_step, present_step, and present_step
+    without the resample from frame 17); the launch counts n x the eager
+    frame's, those of the captures not counted."""
+    name, glb, use_gbuffer, narrow = STEP_PATHS[path]
+    eager, graph = _eager_and_captured(name, glb, narrow, cuda)
+    n = 18
+    _bit_equal_frames(eager, graph, n, use_gbuffer)
+    assert len(graph.steps.captures) == 3
+    assert graph.launches == eager.launches
+    assert all(v % n == 0 for v in graph.launches.values())
+    assert graph.steps.pool_bytes() > 0
+
+
+def test_captured_steps_keys(cuda):
+    """build_pipeline and a resize capture anew (the old size's entries
+    dropped); an equal-shape reupload of the skinned strip captures
+    nothing and the frames stay bit-equal to the eager ones."""
+    eager, graph = _eager_and_captured("cornell", None, "jobs", cuda)
+    _bit_equal_frames(eager, graph, 2)
+    for r in (eager, graph):
+        r.build_pipeline(2, 1)
+    _bit_equal_frames(eager, graph, 2)
+    assert len(graph.steps.captures) == 3
+    for r in (eager, graph):
+        r.update_screen_size(48, 32)
+    _bit_equal_frames(eager, graph, 2)
+    assert len(graph.steps.captures) == 5 and len(graph.steps.entries) == 2
+    from webgpu_raytracer_tpu_torch.render.renderer import EagerSteps
+
+    eager, graph = _skinned_renderer(cuda), _skinned_renderer(cuda)
+    eager.steps = EagerSteps()
+    for k in range(6):
+        for r in (eager, graph):
+            r.update_scene(k / 30.0, reset=False)
+        _bit_equal_frames(eager, graph, 1)
+    assert len(graph.steps.captures) == 2
+
+
+def test_captured_bvh_step_bit_equal_to_eager(cuda):
+    """render_step(backend="bvh") through CapturedSteps against the eager
+    step, 3 frames; then a scene of other values and equal shapes is
+    copied in (its walk and shade packs rebuilt into the graph's), and the
+    frame still equals the eager one."""
+    from webgpu_raytracer_tpu_torch.render.renderer import (CapturedSteps,
+                                                            render_step)
+    from webgpu_raytracer_tpu_torch.render.resources import \
+        build_device_scene
+
+    world = NativeWorld("cornell")
+    world.update_camera(RES, RES)
+    scene = build_device_scene(world, device=cuda)
+    cam = torch.from_numpy(np.asarray(world.camera(), np.float32)).to(cuda)
+    static = dict(width=RES, height=RES, spp=1, max_depth=4, backend="bvh",
+                  use_gbuffer=False, narrow="jobs")
+    steps = CapturedSteps(cuda)
+    jit = torch.zeros(2, device=cuda)
+    frame = torch.zeros((), dtype=torch.int64, device=cuda)
+    acc_e = torch.zeros((RES * RES, 4), device=cuda)
+    acc_g = torch.zeros((RES * RES, 4), device=cuda)
+    moved = scene._replace(pos=scene.pos + torch.tensor([0.0, 0.05, 0.0],
+                                                        device=cuda))
+    for f, s in ((1, scene), (2, scene), (3, scene), (4, moved)):
+        frame.fill_(f)
+        acc_e, rays_e = render_step(s, cam, frame, jit, acc_e, **static)
+        (acc_g, rays_g), args = steps.run(
+            render_step, (s, cam, frame, jit, acc_g), static, donate=(4,))
+        assert args[0] is scene
+        assert torch.equal(acc_e.view(torch.int32), acc_g.view(torch.int32))
+        assert float(rays_e) == float(rays_g)
+    assert len(steps.captures) == 1
+
+
+def test_capture_of_a_host_sync_raises(cuda):
+    """A step that reads a device value on the host cannot be captured: the
+    capture raises (no eager fallback), and the cache still captures a
+    good step afterwards."""
+    from webgpu_raytracer_tpu_torch.render.renderer import CapturedSteps
+
+    steps = CapturedSteps(cuda)
+    x = torch.ones(4, device=cuda)
+
+    def syncs(x, *, width, height):
+        return (x * float(x.sum()),)
+
+    def good(x, *, width, height):
+        return (x * 2.0,)
+
+    with pytest.raises(RuntimeError):
+        steps.run(syncs, (x,), dict(width=1, height=1))
+    assert not steps.entries
+    torch.cuda.synchronize()
+    (y,), _ = steps.run(good, (x,), dict(width=1, height=1))
+    assert torch.equal(y, x * 2.0)

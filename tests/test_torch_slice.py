@@ -284,10 +284,14 @@ def test_golden_mean_radiance(case):
 
 
 def test_accumulate_resets_at_frame_one():
+    """accumulate writes into the accumulator it is given (the JAX
+    package's donated buffer), so each call gets its own copy."""
     prev = torch.full((4, 4), 7.0)
     col = torch.arange(12, dtype=torch.float32).reshape(4, 3)
-    np.testing.assert_array_equal(accumulate(prev, col, 1)[:, :3], col)
-    np.testing.assert_array_equal(accumulate(prev, col, 2)[:, 3], 8.0)
+    np.testing.assert_array_equal(accumulate(prev.clone(), col, 1)[:, :3],
+                                  col)
+    np.testing.assert_array_equal(accumulate(prev.clone(), col, 2)[:, 3],
+                                  8.0)
 
 
 @pytest.mark.parametrize("frame_count,jitter", [

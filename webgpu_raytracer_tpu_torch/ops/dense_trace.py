@@ -564,7 +564,7 @@ def ray_color_dense_rows(tables: WorldTables, ro: V3, rd: V3,
 
 
 def trace_pixels_dense(tables: WorldTables, camera24: torch.Tensor,
-                       frame_count: int, jitter: torch.Tensor, width: int,
+                       frame_count, jitter: torch.Tensor, width: int,
                        height: int, spp: int, max_depth: int,
                        with_stats: bool = False, textures=None,
                        seed_wt_idx: Optional[torch.Tensor] = None,
@@ -577,9 +577,10 @@ def trace_pixels_dense(tables: WorldTables, camera24: torch.Tensor,
     a (level0, level1) texture pyramid, and by `ray_color_dense` at
     max_depth 0 (its one last bounce).
 
-    camera24 (24,) f32 and jitter (2,) f32 live on the tables' device.
-    Per-pixel RNG streams depend only on (pixel, frame, sample), as in the
-    JAX package. `seed_wt_idx` ((H*W,) int32, -1 = miss, a G-buffer's
+    camera24 (24,) f32 and jitter (2,) f32 live on the tables' device;
+    `frame_count` is an int or a 0-d int64 tensor there (a captured frame
+    step's, whose seeds are then computed on the device). Per-pixel RNG
+    streams depend only on (pixel, frame, sample), as in the JAX package. `seed_wt_idx` ((H*W,) int32, -1 = miss, a G-buffer's
     wt_idx): seed every sample's bounce 0 from it instead of tracing
     primaries; each sample rebuilds the hit with its own ray, so at lens
     radius 0 the radiance is bit-identical to the traced path. `narrow`

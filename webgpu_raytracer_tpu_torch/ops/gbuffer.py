@@ -92,7 +92,8 @@ def render_gbuffer(tables: WorldTables, textures, camera24: torch.Tensor,
     zn, zf = z_near, z_far
     # A tensor numerator: torch evaluates `scalar / tensor` as
     # reciprocal(tensor) * scalar, which rounds twice.
-    zn_t = torch.tensor(zn, dtype=torch.float32, device=dist.device)
+    # A fill, not a host-to-device copy: a captured frame step runs this.
+    zn_t = torch.full((), zn, dtype=torch.float32, device=dist.device)
     depth = (zf / (zf - zn)) * (1.0 - zn_t / torch.clamp(dist, min=1e-20))
     depth = torch.where(found, torch.clamp(depth, 0.0, 0.999999), 1.0)
 

@@ -2,8 +2,11 @@
 -> TAA -> ACES -> sharpen -> gamma.
 
 The port of the JAX package's `ops/postprocess.py` (plain jnp there, with
-no Pallas kernel), in plain PyTorch. `frame_count` is a host int, so the
-frame-dependent selections are made on the host.
+no Pallas kernel), in plain PyTorch. `frame_count` is an int or a 0-d
+int64 tensor on the image's device; the frame-dependent selections (the
+un-jitter resample, the TAA clamp width and blend weight) are made on the
+device, in the JAX package's order of f32 operations, so a captured
+present step replays them with the count it reads there.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .rng import frame_tensor
 from .v3 import sqrt_rn
 
 
@@ -65,10 +69,9 @@ def _bilinear_sample(img, fy, fx):
             + (c01 * (1 - wx) + c11 * wx) * wy)
 
 
-def unjittered_radiance(clean, frame_count: int, average_jitter):
-    """Resample at uv - average_jitter for the first 16 frames."""
-    if frame_count > 16:
-        return clean
+def unjittered_radiance(clean, frame_count, average_jitter):
+    """Resample at uv - average_jitter for the first 16 frames (a select:
+    every frame computes the resample, as the JAX package's does)."""
     H, W, _ = clean.shape
     dev = clean.device
     ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None] \
@@ -77,7 +80,9 @@ def unjittered_radiance(clean, frame_count: int, average_jitter):
         * torch.ones((H, 1), dtype=torch.float32, device=dev)
     fy = ys + 0.5 - average_jitter[1] * H - 0.5
     fx = xs + 0.5 - average_jitter[0] * W - 0.5
-    return _bilinear_sample(clean, fy, fx)
+    resampled = _bilinear_sample(clean, fy, fx)
+    return torch.where(frame_tensor(frame_count, clean.device) > 16, clean,
+                       resampled)
 
 
 def aces(color):
@@ -86,12 +91,19 @@ def aces(color):
                        / (color * (c * color + d) + e), 0.0, 1.0)
 
 
-def postprocess(acc, history, frame_count: int, average_jitter):
+def postprocess(acc, history, frame_count, average_jitter,
+                unjitter: bool = True):
     """Full chain. acc (H,W,4), history (H,W,3) HDR, average_jitter (2,)
-    f32 on the same device. Returns (ldr uint8 (H,W,3), new_history)."""
+    f32 and frame_count (an int or a 0-d int64 tensor) on the same device.
+    unjitter=False skips the un-jitter resample, which a frame past 16
+    computes and does not select: the same image, for a caller that knows
+    the frame count is past 16. Returns (ldr uint8 (H,W,3),
+    new_history)."""
+    frame_count = frame_tensor(frame_count, acc.device)
     rad = get_radiance(acc)
     clean = firefly_clamp(rad)
-    u = unjittered_radiance(clean, frame_count, average_jitter)
+    u = (unjittered_radiance(clean, frame_count, average_jitter) if unjitter
+         else clean)
 
     H, W, _ = u.shape
     up = _edge_pad(u)
@@ -121,14 +133,12 @@ def postprocess(acc, history, frame_count: int, average_jitter):
     # TAA with neighborhood mean +- k*sigma clamping.
     mean = m1 / 9.0
     std = sqrt_rn(torch.clamp(m2 / 9.0 - mean * mean, min=0.0))
-    k = 60.0 if frame_count > 16 else 1.0
+    k = torch.where(frame_count > 16, 60.0, 1.0)
     clamped_hist = torch.minimum(torch.maximum(history, mean - std * k),
                                  mean + std * k)
-    if frame_count == 1:
-        alpha = 0.1
-    else:
-        alpha = float(max(np.float32(1.0) / np.float32(max(frame_count, 1)),
-                          np.float32(1e-4)))
+    alpha = torch.clamp(torch.reciprocal(torch.clamp(
+        frame_count.to(torch.float32), min=1.0)), min=1e-4)
+    alpha = torch.where(frame_count == 1, 0.1, alpha)
     final_hdr = clamped_hist + (denoised - clamped_hist) * alpha
 
     # Tone map + sharpen + gamma.

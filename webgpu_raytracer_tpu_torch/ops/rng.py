@@ -16,14 +16,28 @@ M32 = 0xFFFFFFFF
 
 
 def init_rng(pixel_idx: torch.Tensor, frame) -> torch.Tensor:
-    """Hash (pixel, frame) into a u32 PCG state (int64 tensor)."""
-    seed = (pixel_idx + frame * 719393) & M32
+    """Hash (pixel, frame) into a u32 PCG state (int64 tensor).
+
+    `frame` is an int or a 0-d int64 tensor on the pixels' device (a
+    captured frame step reads its frame count from the device); both give
+    the JAX package's u32 words, which wrap mod 2**32 (the frame is reduced
+    first, so the int64 product below cannot overflow)."""
+    seed = (pixel_idx + (frame & M32) * 719393) & M32
     seed = seed ^ 2747636419
     seed = (seed * 2654435769) & M32
     seed = seed ^ (seed >> 16)
     seed = (seed * 2654435769) & M32
     seed = seed ^ (seed >> 16)
     return (seed * 2654435769) & M32
+
+
+def frame_tensor(frame_count, device) -> torch.Tensor:
+    """A frame count as a 0-d int64 tensor on `device`: a tensor as it is,
+    an int through a fill (no host-to-device copy, so a frame step that is
+    being captured may call this too)."""
+    if isinstance(frame_count, torch.Tensor):
+        return frame_count
+    return torch.full((), frame_count, dtype=torch.int64, device=device)
 
 
 def rand_pcg(state: torch.Tensor):

@@ -40,7 +40,7 @@ from . import bsdf
 from .bsdf import PI, cross, dot, norm, normalize, power_heuristic
 from .intersect import (instance_ray, intersect_closest, intersect_shadow,
                         pack_walk)
-from .rng import init_rng, rand_n, rand_pcg
+from .rng import frame_tensor, init_rng, rand_n, rand_pcg
 from .v3 import sqrt_rn
 
 
@@ -454,7 +454,7 @@ def scene_packs(scene):
     return packs
 
 
-def trace_pixels(scene, camera24, frame_count: int, jitter, width: int,
+def trace_pixels(scene, camera24, frame_count, jitter, width: int,
                  height: int, spp: int, max_depth: int, row0: int = 0,
                  full_height: int | None = None,
                  total_spp: int | None = None, sample0: int = 0,
@@ -468,7 +468,9 @@ def trace_pixels(scene, camera24, frame_count: int, jitter, width: int,
     full_height-tall frame with the frame's pixel indices and jitter (tile
     sharding). sample0 / total_spp: samples [sample0, sample0 + spp) of a
     total_spp-sample frame with the frame's RNG streams (sample
-    sharding)."""
+    sharding). `frame_count` is an int or a 0-d int64 tensor on the
+    camera's device, whose seeds are then computed on the device (a
+    captured frame step replays with the count it reads there)."""
     if full_height is None:
         full_height = height
     if total_spp is None:
@@ -512,8 +514,13 @@ def trace_pixels(scene, camera24, frame_count: int, jitter, width: int,
 
 
 def accumulate(prev_acc: torch.Tensor, col: torch.Tensor,
-               frame_count: int) -> torch.Tensor:
-    """Sum + count accumulation, (R, 4). The reset is semantic: frame 1
-    overwrites, so a stale buffer never contributes."""
+               frame_count) -> torch.Tensor:
+    """Sum + count accumulation into `prev_acc` (R, 4), which is written and
+    returned: the JAX package's donated accumulator. The reset is semantic,
+    a select on the device as in the JAX package: frame 1 overwrites, so a
+    stale buffer never contributes. `frame_count` is an int or a 0-d int64
+    tensor on the accumulator's device."""
     sample = torch.cat([col, torch.ones_like(col[:, :1])], dim=-1)
-    return prev_acc + sample if frame_count > 1 else sample
+    return torch.where(frame_tensor(frame_count, prev_acc.device) > 1,
+                       prev_acc + sample, sample, out=prev_acc)
+

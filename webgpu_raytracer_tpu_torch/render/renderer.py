@@ -16,9 +16,19 @@ bounce 0 from it (dense only, as in the JAX package). `narrow` ("jobs",
 the default, or "scan") picks the narrow phase of a multi-tile scene's
 sweeps, as the JAX package's `tune.narrow` does; the image is the same bit
 for bit.
-PyTorch runs eagerly, so there is no compiled step:
-`build_pipeline(depth, spp)` only changes the parameters and resets the
-accumulation.
+
+A frame is the JAX package's compiled step: `render_step` (trace +
+accumulate) and `present_step` (post-process + history swap), plain
+functions on tensors with the JAX package's signatures (`narrow` in the
+place of its `tune`). On the card `Renderer` runs them through
+`CapturedSteps`, one CUDA graph for each key that a `jax.jit` retrace
+would see (`step_key`: the static arguments, the shapes and dtypes of the
+tensors, the scene's host ints), so a frame and a present are each one
+graph replay; `build_pipeline(depth, spp)` and `update_screen_size` give a
+new key, captured at the next frame, as they give JAX a recompile. A
+reupload of equal shapes (an animated tick) and a loaded checkpoint are
+copied into the graphs' tensors at the next frame and capture nothing. On
+the CPU the steps run eagerly (`EagerSteps`).
 
 The native world lives behind the async `WorldBridge` (`self.bridge`, and
 `self.world` is its world): the recorder and the CLI tick the scene on the
@@ -30,7 +40,9 @@ accumulator and the TAA history on the renderer's device.
 
 from __future__ import annotations
 
-from typing import Optional
+import threading
+import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -38,17 +50,226 @@ import torch
 from .. import kernels
 from ..config import RenderConfig
 from ..models.bridge import WorldBridge
-from ..ops.api import choose_backend
+from ..ops.api import choose_backend, get_tracer
+from ..ops.bvh_shade import pack_shade
 from ..ops.cuda_dense import NARROW
-from ..ops.dense_trace import trace_pixels_dense
 from ..ops.fetch import device_pyramid
 from ..ops.gbuffer import render_gbuffer
+from ..ops.intersect import pack_walk
 from ..ops.postprocess import postprocess
-from ..ops.trace import accumulate, trace_pixels
+from ..ops.trace import accumulate, scene_packs
 from ..utils.halton import JitterAccumulator
 from ..utils.textures import build_quad_pyramid, decode_world_textures
-from .resources import build_device_scene, unpack_instances
+from .resources import DeviceScene, build_device_scene, unpack_instances
 from .worldtris import build_world_tables
+
+
+def render_step(scene, camera, frame_count, jitter, accum, *, width: int,
+                height: int, spp: int, max_depth: int, backend: str = "bvh",
+                use_gbuffer: bool = False, narrow: str = "jobs"):
+    """One progressive frame: trace + accumulate, the JAX package's
+    `render_step`. `scene` is (WorldTables, textures) for "dense" and a
+    DeviceScene for "bvh"; camera (24,) f32, frame_count (an int or a 0-d
+    int64 tensor), jitter (2,) f32 and accum (W*H, 4) f32 on its device.
+    `accum` is written and returned: the JAX package's donated argument.
+
+    use_gbuffer=True (dense; ignored on "bvh", as in the JAX package)
+    renders the primary-visibility G-buffer first and seeds every sample's
+    bounce 0 from its id channel; at lens radius 0 the radiance is
+    bit-identical to the traced path. `narrow` picks a multi-tile scene's
+    narrow phase (the JAX package's `tune.narrow`).
+
+    Returns (accum, rays): rays is the exact float64 device count of this
+    frame's rays, the G-buffer's own W*H primary rays included."""
+    kwargs = {"narrow": narrow} if backend == "dense" else {}
+    gb_rays = 0.0
+    if use_gbuffer and backend == "dense":
+        tables, textures = scene
+        gb = render_gbuffer(tables, textures, camera, width, height,
+                            jitter=jitter, narrow=narrow)
+        kwargs["seed_wt_idx"] = gb.wt_idx.reshape(-1)
+        gb_rays = float(width * height)
+    col, rays = get_tracer(backend)(scene, camera, frame_count, jitter,
+                                    width, height, spp, max_depth,
+                                    with_stats=True, **kwargs)
+    return accumulate(accum, col, frame_count), rays + gb_rays
+
+
+def present_step(accum, history, frame_count, average_jitter, *, width: int,
+                 height: int, unjitter: bool = True):
+    """Post-process + history swap, the JAX package's `present_step`:
+    (ldr (H, W, 3) uint8, history). The new TAA history is written into
+    `history` (H, W, 3) f32, which is returned. unjitter=False (a frame
+    count past 16, known to the caller) skips the un-jitter resample that
+    such a frame does not select: the same image, and on the card a second
+    graph without the resample's device time."""
+    ldr, new_history = postprocess(accum.view(height, width, 4), history,
+                                   frame_count, average_jitter, unjitter)
+    return ldr, history.copy_(new_history)
+
+
+def _signature(x):
+    """What a retrace sees of a step argument: a tensor's shape, dtype and
+    device; a host value (a light count, a texture level's shape, a flag)
+    itself."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.dtype, x.device
+    if isinstance(x, tuple):
+        return type(x).__name__, tuple(_signature(v) for v in x)
+    return x
+
+
+def step_key(step, args: tuple, static: dict) -> tuple:
+    """The key a step is captured under: the step, its static arguments,
+    and `_signature` of the others, as `jax.jit` keys its cache."""
+    return step.__name__, tuple(sorted(static.items())), _signature(args)
+
+
+def _tensors(x):
+    """The tensors of a step argument, in order."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, tuple):
+        for v in x:
+            yield from _tensors(v)
+
+
+class EagerSteps:
+    """Runs a step as it is: the CPU's frame steps, and on the card the
+    eager frame that the captured steps are held to."""
+
+    def run(self, step, args: tuple, static: dict, donate: tuple = ()):
+        """(step's outputs, args): the `CapturedSteps.run` interface."""
+        return step(*args, **static), args
+
+
+# CUDA captures one graph at a time in a process: a lock across the
+# renderers of one process (the farm's workers are threads).
+_CAPTURE_LOCK = threading.Lock()
+
+
+class _Captured(NamedTuple):
+    """One captured step."""
+
+    graph: object    # the CUDA graph
+    args: tuple      # the arguments it reads: a replay reads them again
+    out: tuple       # the outputs it writes
+    packs: dict      # argument index -> the DeviceScene's packs it reads
+    launches: dict   # kernel launches of one replay
+    size: tuple      # (width, height) of its image
+
+
+class CapturedSteps:
+    """The frame steps as CUDA graphs on one card: one graph for each
+    `step_key`, all in one memory pool.
+
+    `run` captures a step at the first call of its key and replays it at
+    every call, the first included (a capture runs nothing). Before a
+    capture the kernel library and a DeviceScene's packs are built
+    eagerly, and the step runs once on copies of the arguments it writes
+    (`donate`), so every kernel is loaded before the capture records it; a
+    capture that fails raises. A replay first copies into the graph's
+    argument tensors every given tensor that is not one of them (a
+    reuploaded scene of the same shapes, a new camera, an accumulator
+    loaded from a checkpoint) and rebuilds a copied DeviceScene's packs
+    into the graph's; `run` returns the graph's arguments, so the caller
+    can hold those and the next call copies nothing. Outputs that are not
+    arguments are returned as copies, which a later replay does not
+    overwrite. Capturing a step of another image size drops the entries
+    of the old size; their memory goes back to the pool.
+
+    `kernels.launches` counts a graph's kernel launches at each replay and
+    not at its capture. `captures` lists (key, capture ms) in order."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pool = None
+        self.entries: dict = {}
+        self.captures: list = []
+
+    def run(self, step, args: tuple, static: dict, donate: tuple = ()):
+        key = step_key(step, args, static)
+        entry = self.entries.get(key)
+        if entry is None:
+            entry = self._capture(key, step, args, static, donate)
+        else:
+            self._feed(entry, args)
+        entry.graph.replay()
+        for k, v in entry.launches.items():
+            kernels.launches[k] += v
+        mine = {id(t) for t in _tensors(entry.args)}
+        return tuple(o if id(o) in mine else o.clone()
+                     for o in entry.out), entry.args
+
+    def _feed(self, entry, args):
+        for i, (mine, given) in enumerate(zip(entry.args, args)):
+            copied = False
+            for m, g in zip(_tensors(mine), _tensors(given)):
+                if g is not m:
+                    m.copy_(g)
+                    copied = True
+            if copied and i in entry.packs:
+                fresh = (pack_walk(mine), pack_shade(mine))
+                for m, g in zip(_tensors(entry.packs[i]), _tensors(fresh)):
+                    if g is not m:
+                        m.copy_(g)
+
+    def _capture(self, key, step, args, static, donate):
+        size = (static.get("width"), static.get("height"))
+        self.entries = {k: e for k, e in self.entries.items()
+                        if e.size == size}
+        kernels.library()
+        packs = {i: scene_packs(a) for i, a in enumerate(args)
+                 if isinstance(a, DeviceScene)}
+        with _CAPTURE_LOCK:
+            before = dict(kernels.launches)
+            try:
+                t0 = time.perf_counter()
+                step(*(a.clone() if i in donate else a
+                       for i, a in enumerate(args)), **static)
+                warm = {k: v - before[k] for k, v in kernels.launches.items()}
+                graph, out = self._record(step, args, static)
+                ms = 1e3 * (time.perf_counter() - t0)
+            finally:
+                taken = {k: v - before[k] for k, v in kernels.launches.items()}
+                for k, v in taken.items():
+                    kernels.launches[k] -= v
+        launches = {k: v - warm[k] for k, v in taken.items()}
+        entry = _Captured(graph, args, out, packs, launches, size)
+        self.entries[key] = entry
+        self.captures.append((key, ms))
+        return entry
+
+    def _record(self, step, args, static):
+        """Capture one call of `step` into a CUDA graph in the shared pool:
+        (graph, outputs)."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.current_stream(self.device)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
+                out = step(*args, **static)
+        except BaseException:
+            # A capture that CUDA refused leaves torch on the capture stream
+            # and recording into the pool: undo both, then raise.
+            torch.cuda.set_stream(stream)
+            try:
+                torch._C._cuda_endAllocateToPool(stream.device_index,
+                                                 self.pool)
+            except RuntimeError:  # torch had ended the recording
+                pass
+            self.pool = None
+            raise
+        return graph, out
+
+    def pool_bytes(self) -> int:
+        """Bytes of device memory in the graphs' pool."""
+        if self.pool is None:
+            return 0
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s["segment_pool_id"]) == tuple(self.pool))
 
 
 def world_tri_count(world) -> int:
@@ -111,8 +332,13 @@ class Renderer:
         self.last_rays = None
         self.launches = {k: 0 for k in kernels.launches}
         self._jitter_acc = JitterAccumulator(self.width, self.height)
+        # The steps' per-frame inputs, written on the device before a step.
+        self._frame = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._jitter = torch.zeros(2, dtype=torch.float32, device=self.device)
         self._avg_jitter = torch.zeros(2, dtype=torch.float32,
                                        device=self.device)
+        self.steps = (CapturedSteps(self.device)
+                      if self.device.type == "cuda" else EagerSteps())
         self._alloc_buffers()
 
     # -- lifecycle ---------------------------------------------------------
@@ -187,8 +413,26 @@ class Renderer:
 
     # -- per-frame ---------------------------------------------------------
 
+    def _render_args(self) -> tuple:
+        scene = ((self.tables, self.textures) if self.backend == "dense"
+                 else self.scene)
+        return scene, self.camera, self._frame, self._jitter, self.accum
+
+    def _render_static(self, use_gbuffer: bool) -> dict:
+        return dict(width=self.width, height=self.height, spp=self.spp,
+                    max_depth=self.max_depth, backend=self.backend,
+                    use_gbuffer=use_gbuffer and self.backend == "dense",
+                    narrow=self.narrow)
+
+    def render_key(self, use_gbuffer: bool = False) -> tuple:
+        """The key the next `render_frame(use_gbuffer)` runs its step
+        under (`step_key`)."""
+        return step_key(render_step, self._render_args(),
+                        self._render_static(use_gbuffer))
+
     def render_frame(self, use_gbuffer: bool = False):
-        """Trace one progressive frame into the accumulator.
+        """Trace one progressive frame into the accumulator: one
+        `render_step` (one graph replay on the card).
 
         use_gbuffer=True (dense backend; ignored on "bvh", as in the JAX
         package) renders the primary-visibility G-buffer first and seeds
@@ -201,39 +445,34 @@ class Renderer:
         self.launches."""
         self.frame_count += 1
         jitter, avg = self._jitter_acc.step(self.frame_count)
-        self._avg_jitter = torch.from_numpy(avg).to(self.device)
-        jitter = torch.from_numpy(jitter).to(self.device)
+        self._frame.fill_(self.frame_count)
+        for buf, v in ((self._jitter, jitter), (self._avg_jitter, avg)):
+            buf[0].fill_(float(v[0]))
+            buf[1].fill_(float(v[1]))
         before = dict(kernels.launches)
-        seed, gb_rays = None, 0.0
-        if self.backend == "bvh":
-            col, rays = trace_pixels(
-                self.scene, self.camera, self.frame_count, jitter,
-                self.width, self.height, self.spp, self.max_depth,
-                with_stats=True)
+        (self.accum, self.last_rays), args = self.steps.run(
+            render_step, self._render_args(),
+            self._render_static(use_gbuffer), donate=(4,))
+        scene, self.camera = args[:2]
+        if self.backend == "dense":
+            self.tables, self.textures = scene
         else:
-            if use_gbuffer:
-                gb = render_gbuffer(self.tables, self.textures, self.camera,
-                                    self.width, self.height, jitter=jitter,
-                                    narrow=self.narrow)
-                seed = gb.wt_idx.reshape(-1)
-                gb_rays = float(self.width * self.height)
-            col, rays = trace_pixels_dense(
-                self.tables, self.camera, self.frame_count, jitter,
-                self.width, self.height, self.spp, self.max_depth,
-                with_stats=True, textures=self.textures, seed_wt_idx=seed,
-                narrow=self.narrow)
-        self.last_rays = rays + gb_rays
-        self.accum = accumulate(self.accum, col, self.frame_count)
+            self.scene = scene
         for k, v in kernels.launches.items():
             self.launches[k] += v - before[k]
         return self.accum
 
     def present(self) -> np.ndarray:
-        """Run the post-process chain; returns (H, W, 3) uint8. Call once
-        per rendered frame: the TAA history blend uses alpha = 1/frame."""
-        ldr, self.history = postprocess(
-            self.accum.view(self.height, self.width, 4), self.history,
-            self.frame_count, self._avg_jitter)
+        """Run the post-process chain (one `present_step`, one graph replay
+        on the card); returns (H, W, 3) uint8. Call once per rendered
+        frame: the TAA history blend uses alpha = 1/frame."""
+        self._frame.fill_(self.frame_count)
+        (ldr, self.history), args = self.steps.run(
+            present_step, (self.accum, self.history, self._frame,
+                           self._avg_jitter),
+            dict(width=self.width, height=self.height,
+                 unjitter=self.frame_count <= 16), donate=(1,))
+        self.accum = args[0]
         self._last_frame = ldr.cpu().numpy()
         return self._last_frame
 

@@ -20,11 +20,14 @@ import torch
 
 
 def synchronize(device) -> None:
-    """Wait for the work queued on `device` (a no-op on the CPU, where
-    PyTorch runs synchronously)."""
+    """Wait for the work queued on `device`'s current stream, where the
+    port queues all of its work (a no-op on the CPU, where PyTorch runs
+    synchronously). Not the whole device: another thread may be capturing
+    a frame step on its own stream (the farm's workers), and CUDA refuses
+    a device-wide synchronise during a capture."""
     device = torch.device(device)
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 @dataclass
