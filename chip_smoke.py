@@ -106,10 +106,21 @@ It builds the port's CUDA kernels from `webgpu_raytracer_tpu_torch/csrc/`
      x 32 and `spheres` 512^2 d8 x 4, the same goldens, ms/frame beside
      the dense path's;
      `get_tracer("bvh")` and `get_tracer("dense")` on one cornell frame;
-   - the sharded steps (backend "bvh") on cornell 512^2 d8: a world of one
-     NCCL rank runs the tile, sample and 2-D steps (the tile step
-     bit-equal to `trace_pixels`, the others at 2e-5), then two gloo ranks
-     in subprocesses share the card (`--shard-rank`, an internal option);
+   - the sharded steps (`ShardedStep`, parallel/sharding.py): a world of
+     one NCCL rank runs the tile (spp 1), sample and 2-D (spp 2, a 1 x 1
+     mesh) steps on cornell 512^2 d8 on both backends, cornell 1920x1080
+     d8 and `spheres` 512^2 d8 on "bvh" (`SHARD_CELLS`), each eager /
+     graph / graph / eager in this process over frames 1..n (the graph:
+     one CUDA graph a step, the all-reduce recorded in it): every frame's
+     accumulator bit-equal across the arms, the tile step bit-equal to
+     the tracer + `accumulate`, the others within 2e-5, the goldens, exact
+     launches; prints ms a step, capture ms, pool MB and launches a
+     replay. Then two gloo ranks in subprocesses share the card
+     (`--shard-rank`, an internal option), each running its tile step
+     (one graph) and sample step (two graphs, gloo's all-reduce between
+     them) eager and captured over 3 frames: captured bit-equal to eager,
+     the bands bit-equal to the frame, the sample frames within 2e-5 and
+     the same on both ranks;
    - the compiled frame steps: every `Renderer` cell (cornell 512^2 and
      1080p, the textured quad 512^2 G-buffer seeded, the formats scene
      1080p, `spheres` 512^2 through both narrow phases, and cornell 512^2
@@ -1885,21 +1896,193 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def shard_scene(dev, width, height):
-    world = NativeWorld("cornell")
+def shard_scene(dev, width, height, name: str = "cornell",
+                backend: str = "bvh"):
+    """(scene, camera) of a preset for `get_tracer(backend)`: a DeviceScene
+    for "bvh", (WorldTables, None) for "dense"."""
+    world = NativeWorld(name)
     world.update_camera(width, height)
     camera = torch.from_numpy(np.asarray(world.camera(),
                                          np.float32)).to(dev)
+    if backend == "dense":
+        return (build_world_tables(world, dev), None), camera
     return build_device_scene(world, device=dev), camera
 
 
 SHARD_SPP = 2  # samples of the sample-sharded frames
+SHARD_GLOO_FRAMES = 3  # frames of each gloo rank's arms
+# The sharded steps' cells on a NCCL world of one: (label, scene, size,
+# backend, frames, golden key).
+SHARD_CELLS = (("cornell 512^2 bvh", "cornell", SMALL, "bvh", 8,
+                "cornell_512"),
+               ("cornell 512^2 dense", "cornell", SMALL, "dense", 8,
+                "cornell_512"),
+               ("cornell 1920x1080 bvh", "cornell", HD, "bvh", 6,
+                "cornell_1080p"),
+               ("spheres 512^2 bvh", "spheres", SMALL, "bvh", 6,
+                "spheres_512"))
+
+
+def shard_reference(scene, camera, width, height, spp, n, backend):
+    """The one-device frames the sharded steps are held to:
+    `get_tracer(backend)` + `accumulate` over frames 1..n at jitter 0, the
+    accumulator after each frame."""
+    jitter = torch.zeros(2, device=camera.device)
+    acc = torch.zeros((width * height, 4), device=camera.device)
+    out = []
+    for f in range(1, n + 1):
+        col = get_tracer(backend)(scene, camera, f, jitter, width, height,
+                                  spp, DEPTH)
+        out.append(accumulate(acc, col, f).clone())
+    return out
+
+
+def shard_arm(step, arm: str, scene, camera, width: int, rows: int,
+              n: int) -> dict:
+    """n frames (int frame counts 1..n, jitter 0) of a sharded step into a
+    fresh accumulator, with its steps eager (`EagerSteps`) or captured (a
+    new `CapturedSteps`): the accumulator after each frame, ms a step over
+    frames 2..n (host clock, each step ending in a synchronise), capture ms
+    per key and the graphs' pool MB."""
+    from webgpu_raytracer_tpu_torch.render.renderer import (CapturedSteps,
+                                                            EagerSteps)
+
+    step.steps = (EagerSteps() if arm == "eager"
+                  else CapturedSteps(camera.device))
+    jitter = torch.zeros(2, device=camera.device)
+    acc = torch.zeros((width * rows, 4), device=camera.device)
+    kept, times = [], []
+    for f in range(1, n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(scene, camera, f, jitter, acc)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        assert out is acc, "a sharded step returned another accumulator"
+        kept.append(acc.clone())
+    captures = getattr(step.steps, "captures", [])
+    return {"frames": kept, "ms": 1e3 * sum(times[1:]) / (n - 1),
+            "first_ms": 1e3 * times[0],
+            "capture_ms": [round(ms, 3) for _, ms in captures],
+            "pool_mb": (step.steps.pool_bytes() / 2 ** 20
+                        if arm == "graph" else 0.0)}
+
+
+def all_reduce_ms(rows: int, group) -> dict:
+    """Device ms of one all-reduce (SUM) of a (rows, 3) f32 tensor over
+    `group`, 20 calls captured in one CUDA graph and replayed back to back
+    (`kernel_ms`, L2 warm), beside a device copy of the same tensor."""
+    import torch.distributed as dist
+
+    buf = torch.rand((rows, 3), device=DEVICE)
+    dst = torch.empty_like(buf)
+    return {"all_reduce_ms": kernel_ms(lambda: dist.all_reduce(
+                buf, op=dist.ReduceOp.SUM, group=group), 20, flush=False),
+            "copy_ms": kernel_ms(lambda: dst.copy_(buf), 20, flush=False)}
+
+
+def shard_cell(label, name, size, backend, n, golden_key, meshes, dev,
+               totals: dict, profile: bool = False) -> dict:
+    """The tile (spp 1), sample and 2-D (SHARD_SPP) steps of one cell on a
+    NCCL world of one, each eager / graph / graph / eager in this process
+    over frames 1..n: every frame's accumulator bit-equal across the four
+    arms, the tile step's bit-equal to `get_tracer(backend)` + `accumulate`
+    and the others within 2e-5 of it, the mean over the frames within 2%
+    of the golden, the launches exact in every arm (a replay launches what
+    an eager step does), one capture an arm. Prints ms a step for each
+    arm, capture ms, pool MB and launches a replay, and the device ms of
+    the all-reduce alone (`all_reduce_ms`); returns them. With profile,
+    also profiles the tile step eager and captured (`profile_paths`)."""
+    mesh, mesh2 = meshes
+    width, height = size
+    scene, camera = shard_scene(dev, width, height, name, backend)
+    refs = {spp: shard_reference(scene, camera, width, height, spp, n,
+                                 backend) for spp in (1, SHARD_SPP)}
+    kinds = (("tile", sharding.tile_sharded_step, mesh, 1),
+             ("sample", sharding.sample_sharded_step, mesh, SHARD_SPP),
+             ("tile x sample", sharding.tile_sample_sharded_step, mesh2,
+              SHARD_SPP))
+    out = {}
+    for kind, make, m, spp in kinds:
+        per_frame = ({k: spp * v for k, v in bvh_launches().items()}
+                     if backend == "bvh" else
+                     {k: spp * v for k, v in rows_launches(False).items()})
+        step = make(m, width, height, spp, DEPTH, backend=backend)
+        assert not step.split, "NCCL records its all-reduce in the graph"
+        arms = []
+        for arm in STEP_ARMS:
+            res = {}
+            drive(f"sharded {kind} step, {label} {arm}", n, per_frame,
+                  lambda: res.update(shard_arm(step, arm, scene, camera,
+                                               width, height, n)), totals)
+            assert len(res["capture_ms"]) == (arm == "graph")
+            arms.append(res)
+        ref = refs[spp]
+        for f in range(n):
+            for res in arms[1:]:
+                assert bits_equal(res["frames"][f], arms[0]["frames"][f]), \
+                    f"{label} {kind}: frame {f + 1} differs between arms"
+            if kind == "tile":
+                assert bits_equal(arms[0]["frames"][f], ref[f]), \
+                    f"{label}: tile step frame {f + 1} != the frame"
+            else:
+                assert torch.allclose(arms[0]["frames"][f], ref[f],
+                                      rtol=2e-5, atol=2e-5), \
+                    f"{label} {kind}: frame {f + 1} not within 2e-5"
+        acc = arms[0]["frames"][-1]
+        mean = float((acc[:, :3] / acc[:, 3:4]).mean())
+        golden = GOLDENS[golden_key]
+        assert abs(mean - golden) <= GOLDEN_TOL * golden, \
+            f"{label} {kind}: mean {mean} outside golden {golden}"
+        eager = [a["ms"] for a in arms if not a["capture_ms"]]
+        graph = [a for a in arms if a["capture_ms"]]
+        launches = {k: v for k, v in per_frame.items() if v}
+        first = " / ".join(f"{a['first_ms']:.1f}" for a in arms)
+        held = "bit-equal to" if kind == "tile" else "within 2e-5 of"
+        print(f"sharded {kind} step, NCCL world of 1, {label} d{DEPTH} spp "
+              f"{spp}: eager {eager[0]:.3f} / {eager[1]:.3f}, graph "
+              f"{graph[0]['ms']:.3f} / {graph[1]['ms']:.3f} ms a step "
+              f"(frames 2..{n}; frame 1 {first} ms); capture ms "
+              f"{[g['capture_ms'][0] for g in graph]}, pool "
+              f"{graph[0]['pool_mb']:.1f} / {graph[1]['pool_mb']:.1f} MB, "
+              f"launches a replay {launches}; the four arms' {n} frames "
+              f"bit-equal, {held} the frame, mean {mean:.4f} vs golden "
+              f"{golden}")
+        out[kind] = {"eager_ms": eager,
+                     "graph_ms": [g["ms"] for g in graph],
+                     "first_ms": [a["first_ms"] for a in arms],
+                     "capture_ms": [g["capture_ms"][0] for g in graph],
+                     "pool_mb": [g["pool_mb"] for g in graph],
+                     "launches_a_replay": launches, "mean": mean}
+        if profile and kind == "tile":  # the last arm left it eager
+            graph = make(m, width, height, spp, DEPTH, backend=backend)
+            acc = torch.zeros((width * height, 4), device=dev)
+            jitter = torch.zeros(2, device=dev)
+            graph(scene, camera, n + 1, jitter, acc)  # captures
+            profile_paths([
+                (f"sharded tile step {label} eager",
+                 lambda: step(scene, camera, n + 1, jitter, acc)),
+                (f"sharded tile step {label} graph",
+                 lambda: graph(scene, camera, n + 1, jitter, acc))])
+            del graph
+        del step, arms
+        torch.cuda.empty_cache()
+    out["all-reduce"] = all_reduce_ms(width * height,
+                                      mesh.get_group(sharding.AXIS))
+    print(f"sharding, NCCL world of 1, {label}: one all-reduce of "
+          f"({width * height}, 3) f32 {out['all-reduce']['all_reduce_ms']:.4f}"
+          f" ms device, a copy of it {out['all-reduce']['copy_ms']:.4f} ms "
+          f"(graph of 20, back to back)")
+    return out
 
 
 def shard_rank(rank: int, world: int, port: int, out_dir: str) -> None:
-    """One gloo rank on the card (`--shard-rank`): the tile step's band
-    (spp 1) and the sample step's frame (SHARD_SPP) of cornell 512^2 d8,
-    written to out_dir/rank<rank>.npz."""
+    """One gloo rank on the card (`--shard-rank`): the tile step (spp 1)
+    and the sample step (SHARD_SPP) of cornell 512^2 d8, each over frames
+    1..SHARD_GLOO_FRAMES eager and then captured (the tile step whole, the
+    sample step as two graphs with gloo's all-reduce between them), each
+    captured frame bit-equal to the eager one in this rank; the captured
+    accumulators and the capture counts written to out_dir/rank<rank>.npz."""
     import datetime
 
     import torch.distributed as dist
@@ -1910,65 +2093,59 @@ def shard_rank(rank: int, world: int, port: int, out_dir: str) -> None:
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=300))
     scene, camera = shard_scene(dev, width, height)
-    jitter = torch.zeros(2, device=dev)
     mesh = sharding.make_mesh(DEVICE)
     rows = height // world
-    band = sharding.tile_sharded_step(mesh, width, height, 1, DEPTH)(
-        scene, camera, 1, jitter, torch.zeros((width * rows, 4), device=dev))
-    full = sharding.sample_sharded_step(mesh, width, height, SHARD_SPP,
-                                        DEPTH)(
-        scene, camera, 1, jitter, torch.zeros((width * height, 4),
-                                              device=dev))
-    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), band=band.cpu(),
-             full=full.cpu())
+    n = SHARD_GLOO_FRAMES
+    out = {}
+    for kind, make, spp, r, split in (
+            ("band", sharding.tile_sharded_step, 1, rows, False),
+            ("full", sharding.sample_sharded_step, SHARD_SPP, height, True)):
+        step = make(mesh, width, height, spp, DEPTH)
+        assert step.split == split, (kind, step.split)
+        eager = shard_arm(step, "eager", scene, camera, width, r, n)
+        graph = shard_arm(step, "graph", scene, camera, width, r, n)
+        for f in range(n):
+            assert bits_equal(graph["frames"][f], eager["frames"][f]), \
+                f"rank {rank} {kind}: captured frame {f + 1} != eager"
+        out[kind] = torch.stack(graph["frames"]).cpu().numpy()
+        out[f"{kind}_captures"] = np.array(len(graph["capture_ms"]))
+        out[f"{kind}_ms"] = np.array([eager["ms"], graph["ms"]])
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     dist.destroy_process_group()
 
 
-def sharding_on_one_card(dev) -> None:
-    """The sharded steps (backend "bvh", the default) on the card: a world
-    of one rank on NCCL runs the tile, sample and 2-D steps, each held to
-    the card's `trace_pixels` (the tile step bit for bit, the others at
-    2e-5); then two gloo ranks in subprocesses share the card (NCCL
-    refuses two ranks on one device), their bands put together bit-equal
-    to the frame and their sample-step frames at 2e-5."""
+def sharding_on_one_card(dev, totals: dict, profile: bool = False) -> dict:
+    """The sharded steps on the card. A world of one rank on NCCL runs the
+    tile, sample and 2-D steps on every cell of SHARD_CELLS (`shard_cell`:
+    eager / graph / graph / eager, the all-reduce recorded in the graph);
+    then two gloo ranks in subprocesses share the card (NCCL refuses two
+    ranks on one device): their captured tile bands put together
+    bit-equal to the frame, their captured sample-step frames (two graphs
+    a step, the all-reduce between them) within 2e-5 of it and the same on
+    both ranks, each captured frame bit-equal to its rank's eager one.
+    Returns {cell: {kind: results}}."""
     import torch.distributed as dist
 
-    width, height = SMALL
-    scene, camera = shard_scene(dev, width, height)
-    jitter = torch.zeros(2, device=dev)
-    ref = {spp: accumulate(torch.zeros((width * height, 4), device=dev),
-                           trace_pixels(scene, camera, 1, jitter, width,
-                                        height, spp, DEPTH), 1)
-           for spp in (1, SHARD_SPP)}
+    start = time.perf_counter()
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
                             f"{_free_port()}", world_size=1, rank=0,
                             device_id=torch.device(DEVICE, 0))
-    mesh = sharding.make_mesh(DEVICE)
-    mesh2 = sharding.make_mesh(DEVICE, (1, 1), ("tile", "sample"))
-    acc = torch.zeros((width * height, 4), device=dev)
-    steps = {
-        "tile": (sharding.tile_sharded_step(mesh, width, height, 1, DEPTH),
-                 1),
-        "sample": (sharding.sample_sharded_step(mesh, width, height,
-                                                SHARD_SPP, DEPTH), SHARD_SPP),
-        "tile x sample": (sharding.tile_sample_sharded_step(
-            mesh2, width, height, SHARD_SPP, DEPTH), SHARD_SPP)}
-    for label, (step, spp) in steps.items():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = step(scene, camera, 1, jitter, acc.clone())
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0)
-        if label == "tile":
-            assert bits_equal(out, ref[1]), "NCCL tile step != trace_pixels"
-        else:
-            assert torch.allclose(out, ref[spp], rtol=2e-5, atol=2e-5), \
-                f"NCCL {label} step differs from trace_pixels"
-        print(f"sharding, NCCL world of 1: {label} step {width}x{height} "
-              f"d{DEPTH} spp {spp}: {ms:.1f} ms, equal to trace_pixels "
-              f"({'bit for bit' if label == 'tile' else 'at 2e-5'})")
-    dist.destroy_process_group()
+    meshes = (sharding.make_mesh(DEVICE),
+              sharding.make_mesh(DEVICE, (1, 1), ("tile", "sample")))
+    out = {}
+    try:
+        for label, name, size, backend, n, golden_key in SHARD_CELLS:
+            out[label] = shard_cell(label, name, size, backend, n,
+                                    golden_key, meshes, dev, totals, profile)
+    finally:
+        dist.destroy_process_group()
+    nccl_s = time.perf_counter() - start
 
+    width, height = SMALL
+    scene, camera = shard_scene(dev, width, height)
+    n = SHARD_GLOO_FRAMES
+    ref = {spp: shard_reference(scene, camera, width, height, spp, n, "bvh")
+           for spp in (1, SHARD_SPP)}
     with tempfile.TemporaryDirectory() as out_dir:
         port = _free_port()
         t0 = time.perf_counter()
@@ -1988,17 +2165,32 @@ def sharding_on_one_card(dev) -> None:
         for p, log in zip(procs, logs):
             assert p.returncode == 0, f"gloo rank failed:\n{log[-3000:]}"
         seconds = time.perf_counter() - t0
-        ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz"))
+        ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
                  for r in range(2)]
-        band = torch.from_numpy(np.concatenate([r["band"] for r in ranks]))
-        assert bits_equal(band, ref[1].cpu()), "gloo tile bands != frame"
+    for f in range(n):
+        band = torch.from_numpy(np.concatenate([r["band"][f]
+                                                for r in ranks]))
+        assert bits_equal(band, ref[1][f].cpu()), \
+            f"gloo tile bands != frame {f + 1}"
         for r in ranks:
-            assert np.allclose(r["full"], ref[SHARD_SPP].cpu().numpy(),
+            assert np.allclose(r["full"][f], ref[SHARD_SPP][f].cpu().numpy(),
                                rtol=2e-5, atol=2e-5), "gloo sample step"
-        assert np.array_equal(ranks[0]["full"], ranks[1]["full"])
-    print(f"sharding, two gloo ranks on the card: tile bands bit-equal to "
-          f"trace_pixels, sample step at 2e-5 and the same on both ranks "
-          f"({seconds:.1f} s with both processes' start-up)")
+    assert np.array_equal(ranks[0]["full"], ranks[1]["full"])
+    for r in ranks:
+        assert int(r["band_captures"]) == 1 and int(r["full_captures"]) == 2
+    ms = {k: [r[f"{k}_ms"].tolist() for r in ranks] for k in ("band", "full")}
+    print(f"sharding, two gloo ranks on the card, cornell {width}x{height} "
+          f"d{DEPTH}, frames 1..{n}: tile step captured (one graph), bands "
+          f"bit-equal to the frame; sample step captured as two graphs with "
+          f"gloo's all-reduce between them, within 2e-5 of the frame and the "
+          f"same on both ranks; each rank's captured frames bit-equal to its "
+          f"eager ones; ms a step [eager, graph] by rank: tile {ms['band']}, "
+          f"sample {ms['full']} ({seconds:.1f} s with both processes' "
+          f"start-up)")
+    print(f"sharding phase: {nccl_s:.1f} s on the NCCL world of one, "
+          f"{time.perf_counter() - start:.1f} s in all")
+    out["gloo, two ranks on one card"] = ms
+    return out
 
 
 def frames(tables, camera, width, height, n, golden_key, textures=None,
@@ -2738,6 +2930,47 @@ def profile_paths(paths) -> None:
                   f"  {key[:70]}")
 
 
+def sharded_frames(dev, timed, out: dict) -> None:
+    """--frame-times' sharded steps: the tile (spp 1) and sample
+    (SHARD_SPP) steps of cornell 512^2 d8 on a NCCL world of one, on the
+    BVH path and on the dense one, each through `timed` eager and, where
+    the checkout's steps are captured (`sharding.ShardedStep`), again as
+    "... graph" with the same digest. An older checkout's step is a
+    function: its eager arm alone."""
+    import torch.distributed as dist
+
+    captured = hasattr(sharding, "ShardedStep")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0,
+                            device_id=torch.device(DEVICE, 0))
+    mesh = sharding.make_mesh(DEVICE)
+    jit0 = torch.zeros(2, device=dev)
+    try:
+        for backend in ("bvh", "dense"):
+            world = NativeWorld("cornell")
+            world.update_camera(*SMALL)
+            cam = torch.from_numpy(np.asarray(world.camera(),
+                                              np.float32)).to(dev)
+            scene = (build_device_scene(world, device=dev)
+                     if backend == "bvh"
+                     else (build_world_tables(world, dev), None))
+            for kind, make, spp in (
+                    ("tile", sharding.tile_sharded_step, 1),
+                    ("sample", sharding.sample_sharded_step, SHARD_SPP)):
+                label = f"sharded {kind} NCCL cornell 512^2 {backend}"
+                tags = ("", " graph") if captured else ("",)
+                for tag in tags:
+                    step = make(mesh, *SMALL, spp, DEPTH, backend=backend)
+                    if captured and not tag:
+                        step.steps = sharding.EagerSteps()
+                    acc = torch.zeros((SMALL[0] * SMALL[1], 4), device=dev)
+                    timed(label + tag, lambda f, st=step, a=acc: st(
+                        scene, cam, f, jit0, a).clone())
+                assert len({out["digest"][label + t] for t in tags}) == 1
+    finally:
+        dist.destroy_process_group()
+
+
 def frame_times(dev, smi_line: str, profile: bool = False) -> None:
     """--frame-times: ms/frame (host clock over frames 2..8, ending in a
     synchronise), the kernels' launches a frame and a digest of the frames'
@@ -2746,8 +2979,10 @@ def frame_times(dev, smi_line: str, profile: bool = False) -> None:
     textured quad's `Renderer` at 512^2 d8 with use_gbuffer=True, cornell's
     `Renderer` at 512^2 d8 (each `Renderer` eager, and again through
     captured steps as "... graph" where the checkout has them, with the
-    same digest), and cornell's and `spheres`' 512^2 d8 BVH frames
-    (`trace_pixels`); one JSON line. It calls only what every version of the port since the
+    same digest), the sharded tile and sample steps of cornell 512^2 d8 on
+    a NCCL world of one, both backends (`sharded_frames`: eager, and
+    "... graph" where the checkout captures them), and cornell's and
+    `spheres`' 512^2 d8 BVH frames (`trace_pixels`); one JSON line. It calls only what every version of the port since the
     formats scene has, so one copy of this script, run from the root of two
     checkouts in one call, compares them (parent, change, change, parent):
 
@@ -2832,6 +3067,7 @@ def frame_times(dev, smi_line: str, profile: bool = False) -> None:
     renderers("Renderer cornell 512^2", lambda: Renderer(
         "cornell", config=RenderConfig(width=SMALL[0], height=SMALL[1],
                                        max_depth=DEPTH), device=dev))
+    sharded_frames(dev, timed, out)
     for name in ("cornell", "spheres"):
         world = NativeWorld(name)
         world.update_camera(*SMALL)
@@ -3149,7 +3385,7 @@ def main(argv: list[str]) -> int:
     drive("get_tracer bvh + dense, cornell 512^2", 1,
           {**rows_launches(False), "bvh_closest": DEPTH,
            "bvh_shadow": DEPTH, "bvh_shade": DEPTH}, both_tracers, totals)
-    sharding_on_one_card(dev)
+    shard_out = sharding_on_one_card(dev, totals, "--profile" in argv)
 
     # The frame steps eager and captured on every Renderer cell.
     step_cells = [
@@ -3167,6 +3403,7 @@ def main(argv: list[str]) -> int:
          bvh_renderer(dev, width, height), False, 16, bvh_launches())]
     steps_out = compiled_steps(step_cells, totals)
     steps_out["present device ms"] = present_costs(dev)
+    steps_out["sharded steps"] = shard_out
     textured_shades += sum(len(STEP_ARMS) * n * pf["shade_rows"]
                            for _, rr, _, n, pf in step_cells
                            if rr.textures is not None)

@@ -1460,3 +1460,137 @@ def test_capture_of_a_host_sync_raises(cuda):
     torch.cuda.synchronize()
     (y,), _ = steps.run(good, (x,), dict(width=1, height=1))
     assert torch.equal(y, x * 2.0)
+
+
+# --- the sharded steps as captured steps (parallel/sharding.py) --------------
+
+@pytest.fixture(scope="module")
+def nccl_world():
+    """An NCCL process group of one rank in this process, on a free port:
+    (1-D mesh, 1 x 1 ("tile", "sample") mesh); destroyed at teardown."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import torch.distributed as dist
+
+    from webgpu_raytracer_tpu_torch.parallel import sharding
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{chip_smoke._free_port()}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+    yield (sharding.make_mesh("cuda"),
+           sharding.make_mesh("cuda", (1, 1), ("tile", "sample")))
+    dist.destroy_process_group()
+
+
+def _sharded(kind, meshes, backend, spp=2, depth=3):
+    from webgpu_raytracer_tpu_torch.parallel import sharding
+
+    mesh, mesh2 = meshes
+    if kind == "tile":
+        return sharding.tile_sharded_step(mesh, RES, RES, spp, depth,
+                                          backend=backend)
+    if kind == "sample":
+        return sharding.sample_sharded_step(mesh, RES, RES, spp, depth,
+                                            backend=backend)
+    return sharding.tile_sample_sharded_step(mesh2, RES, RES, spp, depth,
+                                             backend=backend)
+
+
+def _shard_scene(backend, dev):
+    from webgpu_raytracer_tpu_torch.render.resources import \
+        build_device_scene
+
+    world = NativeWorld("cornell")
+    world.update_camera(RES, RES)
+    cam = torch.from_numpy(np.asarray(world.camera(), np.float32)).to(dev)
+    if backend == "bvh":
+        return build_device_scene(world, device=dev), cam
+    return (build_world_tables(world, dev), None), cam
+
+
+@pytest.mark.parametrize("backend", ["bvh", "dense"])
+@pytest.mark.parametrize("kind", ["tile", "sample", "2d"])
+def test_captured_sharded_steps_bit_equal_to_eager(nccl_world, kind,
+                                                   backend):
+    """3 frames (int frame counts, a new jitter tensor each) of each
+    sharded step, captured (one graph, the all-reduce recorded in it)
+    against the same step eager: the accumulator bit for bit, the given
+    one returned, one capture over all frames, and the kernels' launches
+    of a call those of an eager step."""
+    from webgpu_raytracer_tpu_torch.render.renderer import (CapturedSteps,
+                                                            EagerSteps)
+
+    dev = torch.device("cuda")
+    scene, cam = _shard_scene(backend, dev)
+    eager = _sharded(kind, nccl_world, backend)
+    graph = _sharded(kind, nccl_world, backend)
+    eager.steps = EagerSteps()
+    assert isinstance(graph.steps, CapturedSteps) and not graph.split
+    acc_e = torch.zeros((RES * RES, 4), device=dev)
+    acc_g = torch.zeros((RES * RES, 4), device=dev)
+    for f in range(1, 4):
+        jitter = torch.tensor([0.3 / RES, -0.2 / RES], device=dev) * f
+        kernels.reset_launches()
+        assert eager(scene, cam, f, jitter, acc_e) is acc_e
+        counts = dict(kernels.launches)
+        kernels.reset_launches()
+        assert graph(scene, cam, f, jitter, acc_g) is acc_g
+        assert kernels.launches == counts  # a capture's own not counted
+        assert torch.equal(acc_e.view(torch.int32), acc_g.view(torch.int32))
+    assert len(graph.steps.captures) == 1
+    assert next(iter(graph.steps.entries.values())).launches == counts
+    assert float(acc_g[:, 3].min()) == 3.0
+
+
+def test_second_sharded_step_of_one_signature_gets_its_own_graph(
+        nccl_world):
+    """Two sample steps of one signature on one cache: two captures, and
+    each replays its own graph (equal to its eager frames)."""
+    from webgpu_raytracer_tpu_torch.render.renderer import (CapturedSteps,
+                                                            EagerSteps)
+
+    dev = torch.device("cuda")
+    scene, cam = _shard_scene("bvh", dev)
+    a, b, eager = (_sharded("sample", nccl_world, "bvh") for _ in range(3))
+    eager.steps = EagerSteps()
+    a.steps = b.steps = CapturedSteps(dev)
+    accs = [torch.zeros((RES * RES, 4), device=dev) for _ in range(3)]
+    jitter = torch.zeros(2, device=dev)
+    for f in (1, 2):
+        for step, acc in zip((a, b, eager), accs):
+            step(scene, cam, f, jitter, acc)
+        for acc in accs[:2]:
+            assert torch.equal(acc.view(torch.int32),
+                               accs[2].view(torch.int32))
+    assert len(a.steps.captures) == 2
+
+
+def test_capture_of_a_host_sync_in_a_sharded_step_raises(nccl_world,
+                                                         monkeypatch):
+    """A tracer that reads a device value on the host cannot be captured:
+    the sharded step raises and stays captured (no eager fallback); the
+    same step with the real tracer then captures."""
+    from webgpu_raytracer_tpu_torch.parallel import sharding
+    from webgpu_raytracer_tpu_torch.render.renderer import CapturedSteps
+
+    dev = torch.device("cuda")
+    scene, cam = _shard_scene("bvh", dev)
+    real = sharding.get_tracer
+
+    def syncing(backend):
+        def tracer(*args, **kwargs):
+            col = real(backend)(*args, **kwargs)
+            return col * float(col.sum())
+        return tracer
+
+    step = _sharded("sample", nccl_world, "bvh")
+    acc = torch.zeros((RES * RES, 4), device=dev)
+    jitter = torch.zeros(2, device=dev)
+    monkeypatch.setattr(sharding, "get_tracer", syncing)
+    with pytest.raises(RuntimeError):
+        step(scene, cam, 1, jitter, acc)
+    assert isinstance(step.steps, CapturedSteps) and not step.steps.entries
+    monkeypatch.setattr(sharding, "get_tracer", real)
+    torch.cuda.synchronize()
+    assert step(scene, cam, 1, jitter, acc) is acc
+    assert len(step.steps.captures) == 1

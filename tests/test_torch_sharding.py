@@ -10,6 +10,21 @@ step and the 2 x 2 ("tile", "sample") mesh are held at rtol / atol 2e-5
 sample-step accumulator. The one-process frame is held to JAX
 `trace_pixels` at tests/test_torch_slice.py's tolerance. Every rank's join
 has a timeout, so a hung rank fails its test instead of stalling the run.
+
+Two progressive frames of the tile and sample steps on 2 ranks, both
+backends, are held to the JAX package's own `tile_sharded_step` /
+`sample_sharded_step` on a 2-device virtual CPU mesh (tests/conftest.py
+gives JAX 8), at tests/test_torch_slice.py's tolerance (>= 95% of pixels
+at rel < 1e-3, the mean within 2%; the sample count exact); a frame count
+given as a 0-d int64 tensor gives the int's bits, and every call returns
+the accumulator it was given (JAX's donated argument).
+
+In this process, a gloo world of one rank runs `ShardedStep` through
+`CapturedSteps` with the CUDA graph's CPU stand-in
+(`tests.torch_common.record_eagerly`): the whole body and the split one
+(two graphs with the all-reduce between them, gloo's form on the card)
+equal the eager step bit for bit over three frames, one capture per body
+and none per frame.
 """
 
 import os
@@ -18,19 +33,30 @@ import subprocess
 import sys
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.distributed as dist
 
 from webgpu_raytracer_tpu.models.native import NativeWorld as JaxWorld
 from webgpu_raytracer_tpu.ops.trace import trace_pixels as jax_trace
+from webgpu_raytracer_tpu.parallel import sharding as jax_sharding
 from webgpu_raytracer_tpu.render.resources import \
     build_device_scene as jax_scene
+from webgpu_raytracer_tpu.render.worldtris import build_world_tris
 from webgpu_raytracer_tpu_torch.ops.api import get_tracer
 from webgpu_raytracer_tpu_torch.ops.trace import accumulate
+from webgpu_raytracer_tpu_torch.parallel import sharding
+from webgpu_raytracer_tpu_torch.render import renderer as prr
+from webgpu_raytracer_tpu_torch.render.renderer import (CapturedSteps,
+                                                        EagerSteps, step_key)
+from webgpu_raytracer_tpu_torch.utils.halton import frame_jitter
 
-from tests.torch_shard_worker import (BACKENDS, DEPTH, H, SPP_2D,
-                                      SPP_SAMPLE, SPP_TILE, W, shard_scenes)
+from tests.torch_common import record_eagerly
+from tests.torch_shard_worker import (BACKENDS, DEPTH, FRAMES, H, SPP_2D,
+                                      SPP_SAMPLE, SPP_TILE, W, progressive,
+                                      shard_scenes)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_shard_worker.py")
@@ -144,3 +170,165 @@ def test_one_process_frame_matches_jax(reference):
     rel = np.abs(a - b).max(1) / np.maximum(np.abs(a).max(1), 1e-3)
     assert (rel < 1e-3).mean() >= 0.95
     assert abs(a.mean() - b.mean()) < 0.02 * a.mean()
+
+
+# -- two progressive frames against the JAX package's sharded steps ----------
+
+def _near(a, b, what):
+    """tests/test_torch_slice.py's tolerance on the radiance columns; the
+    sample count column exact."""
+    rel = np.abs(a[:, :3] - b[:, :3]).max(1) / np.maximum(
+        np.abs(a[:, :3]).max(1), 1e-3)
+    frac = (rel < 1e-3).mean()
+    assert frac >= 0.95, f"{what}: {frac:.3%} pixels match"
+    assert abs(a[:, :3].mean() - b[:, :3].mean()) \
+        < 0.02 * max(a[:, :3].mean(), 1e-3), what
+    np.testing.assert_array_equal(a[:, 3], b[:, 3])
+
+
+@pytest.fixture(scope="module")
+def jax_steps():
+    """{(kind, backend): JAX's accumulator after each of FRAMES frames},
+    the JAX package's sharded steps on a 2-device virtual CPU mesh."""
+    world = JaxWorld("cornell")
+    world.update_camera(W, H)
+    bvh = jax_scene(world, pad_nodes_to=32, pad_tris_to=64, pad_verts_to=64)
+    scenes = {"bvh": bvh, "dense": (build_world_tris(world), bvh.textures)}
+    cam = jnp.asarray(world.camera())
+    mesh = jax_sharding.make_mesh(jax.devices()[:2])
+    out = {}
+    for b in BACKENDS:
+        for kind, make, spp in (
+                ("tile", jax_sharding.tile_sharded_step, SPP_TILE),
+                ("sample", jax_sharding.sample_sharded_step, SPP_SAMPLE)):
+            step = make(mesh, W, H, spp, DEPTH, backend=b)
+            acc, frames = jnp.zeros((W * H, 4)), []
+            for f in range(1, FRAMES + 1):
+                acc = step(scenes[b], cam, jnp.asarray(f, jnp.int32),
+                           jnp.asarray(frame_jitter(f, W, H)), acc)
+                frames.append(np.asarray(acc))
+            out[kind, b] = np.stack(frames)
+    return out
+
+
+def _port_frames(ranks, kind, b, tag=""):
+    """The port's accumulator after each frame on 2 ranks: the tile
+    step's bands put together, or rank 0's sample-step accumulator (both
+    ranks hold the same)."""
+    two = ranks[2]
+    if kind == "tile":
+        return np.concatenate([r[f"prog_tile_{b}{tag}"] for r in two], 1)
+    np.testing.assert_array_equal(two[0][f"prog_sample_{b}{tag}"],
+                                  two[1][f"prog_sample_{b}{tag}"])
+    return two[0][f"prog_sample_{b}{tag}"]
+
+
+@pytest.mark.parametrize("kind", ["tile", "sample"])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_progressive_frames_match_jax_sharded_steps(ranks, jax_steps, kind,
+                                                    backend):
+    port = _port_frames(ranks, kind, backend)
+    want = jax_steps[kind, backend]
+    assert port.shape == want.shape == (FRAMES, W * H, 4)
+    for f in range(FRAMES):
+        _near(want[f], port[f], f"{kind} {backend} frame {f + 1}")
+    assert port[-1, :, 3].min() == FRAMES  # frame 2 added to frame 1
+
+
+@pytest.mark.parametrize("kind", ["tile", "sample"])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_frame_tensor_bit_equal_to_int(ranks, kind, backend):
+    a = _port_frames(ranks, kind, backend)
+    b = _port_frames(ranks, kind, backend, "_tensor")
+    np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
+def test_steps_return_the_given_accumulator(ranks):
+    """JAX donates `accum` (donate_argnums=(4,)); the port writes it."""
+    given = ranks[2][0]["prog_given"]
+    assert given.shape == (2 * len(BACKENDS) * 2,) and given.all()
+    assert ranks[2][1]["prog_given"].all()
+
+
+# -- the captured body, with a stand-in for the CUDA graph --------------------
+
+@pytest.fixture(scope="module")
+def world_of_one():
+    """A gloo process group of one rank in this process: (1-D mesh, 1 x 1
+    ("tile", "sample") mesh); destroyed after this module's tests."""
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    yield (sharding.make_mesh("cpu"),
+           sharding.make_mesh("cpu", (1, 1), ("tile", "sample")))
+    dist.destroy_process_group()
+
+
+@pytest.fixture
+def captured(monkeypatch):
+    monkeypatch.setattr(CapturedSteps, "_record", record_eagerly)
+    monkeypatch.setattr(prr.kernels, "library", lambda: None)
+
+
+def _make(kind, meshes, backend="bvh"):
+    mesh, mesh2 = meshes
+    if kind == "tile":
+        return sharding.tile_sharded_step(mesh, W, H, SPP_TILE, DEPTH,
+                                          backend=backend)
+    if kind == "sample":
+        return sharding.sample_sharded_step(mesh, W, H, 2, DEPTH,
+                                            backend=backend)
+    return sharding.tile_sample_sharded_step(mesh2, W, H, 2, DEPTH,
+                                             backend=backend)
+
+
+@pytest.mark.parametrize("kind,split", [("tile", False), ("sample", False),
+                                        ("sample", True), ("2d", False),
+                                        ("2d", True)])
+def test_captured_sharded_step_equals_eager(world_of_one, captured, kind,
+                                            split):
+    """Three frames with int frame counts through the cache (the whole
+    body, or the split: two graphs, the all-reduce between them) against
+    the eager step: the same bits, the given accumulator returned, one
+    capture per body over all frames, every graph replayed every frame."""
+    cam, scenes = shard_scenes()
+    eager, graph = _make(kind, world_of_one), _make(kind, world_of_one)
+    assert isinstance(eager.steps, EagerSteps) and not eager.split
+    graph.steps, graph.split = CapturedSteps("cpu"), split
+    acc_e, acc_g = torch.zeros((W * H, 4)), torch.zeros((W * H, 4))
+    for f in range(1, 4):
+        jitter = torch.from_numpy(frame_jitter(f, W, H))
+        assert eager(scenes["bvh"], cam, f, jitter, acc_e) is acc_e
+        assert graph(scenes["bvh"], cam, f, jitter, acc_g) is acc_g
+        assert torch.equal(acc_e.view(torch.int32), acc_g.view(torch.int32))
+    entries = graph.steps.entries.values()
+    assert len(graph.steps.captures) == (2 if split else 1)
+    assert all(e.graph.replays == 3 for e in entries)
+
+
+def test_sharded_steps_of_one_signature_keep_their_own_graphs(
+        world_of_one, captured):
+    """Two tile steps of one signature, on one cache: two keys, two
+    graphs, each equal to its own eager frames; the 2-D step's body
+    against the tile step's, and a Renderer's `render_step`, never share
+    a key."""
+    cam, scenes = shard_scenes()
+    a, b = _make("tile", world_of_one), _make("tile", world_of_one)
+    args = (scenes["bvh"], cam, torch.tensor(1), torch.zeros(2),
+            torch.zeros((W * H, 4)))
+    assert a._body.__name__ == b._body.__name__
+    assert step_key(a._body, args, a.static) != step_key(b._body, args,
+                                                         b.static)
+    assert step_key(prr.render_step, args, a.static) \
+        != step_key(a._body, args, a.static)
+    b.steps = a.steps = CapturedSteps("cpu")
+    want = progressive(_make("tile", world_of_one), scenes["bvh"], cam, H,
+                       False)[0]
+    for step in (a, b):
+        got, given = progressive(step, scenes["bvh"], cam, H, False)
+        assert given
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+    assert len(a.steps.captures) == 2
+    two_d = _make("2d", world_of_one)
+    assert step_key(two_d._body, args, two_d.static) \
+        != step_key(a._body, args, a.static)

@@ -16,7 +16,8 @@
   skipped, `unjitter=False`).
 - The step key (`step_key`, `Renderer.render_key`) changes on
   `build_pipeline`, on a resize and on tables whose light count differs,
-  and not on a reupload of equal shapes.
+  and not on a reupload of equal shapes; two steps of one name have two
+  keys.
 - `CapturedSteps` on the CPU, with its graph recording replaced by a
   stand-in that replays the step eagerly on the graph's own argument
   tensors and writes its outputs into the graph's output tensors (what a
@@ -58,6 +59,8 @@ from webgpu_raytracer_tpu_torch.render.renderer import (CapturedSteps,
 from webgpu_raytracer_tpu_torch.render.resources import build_device_scene
 from webgpu_raytracer_tpu_torch.render.worldtris import tables_from_jax
 from webgpu_raytracer_tpu_torch.utils.halton import frame_jitter
+
+from tests.torch_common import record_eagerly
 
 import chip_smoke
 
@@ -251,41 +254,34 @@ def test_step_key_follows_what_a_retrace_sees():
     assert step_key(render_step, args, r._render_static(False)) != k0
 
 
+def test_step_key_tells_apart_steps_of_one_name(captured):
+    """Two steps of one `__name__` and one signature (as the sharded
+    steps' bodies are) get two keys, and through one cache each replays
+    its own graph."""
+    def scaled(k):
+        def step(x, *, width, height):
+            return (x * k,)
+        return step
+
+    a, b = scaled(2.0), scaled(3.0)
+    assert a.__name__ == b.__name__
+    x, static = torch.ones(4), dict(width=2, height=2)
+    assert step_key(a, (x,), static) == step_key(a, (x,), static)
+    assert step_key(a, (x,), static) != step_key(b, (x,), static)
+    steps = CapturedSteps("cpu")
+    for _ in range(2):
+        (ya,), _ = steps.run(a, (x,), static)
+        (yb,), _ = steps.run(b, (x,), static)
+        assert torch.equal(ya, x * 2.0) and torch.equal(yb, x * 3.0)
+    assert len(steps.captures) == 2
+    assert step_key(render_step, (x,), static) != step_key(a, (x,), static)
+
+
 # -- the step cache, with a stand-in for the CUDA graph ----------------------
-
-class _Replay:
-    """A CUDA graph's stand-in on the CPU: a replay runs the step on the
-    argument tensors it was captured with and writes the results into the
-    output tensors of the capture."""
-
-    def __init__(self, step, args, static, out):
-        self.step, self.args, self.static, self.out = step, args, static, out
-        self.replays = 0
-
-    def replay(self):
-        self.replays += 1
-        counts = dict(prr.kernels.launches)  # a replay runs no wrapper
-        for o, n in zip(self.out, self.step(*self.args, **self.static)):
-            if n is not o:
-                o.copy_(n)
-        prr.kernels.launches.update(counts)
-
-
-def _record(self, step, args, static):
-    """`CapturedSteps._record` on the CPU: runs nothing. The outputs are
-    the arguments the step returns written in place, else new tensors."""
-    clones = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
-    probe = step(*clones, **static)
-    out = []
-    for o in probe:
-        same = [i for i, c in enumerate(clones) if c is o]
-        out.append(args[same[0]] if same else torch.empty_like(o))
-    return _Replay(step, args, static, tuple(out)), tuple(out)
-
 
 @pytest.fixture
 def captured(monkeypatch):
-    monkeypatch.setattr(CapturedSteps, "_record", _record)
+    monkeypatch.setattr(CapturedSteps, "_record", record_eagerly)
     monkeypatch.setattr(prr.kernels, "library", lambda: None)
 
 

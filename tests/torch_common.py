@@ -10,6 +10,7 @@ import torch
 from webgpu_raytracer_tpu.models.native import NativeWorld
 from webgpu_raytracer_tpu.render.worldtris import (_np_kernel_tables,
                                                    build_world_tris)
+from webgpu_raytracer_tpu_torch import kernels
 from webgpu_raytracer_tpu_torch.ops.dense_trace import bounce_rays
 from webgpu_raytracer_tpu_torch.render.worldtris import (build_world_tables,
                                                          tables_from_jax)
@@ -318,3 +319,35 @@ def jpeg_from_coefficients(width, height, sampling, seed, quant_bits=8,
             out.clear()
         return head + b"".join(scans) + b"\xff\xd9"
     return head + scan(list(range(n))) + b"\xff\xd9"
+
+
+# -- a CUDA graph's stand-in for CapturedSteps on the CPU ----------------------
+
+class Replay:
+    """A CUDA graph's stand-in on the CPU: a replay runs the step on the
+    argument tensors it was captured with and writes the results into the
+    output tensors of the capture."""
+
+    def __init__(self, step, args, static, out):
+        self.step, self.args, self.static, self.out = step, args, static, out
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+        counts = dict(kernels.launches)  # a replay runs no wrapper
+        for o, n in zip(self.out, self.step(*self.args, **self.static)):
+            if n is not o:
+                o.copy_(n)
+        kernels.launches.update(counts)
+
+
+def record_eagerly(self, step, args, static):
+    """`CapturedSteps._record` on the CPU: runs nothing. The outputs are
+    the arguments the step returns written in place, else new tensors."""
+    clones = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+    probe = step(*clones, **static)
+    out = []
+    for o in probe:
+        same = [i for i, c in enumerate(clones) if c is o]
+        out.append(args[same[0]] if same else torch.empty_like(o))
+    return Replay(step, args, static, tuple(out)), tuple(out)

@@ -8,7 +8,11 @@ both backends, and writes what this rank holds to OUT_DIR/rank<RANK>.npz:
 the tile step's row band (spp 2) and the sample step's whole accumulator
 (spp 8) on a 1-D mesh; with 4 ranks also the 2-D ("tile", "sample") step's
 band (2 x 2 mesh, spp 4); and whether the steps refuse a height or an spp
-that does not divide. Imports no JAX.
+that does not divide. With 2 ranks also FRAMES progressive frames of the
+tile and sample steps into one accumulator (frame f's jitter
+`frame_jitter(f, W, H)`), the frame count given as an int and, in a second
+step, as a 0-d int64 tensor, and whether every call returned the
+accumulator it was given. Imports no JAX.
 """
 
 import datetime
@@ -21,6 +25,7 @@ import torch
 W, H, DEPTH = 16, 16, 3
 SPP_TILE, SPP_SAMPLE, SPP_2D = 2, 8, 4
 BACKENDS = ("bvh", "dense")
+FRAMES = 2
 
 
 def shard_scenes():
@@ -39,6 +44,23 @@ def shard_scenes():
         "bvh": build_device_scene(world, pad_nodes_to=32, pad_tris_to=64,
                                   pad_verts_to=64, device="cpu"),
         "dense": (build_world_tables(world, "cpu"), None)}
+
+
+def progressive(step, scene, cam, rows: int, tensor_frames: bool):
+    """FRAMES frames of `step` into one (W * rows, 4) accumulator: (the
+    accumulator after each frame, stacked; whether every call returned the
+    accumulator it was given)."""
+    from webgpu_raytracer_tpu_torch.utils.halton import frame_jitter
+
+    acc = torch.zeros((W * rows, 4))
+    out, given = [], True
+    for f in range(1, FRAMES + 1):
+        jitter = torch.from_numpy(frame_jitter(f, W, H))
+        frame = torch.tensor(f) if tensor_frames else f
+        res = step(scene, cam, frame, jitter, acc)
+        given &= res is acc
+        out.append(res.clone())
+    return np.stack(out), given
 
 
 def _refuses(build) -> bool:
@@ -72,6 +94,18 @@ def main(rank: int, world: int, port: int, out_dir: str) -> None:
                                             backend=b)
         out[f"sample_{b}"] = step(scenes[b], cam, 1, jitter,
                                   torch.zeros((W * H, 4))).numpy()
+    if world == 2:
+        given = []
+        for b in BACKENDS:
+            for kind, make, spp, rows in (
+                    ("tile", sharding.tile_sharded_step, SPP_TILE, H // 2),
+                    ("sample", sharding.sample_sharded_step, SPP_SAMPLE, H)):
+                for tensor_frames, tag in ((False, ""), (True, "_tensor")):
+                    step = make(mesh, W, H, spp, DEPTH, backend=b)
+                    out[f"prog_{kind}_{b}{tag}"], ok = progressive(
+                        step, scenes[b], cam, rows, tensor_frames)
+                    given.append(ok)
+        out["prog_given"] = np.array(given)
     out["refuses"] = np.array([
         _refuses(lambda: sharding.tile_sharded_step(mesh, W, H + 1, 1, 1)),
         _refuses(lambda: sharding.sample_sharded_step(mesh, W, H,

@@ -22,6 +22,15 @@ tile coordinate; the sample step takes and returns the whole accumulator,
 the same on every rank. `backend` ("bvh" by default, as in the JAX
 package, or "dense") picks the tracer (`ops/api.get_tracer`); its scene is
 a DeviceScene or (WorldTables, textures).
+
+Each of the three step functions returns a `ShardedStep`, the counterpart
+of the JAX package's `jax.jit(shard_map(...), donate_argnums=(4,))`: on a
+CUDA mesh (`make_mesh("cuda")`) a call replays a CUDA graph of the step's
+body (trace, the share's scale, the all-reduce, accumulate) with the
+all-reduce recorded in it where the group's backend is NCCL; gloo reduces
+CUDA tensors through the host, which no graph can hold, so there the body
+is two graphs with the all-reduce between them. On a CPU mesh the body
+runs eagerly (`EagerSteps`).
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops.api import get_tracer
 from ..ops.trace import accumulate
+from ..render.renderer import CapturedSteps, EagerSteps
 
 AXIS = "shard"
 
@@ -48,35 +58,125 @@ def make_mesh(device_type: str = "cuda", shape=None,
     return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(dim_names))
 
 
-def _all_reduce_sum(col: torch.Tensor, mesh: DeviceMesh, dim: str):
-    dist.all_reduce(col, op=dist.ReduceOp.SUM, group=mesh.get_group(dim))
-    return col
+def reduces_in_graph(group) -> bool:
+    """Whether an all-reduce of CUDA tensors over `group` can be recorded
+    in a CUDA graph: NCCL's runs on the card and can; gloo's goes through
+    the host and cannot. A group of several backends ("cpu:gloo,cuda:nccl")
+    is read for its CUDA one."""
+    backend = str(dist.get_backend(group))
+    by_device = (dict(p.split(":") for p in backend.split(","))
+                 if ":" in backend else {"cuda": backend})
+    return by_device.get("cuda") == "nccl"
+
+
+class ShardedStep:
+    """One rank's sharded step: step(scene, camera, frame_count, jitter,
+    accum) -> accum, the JAX package's jitted step with its signature.
+
+    `static` holds the step's static arguments, fixed by the rank's mesh
+    coordinate when the step is built: width, rows_per, spp_per, max_depth,
+    backend, row0, sample0, full_height and total_spp. `group` is the
+    all-reduce's process group (None: the tile step, no collective).
+
+    `steps` runs the body: `CapturedSteps` on a CUDA mesh (one graph for
+    each `step_key`; a capture that fails raises), `EagerSteps` on a CPU
+    mesh; set `step.steps = EagerSteps()` on the card for the eager step.
+    `split` is True where the group reduces through the host (gloo with
+    CUDA tensors): the body before the all-reduce and the one after it are
+    then two graphs, and the all-reduce runs between them. The step's
+    static arguments name no height, so `CapturedSteps` never drops its
+    entries by image size: they live as long as the step, one for each
+    signature of the arguments (a scene of other shapes adds one).
+
+    `frame_count` is an int or a 0-d int64 tensor on the mesh's device;
+    an int is filled into the step's own tensor, so every frame replays
+    the same graph. `accum` is written and returned: the JAX
+    package's donated argument. On the card the first call's tensors are
+    the graph's, and a later call copies in any tensor that is not one of
+    them; an accumulator that is not the graph's is copied in, and the
+    result back into it (the graph's accumulator then holds it too, as a
+    donated buffer is not read again)."""
+
+    def __init__(self, mesh: DeviceMesh, static: dict, group=None):
+        self.static = static
+        self.group = group
+        on_card = mesh.device_type == "cuda"
+        device = torch.device("cuda", torch.cuda.current_device()) \
+            if on_card else torch.device("cpu")
+        self.steps = CapturedSteps(device) if on_card else EagerSteps()
+        self.split = (on_card and group is not None
+                      and not reduces_in_graph(group))
+        self._frame = torch.zeros((), dtype=torch.int64, device=device)
+        self._col = None  # the split step's shares, its first graph's output
+
+    def __call__(self, scene, camera, frame_count, jitter, accum):
+        if not isinstance(frame_count, torch.Tensor):
+            frame_count = self._frame.fill_(frame_count)
+        if self.split:
+            if self._col is None:
+                self._col = torch.empty((accum.shape[0], 3),
+                                        device=accum.device)
+            (col,), _ = self.steps.run(
+                self._before, (scene, camera, frame_count, jitter,
+                               self._col), self.static, donate=(4,))
+            self._all_reduce(col)
+            (out,), _ = self.steps.run(self._after, (col, frame_count, accum),
+                                       self.static, donate=(2,))
+        else:
+            (out,), _ = self.steps.run(
+                self._body, (scene, camera, frame_count, jitter, accum),
+                self.static, donate=(4,))
+        return out if out is accum else accum.copy_(out)
+
+    def _share(self, scene, camera, frame_count, jitter, *, width, rows_per,
+               spp_per, max_depth, backend, row0, sample0, full_height,
+               total_spp):
+        """This rank's radiance, scaled by its share of the frame's samples
+        where an all-reduce sums the shares."""
+        col = get_tracer(backend)(scene, camera, frame_count, jitter, width,
+                                  rows_per, spp_per, max_depth, row0=row0,
+                                  full_height=full_height,
+                                  total_spp=total_spp, sample0=sample0)
+        return col if self.group is None else col * (spp_per / total_spp)
+
+    def _all_reduce(self, col):
+        dist.all_reduce(col, op=dist.ReduceOp.SUM, group=self.group)
+
+    def _body(self, scene, camera, frame_count, jitter, accum, **static):
+        """The whole step: trace, scale, all-reduce, accumulate."""
+        col = self._share(scene, camera, frame_count, jitter, **static)
+        if self.group is not None:
+            self._all_reduce(col)
+        return (accumulate(accum, col, frame_count),)
+
+    def _before(self, scene, camera, frame_count, jitter, col, **static):
+        """The split step's first graph: the scaled share, into `col`."""
+        return (col.copy_(self._share(scene, camera, frame_count, jitter,
+                                      **static)),)
+
+    def _after(self, col, frame_count, accum, **static):
+        """The split step's second graph: accumulate the summed shares."""
+        return (accumulate(accum, col, frame_count),)
 
 
 def tile_sharded_step(mesh: DeviceMesh, width: int, height: int, spp: int,
-                      max_depth: int, backend: str = "bvh"):
+                      max_depth: int, backend: str = "bvh") -> ShardedStep:
     """Pixel rows split over the mesh; each rank traces its band with the
     frame's pixel indices, so the bands are the one-device frame."""
     n = mesh.size()
     assert height % n == 0, f"height {height} must divide over {n} devices"
     rows_per = height // n
-    tracer = get_tracer(backend)
-    dev = mesh.get_local_rank(AXIS)
-
-    def step(scene, camera, frame_count, jitter, accum):
-        col = tracer(scene, camera, frame_count, jitter, width, rows_per,
-                     spp, max_depth, row0=dev * rows_per,
-                     full_height=height)
-        return accumulate(accum, col, frame_count)
-
-    return step
+    return ShardedStep(mesh, dict(
+        width=width, rows_per=rows_per, spp_per=spp, max_depth=max_depth,
+        backend=backend, row0=mesh.get_local_rank(AXIS) * rows_per,
+        sample0=0, full_height=height, total_spp=spp))
 
 
 def tile_sample_sharded_step(mesh: DeviceMesh, width: int, height: int,
                              spp_total: int, max_depth: int,
                              tile_axis: str = "tile",
                              sample_axis: str = "sample",
-                             backend: str = "bvh"):
+                             backend: str = "bvh") -> ShardedStep:
     """2-D mesh: rows split over `tile_axis`, sample streams over
     `sample_axis` with an all-reduce over that dimension's group."""
     nt = mesh.size(mesh.mesh_dim_names.index(tile_axis))
@@ -85,25 +185,17 @@ def tile_sample_sharded_step(mesh: DeviceMesh, width: int, height: int,
     assert spp_total % ns == 0, f"spp {spp_total} must divide over {ns}"
     rows_per = height // nt
     spp_per = spp_total // ns
-    tracer = get_tracer(backend)
-    ti = mesh.get_local_rank(tile_axis)
-    si = mesh.get_local_rank(sample_axis)
-
-    def step(scene, camera, frame_count, jitter, accum):
-        col = tracer(scene, camera, frame_count, jitter, width, rows_per,
-                     spp_per, max_depth, row0=ti * rows_per,
-                     full_height=height, total_spp=spp_total,
-                     sample0=si * spp_per)
-        col = _all_reduce_sum(col * (spp_per / spp_total), mesh,
-                              sample_axis)
-        return accumulate(accum, col, frame_count)
-
-    return step
+    return ShardedStep(mesh, dict(
+        width=width, rows_per=rows_per, spp_per=spp_per, max_depth=max_depth,
+        backend=backend, row0=mesh.get_local_rank(tile_axis) * rows_per,
+        sample0=mesh.get_local_rank(sample_axis) * spp_per,
+        full_height=height, total_spp=spp_total),
+        mesh.get_group(sample_axis))
 
 
 def sample_sharded_step(mesh: DeviceMesh, width: int, height: int,
                         spp_total: int, max_depth: int,
-                        backend: str = "bvh"):
+                        backend: str = "bvh") -> ShardedStep:
     """Sample streams split over the mesh: every rank renders the whole
     frame with its slice of the sample indices; col is the mean over the
     rank's spp_per samples, so the sum of col * spp_per / spp_total over
@@ -111,14 +203,8 @@ def sample_sharded_step(mesh: DeviceMesh, width: int, height: int,
     n = mesh.size()
     assert spp_total % n == 0, f"spp {spp_total} must divide over {n} devices"
     spp_per = spp_total // n
-    tracer = get_tracer(backend)
-    dev = mesh.get_local_rank(AXIS)
-
-    def step(scene, camera, frame_count, jitter, accum):
-        col = tracer(scene, camera, frame_count, jitter, width, height,
-                     spp_per, max_depth, total_spp=spp_total,
-                     sample0=dev * spp_per)
-        col = _all_reduce_sum(col * (spp_per / spp_total), mesh, AXIS)
-        return accumulate(accum, col, frame_count)
-
-    return step
+    return ShardedStep(mesh, dict(
+        width=width, rows_per=height, spp_per=spp_per, max_depth=max_depth,
+        backend=backend, row0=0,
+        sample0=mesh.get_local_rank(AXIS) * spp_per, full_height=height,
+        total_spp=spp_total), mesh.get_group(AXIS))

@@ -120,9 +120,11 @@ def _signature(x):
 
 
 def step_key(step, args: tuple, static: dict) -> tuple:
-    """The key a step is captured under: the step, its static arguments,
-    and `_signature` of the others, as `jax.jit` keys its cache."""
-    return step.__name__, tuple(sorted(static.items())), _signature(args)
+    """The key a step is captured under: the step itself, its static
+    arguments, and `_signature` of the others, as `jax.jit` keys its cache.
+    The step counts by identity (a bound method by its function and
+    object), not by name: the sharded steps' bodies share their names."""
+    return step, tuple(sorted(static.items())), _signature(args)
 
 
 def _tensors(x):
@@ -175,8 +177,14 @@ class CapturedSteps:
     into the graph's; `run` returns the graph's arguments, so the caller
     can hold those and the next call copies nothing. Outputs that are not
     arguments are returned as copies, which a later replay does not
-    overwrite. Capturing a step of another image size drops the entries
-    of the old size; their memory goes back to the pool.
+    overwrite. Capturing a step of another image size (its static
+    `width` and `height`) drops the entries of the old size; their memory
+    goes back to the pool. A sharded step (`parallel/sharding.py`) has a
+    CapturedSteps of its own and static arguments fixed when it is built,
+    with no `height` among them: none of its entries is dropped, and they
+    go with the step. The warm-up's eager call also opens a sharded step's
+    NCCL communicators, which must exist before a capture records a
+    collective.
 
     `kernels.launches` counts a graph's kernel launches at each replay and
     not at its capture. `captures` lists (key, capture ms) in order."""
