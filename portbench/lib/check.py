@@ -1,0 +1,156 @@
+"""Whether what the window produced is correct: the numbers compared with
+the plain reference (`portbench/reference/`), each beside its limit.
+
+For each snapshot of a traced frame (the accumulator before and after one
+`render_frame`), the reference traces the frame again at the checked pixels
+from the scene compiler's raw arrays and adds its sample to the program's
+accumulator before the frame, in the accumulator's own f32 operation:
+
+- `drift_pct`: the share of checked pixels (x frames) whose accumulator
+  after the frame differs from that by more than rtol 1e-5 + atol 1e-6, or
+  whose sample count is off: roundings of the same path included;
+- `parted_pct`: of those, the share whose gap is also more than 1% of the
+  reference's sample (or a whole sample count): the paths that part
+  between the two sides;
+- `rays_gap_pct`: the gap between the program's exact ray count of the
+  checked frames together and the reference's (scaled from the checked
+  pixels to the frame when they are a sample), as a share of the
+  reference's.
+
+For each snapshot of a present, the reference runs the post-process chain
+on the program's accumulator and TAA history before it:
+
+- `ldr_off_pct`: the share of the 8-bit image's values more than one
+  level off (and, in the record loop, of the encoded PNG's);
+- `history_off_pct`: the share of the new TAA history's values off by
+  more than rtol 1e-5 + atol 1e-6.
+
+The reference follows the program from the program's state before each
+checked frame (its accumulator and history), which the window built over
+thousands of frames; the start (a first frame overwrites the accumulator)
+is the record loop's first sample of every recorded frame.
+
+`control=True` puts the reference, computed in bfloat16 (the precision
+below the configuration's float32), in the program's place: the benchmark's
+control, which has to come out not correct.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+RTOL, ATOL = 1e-5, 1e-6
+PART = 0.01  # a sample this far off is another path, not a rounding
+
+
+def scene_arrays(scene: str, width: int, height: int, t: float) -> dict:
+    """The scene compiler's raw arrays at time t (the input both sides
+    start from) and the camera."""
+    from webgpu_raytracer_tpu_torch import NativeWorld
+    w = NativeWorld(scene)
+    if t:
+        w.update(t)
+    w.update_camera(width, height)
+    out = {k: np.array(getattr(w, k)()) for k in
+           ("topology", "vertices", "normals", "instances", "lights")}
+    out["camera"] = np.array(w.camera(), np.float32)
+    return out
+
+
+def _off(a, b, levels: int = 1) -> float:
+    """% of 8-bit values more than `levels` apart."""
+    a = np.asarray(a, np.int32)
+    b = np.asarray(b, np.int32)
+    return 100.0 * float((np.abs(a - b) > levels).mean())
+
+
+def _far(got, want) -> "torch.Tensor":
+    import torch
+    return ~torch.isclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def check(window, cfg: dict, device, control: bool = False) -> tuple:
+    """({number: value}, facts) of one window's snapshots; the facts are
+    the scene's triangle and emissive-triangle counts and the number of
+    pixel samples checked."""
+    import torch
+    from portbench.reference import pathtrace as pt
+    from portbench.reference import post
+
+    W, H, D = cfg["width"], cfg["height"], cfg["max_depth"]
+    lo = torch.bfloat16
+    worlds = {}
+
+    def world(t):
+        if t not in worlds:
+            arr = scene_arrays(cfg["scene"], W, H, t)
+            tables = pt.world_tables(arr)
+            worlds[t] = (arr["camera"], pt.Scene(tables, device),
+                         pt.Scene(tables, device, lo) if control else None,
+                         tables)
+        return worlds[t]
+
+    parted = drifted = checked = 0
+    rays_got = rays_want = ldr_off = hist_off = 0.0
+    png_off = None
+    for s in window.snapshots:
+        cam, sc, sc_lo, tables = world(s["time"])
+        px = s["pixels"]
+        ref, ref_rays = pt.radiance(sc, cam, px, s["frame"], W, H, D)
+        one = torch.ones_like(ref[:, :1])
+        before = s["before"][px]
+        first = s["frame"] == 1
+        want = torch.cat([ref, one], 1)
+        if not first:
+            want = before + want
+        est = float(ref_rays.sum()) * W * H / px.numel()
+        if control:
+            c, c_rays = pt.radiance(sc_lo, cam, px, s["frame"], W, H, D)
+            got = torch.cat([c.float(), one], 1)
+            if not first:
+                got = before + got
+            rays = float(c_rays.sum()) * W * H / px.numel()
+        else:
+            got = s["after"][px]
+            rays = float(s["rays"])
+        gap = (got - want).abs()
+        drift = gap > RTOL * want.abs() + ATOL
+        sample = torch.cat([ref, one], 1).abs()
+        drifted += int(drift.any(1).sum())
+        parted += int((drift & (gap > PART * sample)).any(1).sum())
+        checked += px.numel()
+        rays_got += rays
+        rays_want += est
+
+        p = s.get("present")
+        if p is None:
+            continue
+        acc = p["accum"].view(H, W, 4)
+        jit = pt.average_jitter(p["frames"], W, H)
+        ref_ldr, ref_hist = post.present(acc, p["hist_before"], p["frame"],
+                                         jit)
+        if control:
+            ldr, hist = post.present(acc.to(lo), p["hist_before"].to(lo),
+                                     p["frame"], jit)
+            ldr, hist = ldr.cpu().numpy(), hist.float()
+        else:
+            ldr, hist = p["ldr"], p["hist_after"]
+        ref_ldr = ref_ldr.cpu().numpy()
+        ldr_off = max(ldr_off, _off(ldr, ref_ldr))
+        hist_off = max(hist_off, 100.0 * float(
+            _far(hist, ref_hist).float().mean()))
+        if "png" in p:
+            img = ldr if control else post.read_png(p["png"])
+            png_off = max(png_off or 0.0, _off(img, ref_ldr))
+
+    numbers = {"parted_pct": 100.0 * parted / max(checked, 1),
+               "drift_pct": 100.0 * drifted / max(checked, 1),
+               "rays_gap_pct": 100.0 * abs(rays_got - rays_want)
+               / max(rays_want, 1.0), "ldr_off_pct": ldr_off,
+               "history_off_pct": hist_off}
+    if png_off is not None:
+        numbers["png_off_pct"] = png_off
+    tables = next(iter(worlds.values()))[3]
+    return numbers, {"tris": int(tables["shade"].shape[0]),
+                     "light_rows": int(tables["light_count"]),
+                     "checked": checked}
