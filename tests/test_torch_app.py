@@ -56,8 +56,8 @@ from webgpu_raytracer_tpu_torch.render.recorder import (AbortFlag,
                                                         mux_frames)
 from webgpu_raytracer_tpu_torch.utils import images
 from webgpu_raytracer_tpu_torch.utils.profiling import (FrameStats,
-                                                        PassTimer,
-                                                        device_trace)
+                                                        device_trace, span,
+                                                        spans, tracing)
 from webgpu_raytracer_tpu_torch.utils.textures import decode_png
 
 from tests.glb_fixture import skinned_strip_glb, two_clip_skinned_glb
@@ -537,13 +537,18 @@ def test_profiling_on_cpu(tmp_path):
     stats.record(0.03, 3e6)
     assert stats.ms == pytest.approx(20.0) and stats.fps == pytest.approx(50)
     assert stats.rays_per_sec() == pytest.approx(1e8)
-    timer = PassTimer()
-    x = torch.ones(4)
-    for _ in range(2):
-        with timer.section("add", sync_value=x):
-            x = x + 1
-    assert timer.counts == {"add": 2} and "add:" in timer.report()
+    with tracing():
+        with span("add") as first:
+            x = torch.ones(4)
+            for _ in range(2):
+                with span("add.step"):
+                    x = x + 1
+    mine = [s for s in spans() if s.id >= first.id]
+    assert [s.name for s in mine] == ["add.step", "add.step", "add"]
+    assert all(s.parent == first.id for s in mine[:2])
     with device_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
+        with span("sum"):
+            torch.ones(8).sum()
     with open(tmp_path / "trace" / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
+        events = json.load(f)["traceEvents"]
+    assert [e["name"] for e in events if e.get("cat") == "span"] == ["sum"]

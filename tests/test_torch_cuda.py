@@ -955,25 +955,45 @@ def test_bridge_overlap_bit_equal_on_card(cuda):
 
 
 def test_profiling_on_card(cuda, tmp_path):
-    """PassTimer waits for the card with a synchronise; device_trace writes
-    a Chrome trace that holds the card's kernels."""
+    """A captured frame's spans under `tracing()` (the capture at the first
+    call of a key, a replay at the next), the capture counters, and
+    device_trace's Chrome trace: the card's kernels and the program's
+    spans, the graph launch inside `steps.replay` on one clock."""
     import json
 
-    from webgpu_raytracer_tpu_torch.utils.profiling import (PassTimer,
-                                                            device_trace)
+    from webgpu_raytracer_tpu_torch.utils.profiling import (counters,
+                                                            device_trace,
+                                                            span, spans,
+                                                            tracing)
 
+    before = counters()
     r = Renderer("cornell", config=RenderConfig(width=64, height=64,
                                                 max_depth=2), device=cuda)
-    timer = PassTimer()
-    with timer.section("frame", sync_value=r.accum):
+    with tracing():
+        with span("mark") as mark:
+            pass
         r.render_frame()
-    assert timer.counts == {"frame": 1}
+        r.render_frame()
+    names = [s.name for s in spans() if s.id > mark.id]
+    assert names.count("steps.capture") == 1
+    assert names.count("steps.feed") == 1 and names.count("render_frame") == 2
+    after = counters()
+    assert after["captures"] - before.get("captures", 0) == 1
+    assert after["capture_ms"] > before.get("capture_ms", 0)
     with device_trace(str(tmp_path / "trace")):
         r.render_frame()
         torch.cuda.synchronize()
     with open(tmp_path / "trace" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("dense_sweep" in str(e.get("name", "")) for e in events)
+    replay = [e for e in events if e.get("cat") == "span"
+              and e["name"] == "steps.replay"]
+    launch = [e for e in events
+              if str(e.get("name", "")).startswith("cudaGraphLaunch")]
+    assert len(replay) == 1 and len(launch) == 1
+    assert replay[0]["ts"] <= launch[0]["ts"]
+    assert launch[0]["ts"] + launch[0]["dur"] <= \
+        replay[0]["ts"] + replay[0]["dur"]
 
 
 # --- the BVH walk (csrc/bvh_walk.cu) -----------------------------------------

@@ -18,6 +18,7 @@ import threading
 from concurrent.futures import Future
 from typing import Optional
 
+from ..utils.profiling import span
 from .native import NativeWorld
 
 
@@ -37,7 +38,8 @@ class WorldBridge:
 
     def update_async(self, time: float) -> Future:
         """Kick a scene update on the worker thread; returns a Future that
-        resolves when the flat buffers are ready to upload."""
+        resolves when the flat buffers are ready to upload. The update is a
+        `bridge.update` span on the worker thread."""
         with self._lock:
             if self._pending is not None and not self._pending.done():
                 raise RuntimeError("previous update still in flight")
@@ -46,7 +48,8 @@ class WorldBridge:
 
         def run():
             try:
-                self.world.update(time)
+                with span("bridge.update"):
+                    self.world.update(time)
                 self.has_new_data = True
                 fut.set_result(True)
             except Exception as e:  # surfaced like console_error_panic_hook

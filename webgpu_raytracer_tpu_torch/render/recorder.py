@@ -31,7 +31,7 @@ from typing import Callable, List, Optional
 
 from ..config import RenderConfig
 from ..utils.images import png_rgb
-from ..utils.profiling import synchronize
+from ..utils.profiling import span, synchronize
 
 
 @dataclass
@@ -86,7 +86,8 @@ class VideoRecorder:
         """Render `spp` samples in adaptive batches; returns last batch size.
 
         Each batch is `batch` progressive 1-frame dispatches (the per-dispatch
-        spp is the pipeline's static shader_spp).
+        spp is the pipeline's static shader_spp): a `record.batch` span
+        around its frames and its `record.sync`.
         """
         r = self.renderer
         done = 0
@@ -95,9 +96,11 @@ class VideoRecorder:
         while done < spp:
             n = min(batch, max(1, (spp - done + per_dispatch - 1) // per_dispatch))
             t0 = _time.perf_counter()
-            for _ in range(n):
-                r.render_frame()
-            synchronize(r.device)  # honest timing, nothing copied
+            with span("record.batch"):
+                for _ in range(n):
+                    r.render_frame()
+                with span("record.sync"):
+                    synchronize(r.device)  # honest timing, nothing copied
             dt_ms = (_time.perf_counter() - t0) * 1000.0
             done += n * per_dispatch
             # damped controller targeting ~100 ms per batch (reference
@@ -115,7 +118,14 @@ class VideoRecorder:
         on_progress: Optional[Callable[[int, int], None]] = None,
         abort: Optional[AbortFlag] = None,
     ) -> List[EncodedFrame]:
-        """Render a frame range and return encoded frames (worker-side API)."""
+        """Render a frame range and return encoded frames (worker-side API).
+
+        Each recorded frame is a `record.frame` span (its frame id the
+        frame index) holding `record.tick` (the bootstrap update or the
+        wait for the bridge), `reupload_scene`, `record.tick_start` (the
+        next frame's update started on the bridge's thread),
+        `record.samples`, `present` and `record.png`; `on_progress` runs
+        after the span closes."""
         r = self.renderer
         abort = abort or self._cancel
         fps = max(1, config.fps)
@@ -147,27 +157,33 @@ class VideoRecorder:
             frame_idx = start_frame + k
             t = frame_idx / fps
 
-            if not pending:
-                r.world.update(t)  # bootstrap (first frame)
-            else:
-                r.bridge.wait()
-            r.reupload_scene()  # upload this frame's buffers
-            if k + 1 < total:
-                r.bridge.update_async((frame_idx + 1) / fps)
-                pending = True
+            with span("record.frame", frame_idx):
+                with span("record.tick"):
+                    if not pending:
+                        r.world.update(t)  # bootstrap (first frame)
+                    else:
+                        r.bridge.wait()
+                r.reupload_scene()  # upload this frame's buffers
+                if k + 1 < total:
+                    with span("record.tick_start"):
+                        r.bridge.update_async((frame_idx + 1) / fps)
+                    pending = True
 
-            batch = self._render_frame_samples(config.spp, batch)
-            self.last_batch = batch  # the controller's choice, for reports
-            img = r.present()
+                with span("record.samples"):
+                    batch = self._render_frame_samples(config.spp, batch)
+                self.last_batch = batch  # the controller's choice, for reports
+                img = r.present()
 
-            frames.append(
-                EncodedFrame(
-                    frame_index=frame_idx,
-                    timestamp_us=int(frame_idx * 1_000_000 / fps),
-                    key_frame=(frame_idx % fps == 0),  # keyframe/second
-                    data=png_rgb(img),
+                with span("record.png"):
+                    data = png_rgb(img)
+                frames.append(
+                    EncodedFrame(
+                        frame_index=frame_idx,
+                        timestamp_us=int(frame_idx * 1_000_000 / fps),
+                        key_frame=(frame_idx % fps == 0),  # keyframe/second
+                        data=data,
+                    )
                 )
-            )
             if on_progress:
                 on_progress(k + 1, total)
         return frames

@@ -59,6 +59,7 @@ from ..ops.intersect import pack_walk
 from ..ops.postprocess import postprocess
 from ..ops.trace import accumulate, scene_packs
 from ..utils.halton import JitterAccumulator
+from ..utils.profiling import count, span
 from ..utils.textures import build_quad_pyramid, decode_world_textures
 from .resources import DeviceScene, build_device_scene, unpack_instances
 from .worldtris import build_world_tables
@@ -142,7 +143,8 @@ class EagerSteps:
 
     def run(self, step, args: tuple, static: dict, donate: tuple = ()):
         """(step's outputs, args): the `CapturedSteps.run` interface."""
-        return step(*args, **static), args
+        with span("steps.run"):
+            return step(*args, **static), args
 
 
 # CUDA captures one graph at a time in a process: a lock across the
@@ -187,7 +189,11 @@ class CapturedSteps:
     collective.
 
     `kernels.launches` counts a graph's kernel launches at each replay and
-    not at its capture. `captures` lists (key, capture ms) in order."""
+    not at its capture. `captures` lists (key, capture ms) in order; the
+    process-wide counters `captures` and `capture_ms` (`utils/profiling`)
+    add up every instance's. A call's spans: `steps.key`, then
+    `steps.capture` or `steps.feed`, `steps.replay` and `steps.outputs`
+    (the copies of outputs that are not arguments)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -196,18 +202,23 @@ class CapturedSteps:
         self.captures: list = []
 
     def run(self, step, args: tuple, static: dict, donate: tuple = ()):
-        key = step_key(step, args, static)
-        entry = self.entries.get(key)
+        with span("steps.key"):
+            key = step_key(step, args, static)
+            entry = self.entries.get(key)
         if entry is None:
-            entry = self._capture(key, step, args, static, donate)
+            with span("steps.capture"):
+                entry = self._capture(key, step, args, static, donate)
         else:
-            self._feed(entry, args)
-        entry.graph.replay()
-        for k, v in entry.launches.items():
-            kernels.launches[k] += v
-        mine = {id(t) for t in _tensors(entry.args)}
-        return tuple(o if id(o) in mine else o.clone()
-                     for o in entry.out), entry.args
+            with span("steps.feed"):
+                self._feed(entry, args)
+        with span("steps.replay"):
+            entry.graph.replay()
+            for k, v in entry.launches.items():
+                kernels.launches[k] += v
+        with span("steps.outputs"):
+            mine = {id(t) for t in _tensors(entry.args)}
+            return tuple(o if id(o) in mine else o.clone()
+                         for o in entry.out), entry.args
 
     def _feed(self, entry, args):
         for i, (mine, given) in enumerate(zip(entry.args, args)):
@@ -246,6 +257,8 @@ class CapturedSteps:
         entry = _Captured(graph, args, out, packs, launches, size)
         self.entries[key] = entry
         self.captures.append((key, ms))
+        count("captures")
+        count("capture_ms", ms)
         return entry
 
     def _record(self, step, args, static):
@@ -406,18 +419,23 @@ class Renderer:
         updated) world: the world tables for "dense", the DeviceScene for
         "bvh". The upload half of `update_scene`. With the bridge, call it
         after `bridge.wait()` and before the next `update_async`, which
-        rewrites the world's buffers."""
-        self.world.update_camera(self.width, self.height)
-        if self.backend == "dense":
-            self.tables = build_world_tables(self.world, self.device)
-        else:
-            self.scene = build_device_scene(
-                self.world, textures=None if self.textures is None
-                else self.textures[0], device=self.device)
-        self.camera = torch.from_numpy(
-            np.asarray(self.world.camera(), np.float32)).to(self.device)
-        if reset:
-            self.reset_accumulation()
+        rewrites the world's buffers. Spans: `reupload_scene`, with
+        `upload.tables` and `upload.camera`."""
+        with span("reupload_scene"):
+            with span("upload.tables"):
+                if self.backend == "dense":
+                    self.tables = build_world_tables(self.world, self.device)
+                else:
+                    self.scene = build_device_scene(
+                        self.world, textures=None if self.textures is None
+                        else self.textures[0], device=self.device)
+            with span("upload.camera"):
+                self.world.update_camera(self.width, self.height)
+                self.camera = torch.from_numpy(
+                    np.asarray(self.world.camera(), np.float32)).to(
+                        self.device)
+            if reset:
+                self.reset_accumulation()
 
     # -- per-frame ---------------------------------------------------------
 
@@ -450,38 +468,52 @@ class Renderer:
         Sets self.last_rays (float64 device scalar, unread until needed) to
         the exact ray count of this frame, the G-buffer's own W*H primary
         rays included, and adds this frame's kernel launches to
-        self.launches."""
+        self.launches.
+
+        Spans: `render_frame` (its frame id the new frame count), with
+        `render_frame.inputs` (the jitter step and the five device fills)
+        and the steps' own."""
         self.frame_count += 1
-        jitter, avg = self._jitter_acc.step(self.frame_count)
-        self._frame.fill_(self.frame_count)
-        for buf, v in ((self._jitter, jitter), (self._avg_jitter, avg)):
-            buf[0].fill_(float(v[0]))
-            buf[1].fill_(float(v[1]))
-        before = dict(kernels.launches)
-        (self.accum, self.last_rays), args = self.steps.run(
-            render_step, self._render_args(),
-            self._render_static(use_gbuffer), donate=(4,))
-        scene, self.camera = args[:2]
-        if self.backend == "dense":
-            self.tables, self.textures = scene
-        else:
-            self.scene = scene
-        for k, v in kernels.launches.items():
-            self.launches[k] += v - before[k]
+        with span("render_frame", self.frame_count):
+            with span("render_frame.inputs"):
+                jitter, avg = self._jitter_acc.step(self.frame_count)
+                self._frame.fill_(self.frame_count)
+                for buf, v in ((self._jitter, jitter),
+                               (self._avg_jitter, avg)):
+                    buf[0].fill_(float(v[0]))
+                    buf[1].fill_(float(v[1]))
+            before = dict(kernels.launches)
+            (self.accum, self.last_rays), args = self.steps.run(
+                render_step, self._render_args(),
+                self._render_static(use_gbuffer), donate=(4,))
+            scene, self.camera = args[:2]
+            if self.backend == "dense":
+                self.tables, self.textures = scene
+            else:
+                self.scene = scene
+            for k, v in kernels.launches.items():
+                self.launches[k] += v - before[k]
         return self.accum
 
     def present(self) -> np.ndarray:
         """Run the post-process chain (one `present_step`, one graph replay
         on the card); returns (H, W, 3) uint8. Call once per rendered
-        frame: the TAA history blend uses alpha = 1/frame."""
-        self._frame.fill_(self.frame_count)
-        (ldr, self.history), args = self.steps.run(
-            present_step, (self.accum, self.history, self._frame,
-                           self._avg_jitter),
-            dict(width=self.width, height=self.height,
-                 unjitter=self.frame_count <= 16), donate=(1,))
-        self.accum = args[0]
-        self._last_frame = ldr.cpu().numpy()
+        frame: the TAA history blend uses alpha = 1/frame.
+
+        Spans: `present`, with `present.inputs` (the frame count's fill),
+        the steps' own and `present.copy`, the image's copy to the host,
+        which waits for the device."""
+        with span("present", self.frame_count):
+            with span("present.inputs"):
+                self._frame.fill_(self.frame_count)
+            (ldr, self.history), args = self.steps.run(
+                present_step, (self.accum, self.history, self._frame,
+                               self._avg_jitter),
+                dict(width=self.width, height=self.height,
+                     unjitter=self.frame_count <= 16), donate=(1,))
+            self.accum = args[0]
+            with span("present.copy"):
+                self._last_frame = ldr.cpu().numpy()
         return self._last_frame
 
     def capture_frame(self) -> np.ndarray:
