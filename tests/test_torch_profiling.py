@@ -13,7 +13,9 @@
 - A CPU `Renderer` frame gives the `render_frame` / `present` tree (and,
   through `CapturedSteps` with the graph stand-in, the steps' spans); a
   reupload its `upload.*` spans; `record_chunks` one `record.frame` a
-  recorded frame, with `record.png` inside it and `on_progress` outside.
+  recorded frame, the wait for the last frame's encode (`record.png`)
+  inside the next frame's and after the loop, the encode itself
+  (`record.png.encode`) on its own thread, and `on_progress` outside.
 """
 
 import collections
@@ -208,6 +210,7 @@ def test_record_chunks_spans():
             progress.append(c.id)
 
     m = _mark()
+    before = counters()
     with tracing():
         frames = VideoRecorder(r).record_chunks(cfg, 4, 2, on_progress)
     assert len(frames) == 2
@@ -216,10 +219,27 @@ def test_record_chunks_spans():
     rec = [s for s in mine if s.name == "record.frame"]
     assert [s.frame for s in rec] == [4, 5]
     assert all(s.parent == 0 for s in rec)
-    assert tree["record.png"] == ["record.frame"] * 2
+    # The wait for frame 4's encode is inside frame 5's span; the last
+    # frame's wait follows the loop.
+    waits = [s for s in mine if s.name == "record.png"]
+    assert tree["record.png"] == ["record.frame", ""]
+    assert [s.frame for s in waits] == [4, 5]
+    assert by_id[waits[0].parent].frame == 5
+    # Each encode on the encode thread, at its top, before its wait ends.
+    encodes = [s for s in mine if s.name == "record.png.encode"]
+    assert tree["record.png.encode"] == ["", ""]
+    assert [s.frame for s in encodes] == [4, 5]
+    assert len({s.thread for s in encodes}) == 1
+    assert encodes[0].thread != threading.get_native_id()
+    for enc, wait in zip(encodes, waits):
+        assert enc.end_ns <= wait.end_ns
     assert tree["caller"] == ["", ""]
-    for fid, caller in zip(rec, progress):
+    for fid, wait, caller in zip(rec, waits, progress):
         assert by_id[caller].start_ns >= fid.end_ns
+        assert by_id[caller].start_ns >= wait.end_ns
+    after = counters()
+    assert after["png_encodes"] - before.get("png_encodes", 0) == 2
+    assert 0 <= after.get("png_waits", 0) - before.get("png_waits", 0) <= 2
     for name in ("record.tick", "reupload_scene", "record.samples"):
         assert "record.frame" in tree[name], name
     assert tree["record.tick_start"] == ["record.frame"]   # one next frame

@@ -12,7 +12,10 @@ Capability parity: reference src/recorder/VideoRecorder.ts —
                  encoded frames for the distributed tier (:94-142)
 - 5-frame TAA warm-up re-rendering the first frame (:160-169)
 - host/device overlap: the next frame's native scene update runs while the
-  device renders the current one (:183-227)
+  device renders the current one (:183-227), and a recorded frame's PNG
+  encode runs on a worker thread while the device renders the next
+  frame's samples, as the reference's VP9 encoder runs beside its GPU
+  batches (:194-227)
 - adaptive sample batching targeting ~100 ms per dispatch, cap 50 (:270-317)
 
 Frames are PNG-encoded (the WebCodecs VP9 encoder has no TPU-host analogue;
@@ -26,12 +29,13 @@ import os
 import shutil
 import subprocess
 import time as _time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
 from ..config import RenderConfig
 from ..utils.images import png_rgb
-from ..utils.profiling import span, synchronize
+from ..utils.profiling import count, span, synchronize
 
 
 @dataclass
@@ -120,12 +124,27 @@ class VideoRecorder:
     ) -> List[EncodedFrame]:
         """Render a frame range and return encoded frames (worker-side API).
 
+        Two pieces of host work overlap the device's samples. The
+        bridge's thread runs frame k+1's native scene update while frame
+        k renders, and one encode thread, owned by this call, PNG-encodes
+        frame k while frame k+1 ticks, uploads and renders. So frame k's
+        bytes are final, and it is appended and passed to `on_progress`,
+        after frame k+1's samples, or after the range's last frame when
+        the loop ends. `abort` is checked before a frame's tick; a frame
+        whose samples started is always presented, encoded and reported.
+        An error of the encode is raised from here; the encode thread
+        never outlives the call.
+
         Each recorded frame is a `record.frame` span (its frame id the
         frame index) holding `record.tick` (the bootstrap update or the
         wait for the bridge), `reupload_scene`, `record.tick_start` (the
         next frame's update started on the bridge's thread),
-        `record.samples`, `present` and `record.png`; `on_progress` runs
-        after the span closes."""
+        `record.samples`, `record.png` (the wait for the previous frame's
+        encode, frame id that frame's) and `present`. The last frame's
+        wait is a `record.png` at the top level. The encode is a
+        `record.png.encode` span on the encode thread; the counters
+        `png_encodes` and `png_waits` (a wait that found its encode still
+        running) count them. `on_progress` runs outside every span."""
         r = self.renderer
         abort = abort or self._cancel
         fps = max(1, config.fps)
@@ -147,45 +166,63 @@ class VideoRecorder:
             r.render_frame()
             r.present()
 
+        def finish(encoding):
+            """Wait for (frame index, future) and append its frame."""
+            frame_idx, future = encoding
+            with span("record.png", frame_idx):
+                if not future.done():
+                    count("png_waits")
+                data = future.result()
+            frames.append(
+                EncodedFrame(
+                    frame_index=frame_idx,
+                    timestamp_us=int(frame_idx * 1_000_000 / fps),
+                    key_frame=(frame_idx % fps == 0),  # keyframe/second
+                    data=data,
+                )
+            )
+
         # Host/device overlap (VideoRecorder.ts:183-227): the native update
         # for frame k+1 runs through the WorldBridge's worker thread (the C++
-        # update releases the GIL) while the device renders frame k's samples.
+        # update releases the GIL) while the device renders frame k's samples,
+        # and frame k-1's encode (zlib releases the GIL) runs on `pool`.
         pending = False
-        for k in range(total):
-            if abort.aborted:
-                break
-            frame_idx = start_frame + k
-            t = frame_idx / fps
+        encoding = None  # (frame index, future) of the frame being encoded
+        with ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix="record.png") as pool:
+            for k in range(total):
+                if abort.aborted:
+                    break
+                frame_idx = start_frame + k
+                t = frame_idx / fps
+                prev = encoding
 
-            with span("record.frame", frame_idx):
-                with span("record.tick"):
-                    if not pending:
-                        r.world.update(t)  # bootstrap (first frame)
-                    else:
-                        r.bridge.wait()
-                r.reupload_scene()  # upload this frame's buffers
-                if k + 1 < total:
-                    with span("record.tick_start"):
-                        r.bridge.update_async((frame_idx + 1) / fps)
-                    pending = True
+                with span("record.frame", frame_idx):
+                    with span("record.tick"):
+                        if not pending:
+                            r.world.update(t)  # bootstrap (first frame)
+                        else:
+                            r.bridge.wait()
+                    r.reupload_scene()  # upload this frame's buffers
+                    if k + 1 < total:
+                        with span("record.tick_start"):
+                            r.bridge.update_async((frame_idx + 1) / fps)
+                        pending = True
 
-                with span("record.samples"):
-                    batch = self._render_frame_samples(config.spp, batch)
-                self.last_batch = batch  # the controller's choice, for reports
-                img = r.present()
-
-                with span("record.png"):
-                    data = png_rgb(img)
-                frames.append(
-                    EncodedFrame(
-                        frame_index=frame_idx,
-                        timestamp_us=int(frame_idx * 1_000_000 / fps),
-                        key_frame=(frame_idx % fps == 0),  # keyframe/second
-                        data=data,
-                    )
-                )
-            if on_progress:
-                on_progress(k + 1, total)
+                    with span("record.samples"):
+                        batch = self._render_frame_samples(config.spp, batch)
+                    self.last_batch = batch  # the controller's choice
+                    if prev:
+                        finish(prev)
+                    # At most one encode in flight: the last is finished.
+                    encoding = frame_idx, pool.submit(_encode, r.present(),
+                                                      frame_idx)
+                if prev and on_progress:
+                    on_progress(len(frames), total)
+            if encoding:
+                finish(encoding)
+                if on_progress:
+                    on_progress(len(frames), total)
         return frames
 
     def record(
@@ -202,6 +239,14 @@ class VideoRecorder:
         result.output_path = mux_frames(frames, config.fps, output)
         result.wall_time_s = _time.perf_counter() - t0
         return result
+
+
+def _encode(img, frame_idx: int) -> bytes:
+    """The encode thread's work: one frame's PNG."""
+    with span("record.png.encode", frame_idx):
+        data = png_rgb(img)
+    count("png_encodes")
+    return data
 
 
 def mux_frames(frames: List[EncodedFrame], fps: int, output: str) -> str:
