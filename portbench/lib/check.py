@@ -2,9 +2,15 @@
 the plain reference (`portbench/reference/`), each beside its limit.
 
 For each snapshot of a traced frame (the accumulator before and after one
-`render_frame`), the reference traces the frame again at the checked pixels
-from the scene compiler's raw arrays and adds its sample to the program's
-accumulator before the frame, in the accumulator's own f32 operation:
+`render_frame`, or one step of a sharded renderer), the reference traces the
+frame again at the checked pixels from the scene compiler's raw arrays and
+adds its sample to the program's accumulator before the frame, in the
+accumulator's own f32 operation. The sample is the frame's own stream under
+the frame's jitter, or, where the snapshot carries `streams` (a list of PCG
+stream indices) and `jitter` (the two f32 values the step was given), the
+mean of those streams under that one jitter, as a sample-sharded step
+makes it: each stream's radiance times 1 / len(streams), summed in list
+order, in f32.
 
 - `drift_pct`: the share of checked pixels (x frames) whose accumulator
   after the frame differs from that by more than rtol 1e-5 + atol 1e-6, or
@@ -13,9 +19,14 @@ accumulator before the frame, in the accumulator's own f32 operation:
   reference's sample (or a whole sample count): the paths that part
   between the two sides;
 - `rays_gap_pct`: the gap between the program's exact ray count of the
-  checked frames together and the reference's (scaled from the checked
-  pixels to the frame when they are a sample), as a share of the
-  reference's.
+  checked frames together and the reference's (every stream's rays,
+  scaled from the checked pixels to the frame when they are a sample), as
+  a share of the reference's;
+- `ranks_off_pct`, only where some snapshot carries `rank_sums` (each
+  rank's accumulator after the step as its float64 sum and its element
+  count): the share of those ranks whose accumulator differs from rank
+  0's in either number. Sample sharding leaves the whole frame on every
+  rank; the snapshot's `after` is rank 0's.
 
 For each snapshot of a present, the reference runs the post-process chain
 on the program's accumulator and TAA history before it:
@@ -69,6 +80,24 @@ def _far(got, want) -> "torch.Tensor":
     return ~torch.isclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+def sample(scene, camera, snap: dict, width: int, height: int,
+           max_depth: int) -> tuple:
+    """(radiance (N, 3), rays (N,)) of a snapshot's sample at its pixels,
+    in the scene's precision: the frame's own stream, or the mean of the
+    snapshot's `streams` under its `jitter`."""
+    from portbench.reference import pathtrace as pt
+    args = (scene, camera, snap["pixels"], snap["frame"], width, height,
+            max_depth)
+    if "streams" not in snap:
+        return pt.radiance(*args)
+    share = 1.0 / len(snap["streams"])
+    col = rays = 0
+    for k in snap["streams"]:
+        c, r = pt.radiance(*args, stream=k, jitter=snap["jitter"])
+        col, rays = col + c * share, rays + r
+    return col, rays
+
+
 def check(window, cfg: dict, device, control: bool = False) -> tuple:
     """({number: value}, facts) of one window's snapshots; the facts are
     the scene's triangle and emissive-triangle counts and the number of
@@ -93,10 +122,11 @@ def check(window, cfg: dict, device, control: bool = False) -> tuple:
     parted = drifted = checked = 0
     rays_got = rays_want = ldr_off = hist_off = 0.0
     png_off = None
+    ranks = ranks_off = 0
     for s in window.snapshots:
         cam, sc, sc_lo, tables = world(s["time"])
         px = s["pixels"]
-        ref, ref_rays = pt.radiance(sc, cam, px, s["frame"], W, H, D)
+        ref, ref_rays = sample(sc, cam, s, W, H, D)
         one = torch.ones_like(ref[:, :1])
         before = s["before"][px]
         first = s["frame"] == 1
@@ -105,7 +135,7 @@ def check(window, cfg: dict, device, control: bool = False) -> tuple:
             want = before + want
         est = float(ref_rays.sum()) * W * H / px.numel()
         if control:
-            c, c_rays = pt.radiance(sc_lo, cam, px, s["frame"], W, H, D)
+            c, c_rays = sample(sc_lo, cam, s, W, H, D)
             got = torch.cat([c.float(), one], 1)
             if not first:
                 got = before + got
@@ -115,12 +145,16 @@ def check(window, cfg: dict, device, control: bool = False) -> tuple:
             rays = float(s["rays"])
         gap = (got - want).abs()
         drift = gap > RTOL * want.abs() + ATOL
-        sample = torch.cat([ref, one], 1).abs()
+        size = torch.cat([ref, one], 1).abs()
         drifted += int(drift.any(1).sum())
-        parted += int((drift & (gap > PART * sample)).any(1).sum())
+        parted += int((drift & (gap > PART * size)).any(1).sum())
         checked += px.numel()
         rays_got += rays
         rays_want += est
+        sums = s.get("rank_sums")
+        if sums is not None:
+            ranks += len(sums)
+            ranks_off += sum(tuple(r) != tuple(sums[0]) for r in sums)
 
         p = s.get("present")
         if p is None:
@@ -150,6 +184,8 @@ def check(window, cfg: dict, device, control: bool = False) -> tuple:
                "history_off_pct": hist_off}
     if png_off is not None:
         numbers["png_off_pct"] = png_off
+    if ranks:
+        numbers["ranks_off_pct"] = 100.0 * ranks_off / ranks
     tables = next(iter(worlds.values()))[3]
     return numbers, {"tris": int(tables["shade"].shape[0]),
                      "light_rows": int(tables["light_count"]),

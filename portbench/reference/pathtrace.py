@@ -6,10 +6,11 @@ upstream WGSL shader, as the port states it): thin-lens primaries, a closest
 hit found by testing every world triangle, next-event estimation over the
 emissive triangles with the power heuristic, Lambert / GGX / dielectric
 sampling, Russian roulette after depth 3, and counter-seeded PCG streams per
-(pixel, frame). Every f32 operation is a separate PyTorch op in the order
-the port's plain versions use, so agreement is bit for bit where the CUDA
-kernels round as those do; a pixel whose path parts (a grazing hit decided
-the other way by one rounding) shows as a large gap on that pixel only.
+(pixel, sample stream). Every f32 operation is a separate PyTorch op in the
+order the port's plain versions use, so agreement is bit for bit where the
+CUDA kernels round as those do; a pixel whose path parts (a grazing hit
+decided the other way by one rounding) shows as a large gap on that pixel
+only.
 
 Inputs are the native scene compiler's raw arrays (`world_tables`); this
 file imports nothing of the system under test. `dtype` is the precision the
@@ -98,9 +99,9 @@ def max3(a):
 
 # -- random numbers -----------------------------------------------------------
 
-def init_rng(pixel, frame: int):
-    """u32 PCG state of (pixel, frame), carried in int64."""
-    seed = (pixel + (frame & M32) * 719393) & M32
+def init_rng(pixel, stream: int):
+    """u32 PCG state of (pixel, stream), carried in int64."""
+    seed = (pixel + (stream & M32) * 719393) & M32
     seed = seed ^ 2747636419
     seed = (seed * 2654435769) & M32
     seed = seed ^ (seed >> 16)
@@ -500,13 +501,19 @@ def light_pdf(scene: Scene, row: Row, t, l_dir):
 
 
 def primaries(camera, pixels, frame: int, width: int, height: int,
-              dtype):
+              dtype, *, stream: int | None = None, jitter=None):
     """Thin-lens primary rays of `pixels` (int64 row-major indices) and
-    their PCG states for one progressive frame at spp 1."""
+    their PCG states for one sample of a progressive frame: the PCG stream
+    `stream` (by default the frame's own, `frame`) under the sub-pixel
+    `jitter`, the two f32 values the step was given (by default the
+    frame's, `frame_jitter(frame, width, height)`). A sharded step's sample
+    is one of several streams under the one jitter of its frame."""
     dev = pixels.device
     cam = torch.as_tensor(np.asarray(camera, np.float32)).to(dev, dtype)
-    jit = torch.from_numpy(frame_jitter(frame, width, height)).to(dev, dtype)
-    rng = init_rng(pixels, frame)
+    if jitter is None:
+        jitter = frame_jitter(frame, width, height)
+    jit = torch.as_tensor(jitter, dtype=torch.float32).to(dev, dtype)
+    rng = init_rng(pixels, frame if stream is None else stream)
     rng, (a, b) = rand_n(rng, 2, dtype)
     r = sqrt_rn(a)
     theta = 2.0 * PI * b
@@ -526,12 +533,15 @@ def primaries(camera, pixels, frame: int, width: int, height: int,
 
 
 def radiance(scene: Scene, camera, pixels, frame: int, width: int,
-             height: int, max_depth: int):
+             height: int, max_depth: int, *, stream: int | None = None,
+             jitter=None):
     """(radiance (N, 3), rays (N,) int64) of one progressive frame at the
     given pixels: the rays each pixel's path traced (its primary, and per
-    bounce its NEE shadow ray and its extension ray when cast)."""
+    bounce its NEE shadow ray and its extension ray when cast). `stream`
+    and `jitter` as in `primaries`."""
     dt = scene.dtype
-    ro, rd, rng = primaries(camera, pixels, frame, width, height, dt)
+    ro, rd, rng = primaries(camera, pixels, frame, width, height, dt,
+                            stream=stream, jitter=jitter)
     n = pixels.shape[0]
     dev = pixels.device
     ones = torch.ones(n, dtype=dt, device=dev)

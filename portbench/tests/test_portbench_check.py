@@ -9,6 +9,7 @@ underneath, where its answer is produced.
 
 from __future__ import annotations
 
+import os
 import time
 
 import pytest
@@ -20,23 +21,28 @@ from portbench.run import run_cell
 BENCH = spec.Spec()
 CELLS = [w["name"] for w in BENCH.data["workloads"] if w["chips"] == 1]
 # Per scene: a tiny size, and a window long enough for the frames that
-# the checks are drawn from (the spheres scene's plain path is slow).
+# the checks are drawn from (the spheres scene's plain path is slow), in
+# one process that has the machine's cores to itself.
 TINY = {"cornell": (dict(width=24, height=16, max_depth=3), 0.4),
         "spheres": (dict(width=8, height=6, max_depth=2), 1.5)}
+# The windows are wall-clock time, and pytest-xdist's workers share the
+# cores: under n workers a frame takes up to n times as long, so every
+# window is n times as long, and still holds the frames it needs.
+WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
 
 
 def _tiny(workload: str) -> tuple:
     scene = BENCH.config(BENCH.workload(workload)["config"])["scene"]
     size, seconds = TINY[scene]
     return dict(size, check_within=2, check_frames=2, spp=4,
-                check_samples=2), seconds
+                check_samples=2), seconds * WORKERS
 
 
 def _run(workload: str, seed: int = 20260417, extra=None,
          seconds=None) -> dict:
     over, tiny_s = _tiny(workload)
     over.update(extra or {})
-    seconds = seconds or tiny_s
+    seconds = seconds * WORKERS if seconds else tiny_s
     return run_cell(BENCH, workload, seed, seconds, False, device="cpu",
                     t_start=time.perf_counter(), overrides=over)
 
