@@ -1532,7 +1532,7 @@ def bvh_launches(depth: int = DEPTH, spp: int = 1) -> dict:
     kernel."""
     counts = {k: 0 for k in kernels.launches}
     counts.update(bvh_closest=spp * depth, bvh_shadow=spp * depth,
-                  bvh_shade=spp * depth)
+                  bvh_walk=2 * spp * depth, bvh_shade=spp * depth)
     return counts
 
 
@@ -1708,7 +1708,9 @@ def profile_kernels(fn, n: int, tries: int = 3) -> tuple[list, float]:
                 fn()
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
-        ours = sum(v - before.get(k, 0) for k, v in kernels.launches.items())
+        # "bvh_walk" counts the closest and any-hit walks a second time.
+        ours = sum(v - before.get(k, 0) for k, v in kernels.launches.items()
+                   if k != "bvh_walk")
         events = [(e.key, e.self_device_time_total, e.count)
                   for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
@@ -2007,6 +2009,7 @@ def shard_cell(label, name, size, backend, n, golden_key, meshes, dev,
         per_frame = ({k: spp * v for k, v in bvh_launches().items()}
                      if backend == "bvh" else
                      {k: spp * v for k, v in rows_launches(False).items()})
+        per_frame["all_reduce"] = int(kind != "tile")
         step = make(m, width, height, spp, DEPTH, backend=backend)
         assert not step.split, "NCCL records its all-reduce in the graph"
         arms = []
@@ -2412,7 +2415,8 @@ def sweeps(n: int, multi_tile: bool, narrow: str = "jobs") -> dict:
     scan = n if multi_tile and narrow == "scan" else 0
     return {"dense_sweep": 0 if multi_tile else n, "cluster_cull": jobs,
             "job_sweep": jobs, "cluster_cull_keyed": scan, "scan_sweep": scan,
-            "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0}
+            "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
+            "bvh_walk": 0, "all_reduce": 0}
 
 
 def rows_launches(seeded: bool, multi_tile: bool = False,
@@ -3292,7 +3296,7 @@ def main(argv: list[str]) -> int:
         "dense_sweep": 9, "cluster_cull": 0, "job_sweep": 0,
         "cluster_cull_keyed": 0, "scan_sweep": 0, "shade_rows": 8,
         "fetch_rows": 0, "fetch_quad": 0, "bvh_closest": 0, "bvh_shadow": 0,
-        "bvh_shade": 0}
+        "bvh_shade": 0, "bvh_walk": 0, "all_reduce": 0}
     textured_shades = drive(
         "textured quad 1080p traced", 8, tq_launches,
         lambda: frames(tq_tables, tq_cam, *hd, 8, "textured_1080p",
@@ -3337,7 +3341,7 @@ def main(argv: list[str]) -> int:
         "dense_sweep": 0, "cluster_cull": 0, "job_sweep": 0,
         "cluster_cull_keyed": 9, "scan_sweep": 9, "shade_rows": 8,
         "fetch_rows": 0, "fetch_quad": 0, "bvh_closest": 0, "bvh_shadow": 0,
-        "bvh_shade": 0}
+        "bvh_shade": 0, "bvh_walk": 0, "all_reduce": 0}
     scan_sp = []
     drive("spheres 512^2 traced narrow=scan", 4, scan_launches,
           lambda: scan_sp.append(frames(sp_tables, sp_cam, width, height, 4,
@@ -3384,7 +3388,8 @@ def main(argv: list[str]) -> int:
 
     drive("get_tracer bvh + dense, cornell 512^2", 1,
           {**rows_launches(False), "bvh_closest": DEPTH,
-           "bvh_shadow": DEPTH, "bvh_shade": DEPTH}, both_tracers, totals)
+           "bvh_shadow": DEPTH, "bvh_walk": 2 * DEPTH, "bvh_shade": DEPTH},
+          both_tracers, totals)
     shard_out = sharding_on_one_card(dev, totals, "--profile" in argv)
 
     # The frame steps eager and captured on every Renderer cell.

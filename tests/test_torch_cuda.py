@@ -255,7 +255,8 @@ def test_max_depth_zero_on_card(cuda):
     assert counts == {"dense_sweep": 2, "shade_rows": 0, "fetch_rows": 1,
                       "fetch_quad": 0, "cluster_cull": 0, "job_sweep": 0,
                       "cluster_cull_keyed": 0, "scan_sweep": 0,
-                      "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0}
+                      "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
+                      "bvh_walk": 0, "all_reduce": 0}
     assert frames[1].mean() > 0.01
     close = torch.isclose(frames[1], frames[0], rtol=1e-3, atol=1e-5).all(1)
     assert close.float().mean() >= 0.95
@@ -353,7 +354,8 @@ def test_renderer_on_card_counts_launches(cuda):
                           "fetch_rows": 0, "fetch_quad": 0,
                           "cluster_cull": 0, "job_sweep": 0,
                           "cluster_cull_keyed": 0, "scan_sweep": 0,
-                          "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0}
+                          "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
+                          "bvh_walk": 0, "all_reduce": 0}
 
 
 @pytest.mark.parametrize("n,k", [(1, 40), (40, 40), (1408, 40), (300, 3)])
@@ -443,7 +445,8 @@ def test_textured_renderer_on_card_counts_launches(cuda):
                           "fetch_rows": 2 * 1, "fetch_quad": 2 * 1,
                           "cluster_cull": 0, "job_sweep": 0,
                           "cluster_cull_keyed": 0, "scan_sweep": 0,
-                          "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0}
+                          "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
+                          "bvh_walk": 0, "all_reduce": 0}
 
 
 # --- the job-stream path (multi-tile scenes) ---------------------------------
@@ -535,7 +538,8 @@ def test_renderer_spheres_on_card_counts_launches(cuda):
                           "job_sweep": 2 * 4, "shade_rows": 2 * 3,
                           "fetch_rows": 0, "fetch_quad": 0,
                           "cluster_cull_keyed": 0, "scan_sweep": 0,
-                          "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0}
+                          "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
+                          "bvh_walk": 0, "all_reduce": 0}
 
 
 # --- the scan path (narrow="scan") -------------------------------------------
@@ -717,7 +721,8 @@ def test_renderer_spheres_scan_on_card_counts_launches(cuda):
                           "job_sweep": 0, "cluster_cull_keyed": 2 * 4,
                           "scan_sweep": 2 * 4, "shade_rows": 2 * 3,
                           "fetch_rows": 0, "fetch_quad": 0,
-                          "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0}
+                          "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
+                          "bvh_walk": 0, "all_reduce": 0}
 
 
 # --- the cooperative walk behind the queue of touching lanes -----------------
@@ -1056,6 +1061,7 @@ def test_bvh_walk_matches_plain(cuda, scene_name):
     assert 0 < int(occ_p.sum()) < R
     assert kernels.launches["bvh_closest"] == before["bvh_closest"] + 2
     assert kernels.launches["bvh_shadow"] == before["bvh_shadow"] + 2
+    assert kernels.launches["bvh_walk"] == before["bvh_walk"] + 4
 
 
 def test_bvh_walk_edges(cuda):
@@ -1099,7 +1105,8 @@ def test_bvh_trace_on_card_counts_launches(cuda):
         frames.append(trace_pixels(scene, cam, 1, torch.zeros(2, device=dev),
                                    32, 32, 2, 3).cpu())
     counts = {k: v for k, v in kernels.launches.items() if v}
-    assert counts == {"bvh_closest": 6, "bvh_shadow": 6, "bvh_shade": 6}
+    assert counts == {"bvh_closest": 6, "bvh_shadow": 6, "bvh_walk": 12,
+                      "bvh_shade": 6}
     assert frames[1].mean() > 0.05
     close = torch.isclose(frames[1], frames[0], rtol=1e-3, atol=1e-5).all(1)
     assert close.float().mean() >= 0.95
@@ -1599,8 +1606,8 @@ def test_capture_of_a_host_sync_in_a_sharded_step_raises(nccl_world,
 
     def syncing(backend):
         def tracer(*args, **kwargs):
-            col = real(backend)(*args, **kwargs)
-            return col * float(col.sum())
+            col, rays = real(backend)(*args, **kwargs)
+            return col * float(col.sum()), rays
         return tracer
 
     step = _sharded("sample", nccl_world, "bvh")

@@ -25,12 +25,31 @@ In this process, a gloo world of one rank runs `ShardedStep` through
 (two graphs with the all-reduce between them, gloo's form on the card)
 equal the eager step bit for bit over three frames, one capture per body
 and none per frame.
+
+The ray count and the restated step: in the 2- and 4-rank
+worlds each rank's `last_rays` equals the one-process `with_stats` count
+of its own rows or samples exactly, and the ranks' counts summed equal
+the whole frame's; the tile, sample and 2-D accumulators equal the step
+restated by hand (tracer, share, all-reduce, `accumulate`) bit for bit;
+`launches["all_reduce"]` counts one a collective. The 4-rank BVH sample
+step of cornell at 32 x 18, depth 8, 4 samples a frame passes the
+benchmark's output check (`portbench/lib/check.py` against the plain
+reference, `portbench/limits/cornell1080-sample4.json`) with every number
+at 0; its bfloat16 control does not, nor does the step under each fault
+a sharded step can have, planted at its seams (a stream left out, the
+streams shifted by one, the share scaled by 1 / spp_per, one rank's
+accumulator altered, the ray count altered). Under `tracing()` the world of
+one records the spans `sharded.step` > `sharded.inputs` (and
+`sharded.all_reduce` on the split path) and counts `sharded_steps` and
+`all_reduce_bytes`; with tracing off it records no span.
 """
 
+import json
 import os
 import socket
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import jax
@@ -45,6 +64,9 @@ from webgpu_raytracer_tpu.parallel import sharding as jax_sharding
 from webgpu_raytracer_tpu.render.resources import \
     build_device_scene as jax_scene
 from webgpu_raytracer_tpu.render.worldtris import build_world_tris
+from portbench.lib import check
+from portbench.reference import pathtrace as pt
+from webgpu_raytracer_tpu_torch import kernels
 from webgpu_raytracer_tpu_torch.ops.api import get_tracer
 from webgpu_raytracer_tpu_torch.ops.trace import accumulate
 from webgpu_raytracer_tpu_torch.parallel import sharding
@@ -52,14 +74,21 @@ from webgpu_raytracer_tpu_torch.render import renderer as prr
 from webgpu_raytracer_tpu_torch.render.renderer import (CapturedSteps,
                                                         EagerSteps, step_key)
 from webgpu_raytracer_tpu_torch.utils.halton import frame_jitter
+from webgpu_raytracer_tpu_torch.utils.profiling import (counters, spans,
+                                                        tracing)
 
 from tests.torch_common import record_eagerly
-from tests.torch_shard_worker import (BACKENDS, DEPTH, FRAMES, H, SPP_2D,
-                                      SPP_SAMPLE, SPP_TILE, W, progressive,
-                                      shard_scenes)
+from tests.torch_shard_worker import (BACKENDS, CHECK_DEPTH, CHECK_FRAMES,
+                                      CHECK_H, CHECK_SPP, CHECK_W, DEPTH,
+                                      FAULTS, FRAMES, H, SPP_2D, SPP_SAMPLE,
+                                      SPP_TILE, W, progressive, shard_scenes)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_shard_worker.py")
+BENCH_CONFIG = os.path.join(REPO, "portbench", "configs",
+                            "cornell_1920x1080_d8.json")
+BENCH_LIMITS = os.path.join(REPO, "portbench", "limits",
+                            "cornell1080-sample4.json")
 JOIN_TIMEOUT_S = 240
 
 
@@ -332,3 +361,184 @@ def test_sharded_steps_of_one_signature_keep_their_own_graphs(
     two_d = _make("2d", world_of_one)
     assert step_key(two_d._body, args, two_d.static) \
         != step_key(a._body, args, a.static)
+
+
+# -- the ranks' ray counts, and the steps restated by hand --------------------
+
+@pytest.fixture(scope="module")
+def scenes():
+    return shard_scenes()
+
+
+def _slice_rays(scenes, backend, kind, world, coord) -> float:
+    """One process's `with_stats` ray count of a rank's part of frame 1:
+    its rows (tile), its samples (sample) or both (2-D, coord (tile,
+    sample) on a 2 x 2 mesh)."""
+    cam, by_backend = scenes
+    if kind == "tile":
+        rows, spp, total, row0, sample0 = (H // world, SPP_TILE, SPP_TILE,
+                                           coord * (H // world), 0)
+    elif kind == "sample":
+        spp = SPP_SAMPLE // world
+        rows, total, row0, sample0 = H, SPP_SAMPLE, 0, coord * spp
+    else:
+        rows, spp = H // 2, SPP_2D // 2
+        total, row0, sample0 = SPP_2D, coord[0] * rows, coord[1] * spp
+    _, rays = get_tracer(backend)(by_backend[backend], cam, 1, torch.zeros(2),
+                                  W, rows, spp, DEPTH, row0=row0,
+                                  full_height=H, total_spp=total,
+                                  sample0=sample0, with_stats=True)
+    return float(rays)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("kind", ["tile", "sample"])
+def test_each_ranks_last_rays_is_its_own_slice(ranks, scenes, world,
+                                                backend, kind):
+    got = [float(r[f"rays_{kind}_{backend}"]) for r in ranks[world]]
+    assert got == [_slice_rays(scenes, backend, kind, world, rank)
+                   for rank in range(world)]
+    cam, by_backend = scenes
+    spp = SPP_TILE if kind == "tile" else SPP_SAMPLE
+    _, whole = get_tracer(backend)(by_backend[backend], cam, 1,
+                                   torch.zeros(2), W, H, spp, DEPTH,
+                                   with_stats=True)
+    assert sum(got) == float(whole) > W * H
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_2d_ranks_last_rays_are_their_own_slices(ranks, scenes, backend):
+    for r in ranks[4]:
+        coord = tuple(int(c) for c in r["coord"])
+        assert float(r[f"rays_tile_sample_{backend}"]) == _slice_rays(
+            scenes, backend, "2d", 4, coord)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("kind,world", [("tile", 2), ("tile", 4),
+                                        ("sample", 2), ("sample", 4),
+                                        ("tile_sample", 4)])
+def test_accumulator_bit_equal_to_the_step_restated(ranks, kind, world,
+                                                    backend):
+    for r in ranks[world]:
+        np.testing.assert_array_equal(
+            r[f"{kind}_{backend}"].view(np.int32),
+            r[f"hand_{kind}_{backend}"].view(np.int32))
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_step_launches_count_one_all_reduce_a_call(ranks, world):
+    for r in ranks[world]:
+        for b in BACKENDS:
+            assert int(r[f"all_reduce_tile_{b}"]) == 0
+            assert int(r[f"all_reduce_sample_{b}"]) == 1
+            if world == 4:
+                assert int(r[f"all_reduce_tile_sample_{b}"]) == 1
+
+
+# -- the 4-rank BVH sample step under the benchmark's output check ------------
+
+def _bench_snapshots(four, case) -> list:
+    """Rank 0's snapshots of CHECK_FRAMES of `case` ("ok" or a fault) as
+    the benchmark's sharded loop takes them: streams, jitter, every rank's
+    sums and the rays summed."""
+    snaps = []
+    for f in CHECK_FRAMES:
+        key = f"check_{case}_{{}}_{f}".format
+        snaps.append(dict(
+            frame=f, pixels=torch.arange(CHECK_W * CHECK_H),
+            before=torch.from_numpy(four[0][key("before")]),
+            after=torch.from_numpy(four[0][key("after")]),
+            rays=sum(float(r[key("rays")]) for r in four), time=0.0,
+            streams=[f * CHECK_SPP + i for i in range(CHECK_SPP)],
+            jitter=pt.frame_jitter(f, CHECK_W, CHECK_H),
+            rank_sums=[r[key("sum")].tolist() for r in four]))
+    return snaps
+
+
+def _bench_check(four, case="ok", control=False) -> tuple:
+    with open(BENCH_CONFIG) as f:
+        cfg = dict(json.load(f), width=CHECK_W, height=CHECK_H,
+                   max_depth=CHECK_DEPTH)
+    with open(BENCH_LIMITS) as f:
+        limits = json.load(f)
+    numbers, facts = check.check(SimpleNamespace(
+        snapshots=_bench_snapshots(four, case)), cfg, "cpu", control=control)
+    assert set(numbers) == set(limits)
+    return numbers, limits, facts
+
+
+def test_four_rank_bvh_sample_step_passes_the_benchmark_check(ranks):
+    numbers, limits, facts = _bench_check(ranks[4])
+    assert facts["checked"] == len(CHECK_FRAMES) * CHECK_W * CHECK_H
+    assert all(v == 0.0 for v in numbers.values()), numbers
+    assert all(v <= limits[k] for k, v in numbers.items())
+
+
+def test_four_rank_bvh_sample_step_control_fails_the_check(ranks):
+    """The reference in bfloat16, in the program's place."""
+    numbers, limits, _ = _bench_check(ranks[4], control=True)
+    assert not all(v <= limits[k] for k, v in numbers.items()), numbers
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+def test_four_rank_bvh_sample_step_fault_fails_the_check(ranks, fault):
+    """Each fault planted in the step (`torch_shard_worker.planted`) comes
+    out not correct."""
+    numbers, limits, _ = _bench_check(ranks[4], fault)
+    assert not all(v <= limits[k] for k, v in numbers.items()), numbers
+
+
+# -- spans and counters --------------------------------------------------------
+
+def _newest_span_id() -> int:
+    return max((s.id for s in spans()), default=0)
+
+
+@pytest.mark.parametrize("kind,split", [("tile", False), ("sample", False),
+                                        ("sample", True), ("2d", False),
+                                        ("2d", True)])
+def test_sharded_step_spans_and_counters(world_of_one, captured, kind,
+                                         split):
+    """Two calls under `tracing()`: a `sharded.step` span a call (frame id
+    the frame count) holding `sharded.inputs` and, on the split path,
+    `sharded.all_reduce`; `sharded_steps` 2, `all_reduce_bytes` the
+    (H*W, 3) f32 shares twice where a group reduces, `kernels.launches`
+    one all-reduce a call there; `last_rays` the call's own count. A third
+    call with tracing off records no span and still counts."""
+    cam, by_backend = shard_scenes()
+    step = _make(kind, world_of_one)
+    step.steps, step.split = CapturedSteps("cpu"), split
+    acc = torch.zeros((W * H, 4))
+    reduces = kind != "tile"
+    first = _newest_span_id()
+    before, launched = counters(), kernels.launches["all_reduce"]
+    with tracing():
+        for f in (1, 2):
+            step(by_backend["bvh"], cam, f, torch.zeros(2), acc)
+    new = [s for s in spans() if s.id > first]
+    outer = [s for s in new if s.name == "sharded.step"]
+    assert [s.frame for s in outer] == [1, 2]
+    assert all(s.parent == 0 for s in outer)
+    for name in ("sharded.inputs", "sharded.all_reduce"):
+        inner = [s for s in new if s.name == name]
+        assert len(inner) == (0 if name == "sharded.all_reduce" and not split
+                              else 2), name
+        assert [s.parent for s in inner] == [s.id for s in outer][
+            :len(inner)]
+        assert [s.frame for s in inner] == [1, 2][:len(inner)]
+    after = counters()
+    assert after["sharded_steps"] - before.get("sharded_steps", 0) == 2
+    assert after.get("all_reduce_bytes", 0) \
+        - before.get("all_reduce_bytes", 0) == 2 * reduces * W * H * 3 * 4
+    assert kernels.launches["all_reduce"] - launched == 2 * reduces
+    spp = SPP_TILE if kind == "tile" else 2
+    _, rays = get_tracer("bvh")(by_backend["bvh"], cam, 2, torch.zeros(2), W,
+                                H, spp, DEPTH, with_stats=True)
+    assert float(step.last_rays) == float(rays)
+
+    first = _newest_span_id()
+    step(by_backend["bvh"], cam, 3, torch.zeros(2), acc)
+    assert _newest_span_id() == first
+    assert counters()["sharded_steps"] - after["sharded_steps"] == 1

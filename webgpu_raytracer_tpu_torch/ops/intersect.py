@@ -376,6 +376,7 @@ def walk_cuda(scene, ro, rd, t_min: float, t_max, active, any_hit: bool,
             p(stats.tris if stats else None), kernels.stream(dev))
     kernels.raise_on_error(code, "bvh_walk")
     kernels.launches["bvh_shadow" if any_hit else "bvh_closest"] += 1
+    kernels.launches["bvh_walk"] += 1
     return out
 
 

@@ -39,9 +39,11 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from .. import kernels
 from ..ops.api import get_tracer
 from ..ops.trace import accumulate
 from ..render.renderer import CapturedSteps, EagerSteps
+from ..utils.profiling import count, span
 
 AXIS = "shard"
 
@@ -95,7 +97,20 @@ class ShardedStep:
     the graph's, and a later call copies in any tensor that is not one of
     them; an accumulator that is not the graph's is copied in, and the
     result back into it (the graph's accumulator then holds it too, as a
-    donated buffer is not read again)."""
+    donated buffer is not read again).
+
+    After a call, `last_rays` is the exact float64 device count of the rays
+    this rank traced (its own samples, not scaled by its share; None before
+    the first call), unread until needed, as `Renderer.last_rays`; the
+    ranks' counts summed are the frame's.
+
+    Spans: `sharded.step` (its frame id the frame count given as an int),
+    with `sharded.inputs` (the frame count's fill), the steps' own and, on
+    the split path, `sharded.all_reduce` (the collective through the host).
+    Counters: `sharded_steps`, one a call, and `all_reduce_bytes`, the
+    bytes a call's all-reduce sums."""
+
+    last_rays = None
 
     def __init__(self, mesh: DeviceMesh, static: dict, group=None):
         self.static = static
@@ -110,49 +125,61 @@ class ShardedStep:
         self._col = None  # the split step's shares, its first graph's output
 
     def __call__(self, scene, camera, frame_count, jitter, accum):
-        if not isinstance(frame_count, torch.Tensor):
-            frame_count = self._frame.fill_(frame_count)
-        if self.split:
-            if self._col is None:
-                self._col = torch.empty((accum.shape[0], 3),
-                                        device=accum.device)
-            (col,), _ = self.steps.run(
-                self._before, (scene, camera, frame_count, jitter,
-                               self._col), self.static, donate=(4,))
-            self._all_reduce(col)
-            (out,), _ = self.steps.run(self._after, (col, frame_count, accum),
-                                       self.static, donate=(2,))
-        else:
-            (out,), _ = self.steps.run(
-                self._body, (scene, camera, frame_count, jitter, accum),
-                self.static, donate=(4,))
+        frame = frame_count if isinstance(frame_count, int) else None
+        with span("sharded.step", frame):
+            with span("sharded.inputs"):
+                if not isinstance(frame_count, torch.Tensor):
+                    frame_count = self._frame.fill_(frame_count)
+            if self.split:
+                if self._col is None:
+                    self._col = torch.empty((accum.shape[0], 3),
+                                            device=accum.device)
+                (col, rays), _ = self.steps.run(
+                    self._before, (scene, camera, frame_count, jitter,
+                                   self._col), self.static, donate=(4,))
+                with span("sharded.all_reduce"):
+                    self._all_reduce(col)
+                (out,), _ = self.steps.run(
+                    self._after, (col, frame_count, accum), self.static,
+                    donate=(2,))
+            else:
+                (out, rays), _ = self.steps.run(
+                    self._body, (scene, camera, frame_count, jitter, accum),
+                    self.static, donate=(4,))
+            self.last_rays = rays
+            count("sharded_steps")
+            if self.group is not None:
+                count("all_reduce_bytes", 3 * 4 * accum.shape[0])
         return out if out is accum else accum.copy_(out)
 
     def _share(self, scene, camera, frame_count, jitter, *, width, rows_per,
                spp_per, max_depth, backend, row0, sample0, full_height,
                total_spp):
-        """This rank's radiance, scaled by its share of the frame's samples
-        where an all-reduce sums the shares."""
-        col = get_tracer(backend)(scene, camera, frame_count, jitter, width,
-                                  rows_per, spp_per, max_depth, row0=row0,
-                                  full_height=full_height,
-                                  total_spp=total_spp, sample0=sample0)
-        return col if self.group is None else col * (spp_per / total_spp)
+        """(this rank's radiance, scaled by its share of the frame's samples
+        where an all-reduce sums the shares; the rank's exact ray count)."""
+        col, rays = get_tracer(backend)(
+            scene, camera, frame_count, jitter, width, rows_per, spp_per,
+            max_depth, row0=row0, full_height=full_height,
+            total_spp=total_spp, sample0=sample0, with_stats=True)
+        return (col if self.group is None
+                else col * (spp_per / total_spp)), rays
 
     def _all_reduce(self, col):
         dist.all_reduce(col, op=dist.ReduceOp.SUM, group=self.group)
+        kernels.launches["all_reduce"] += 1
 
     def _body(self, scene, camera, frame_count, jitter, accum, **static):
         """The whole step: trace, scale, all-reduce, accumulate."""
-        col = self._share(scene, camera, frame_count, jitter, **static)
+        col, rays = self._share(scene, camera, frame_count, jitter, **static)
         if self.group is not None:
             self._all_reduce(col)
-        return (accumulate(accum, col, frame_count),)
+        return accumulate(accum, col, frame_count), rays
 
     def _before(self, scene, camera, frame_count, jitter, col, **static):
         """The split step's first graph: the scaled share, into `col`."""
-        return (col.copy_(self._share(scene, camera, frame_count, jitter,
-                                      **static)),)
+        share, rays = self._share(scene, camera, frame_count, jitter,
+                                  **static)
+        return col.copy_(share), rays
 
     def _after(self, col, frame_count, accum, **static):
         """The split step's second graph: accumulate the summed shares."""
