@@ -201,6 +201,7 @@ from webgpu_raytracer_tpu_torch.ops.dense import (T_MAX, closest_plain,
                                                   scan_closest_plain,
                                                   shadow_plain,
                                                   worklist_mask)
+from webgpu_raytracer_tpu_torch.ops import tune
 from webgpu_raytracer_tpu_torch.ops.tune import M_TILE2, M_TILE3
 from webgpu_raytracer_tpu_torch.ops.dense_trace import (
     BASE, EMISSIVE, METAL_ROUGH, NORMAL, bounce_inputs, bounce_rays,
@@ -260,7 +261,7 @@ CULL_OPS = 25    # f32 operations per lane x cluster test (cluster_cull.cu)
 KEYED_CULL_OPS = 30  # the same test with its root, quotient and key
 CULL_EDGE_GROUPS = 64  # lane groups of the culls' dead-lane stacks
 JOB_PLAIN_GROUPS = 256  # lane groups the plain job sweep is held on
-JOB_STATS_GROUPS = 32  # lane groups the job kernel's stats are held on
+JOB_STATS_GROUPS = 32  # one-chunk groups the job kernel's stats are held on
 SCAN_PLAIN_TILES = 4  # ray tiles per segment the plain scan path is held on
 BVH_NODE_OPS = 25  # f32 operations of one node's slab test (bvh_walk.cu)
 # f32 operations of one Moller-Trumbore test on the packed (p0, e1, e2):
@@ -990,16 +991,26 @@ def check_jobs(tables, camera, width, height) -> list[dict]:
     assert all(bits_equal(a, b) for a, b in zip(again, (t, idx, rows))), \
         "job sweep differs between two launches"
     assert torch.equal(jobs(True), occ), "job sweep occlusion, two launches"
+    chunk = tune.JOB_CHUNK
     for st in (stats, stats_any):
         assert torch.equal(st[:, 2], counts), "stats: worklist lengths"
+        assert torch.equal(st[:, 3], (counts + chunk - 1) // chunk), \
+            "stats: chunks"
         assert (st[:, 0] <= st[:, 2]).all() and (st[:, 1] >= st[:, 0]).all()
         assert (st[:, 1] <= g * st[:, 0]).all()
-    sub_st = (rays_s[:, :JOB_STATS_GROUPS * g], order[:JOB_STATS_GROUPS],
-              counts[:JOB_STATS_GROUPS])
-    assert int(sub_st[2].sum()) > 0, "the groups held on stats are empty"
+    # A worklist walked in one chunk counts what the plain walk counts; a
+    # split one's chunks prune one another as they finish.
+    held = torch.nonzero((counts > 0) & (counts <= chunk)).flatten()
+    held = held[:JOB_STATS_GROUPS]
+    assert held.numel() > 0, "no non-empty group is walked in one chunk"
+    lanes_st = (held[:, None] * g + torch.arange(g, device=held.device)
+                ).flatten()
+    sub_st = (rays_s[:, lanes_st], order[held], counts[held])
     for any_hit, st in ((False, stats), (True, stats_any)):
-        assert torch.equal(jobs_stats_plain(tables, *sub_st, g, any_hit),
-                           st[:JOB_STATS_GROUPS].cpu()), "plain job stats"
+        assert torch.equal(jobs_stats_plain(tables, *sub_st, g, any_hit,
+                                            chunk),
+                           st[held].cpu()), "plain job stats"
+    split = counts > chunk
     hits = float((idx >= 0).float().mean())
     assert 0.05 < hits < 1.0, f"implausible hit fraction {hits}"
     L = JOB_PLAIN_GROUPS * g
@@ -1014,8 +1025,10 @@ def check_jobs(tables, camera, width, height) -> list[dict]:
           f"tiles, occlusion equal; hits {hits:.3f}, occluded "
           f"{float(occ.float().mean()):.3f}; bit-equal to the plain job "
           f"sweep on the first {JOB_PLAIN_GROUPS} groups, stats equal to "
-          f"the plain count on the first {JOB_STATS_GROUPS}; two launches "
-          f"bit-equal")
+          f"the plain count on {held.numel()} groups walked in one chunk; "
+          f"two launches bit-equal; chunks of {chunk}: "
+          f"{int(split.sum())} of {int((counts > 0).sum())} non-empty groups "
+          f"split, {int(stats[:, 3].sum())} chunks")
 
     sort_ms = device_ms(lambda: coherence_sort(rays8, tables.box, g, R),
                         PLAIN_LAUNCHES)

@@ -19,10 +19,13 @@ import chip_smoke
 from webgpu_raytracer_tpu_torch import NativeWorld, Renderer, RenderConfig
 from webgpu_raytracer_tpu_torch import kernels
 from webgpu_raytracer_tpu_torch.ops import (bvh_shade, cuda_dense, cuda_fetch,
-                                            cuda_jobs, cuda_scan, shade_rows)
+                                            cuda_jobs, cuda_scan, shade_rows,
+                                            tune)
 from webgpu_raytracer_tpu_torch.ops.cluster_cull import (keys_plain,
+                                                         lane_terms, pair_ok,
                                                          worklists_plain)
 from webgpu_raytracer_tpu_torch.ops.dense import (T_MAX, closest_plain,
+                                                  jobs_chunked_plain,
                                                   jobs_closest_plain,
                                                   jobs_stats_plain,
                                                   ray_stack, rows_plain,
@@ -39,6 +42,8 @@ from webgpu_raytracer_tpu_torch.ops.rng import init_rng
 from webgpu_raytracer_tpu_torch.ops.v3 import V3
 from webgpu_raytracer_tpu_torch.render.worldtris import (build_world_tables,
                                                          tri_pad)
+
+from tests.torch_ties import cross_tile_tie
 
 pytestmark = pytest.mark.cuda
 RES = 64
@@ -732,12 +737,56 @@ def _bits(a):
     return a.view(torch.int32) if a.dtype == torch.float32 else a
 
 
+def _groups(rays_s, order, counts, sel, g):
+    """The sorted stack, worklists and counts of the groups `sel` alone."""
+    lanes = (sel[:, None] * g + torch.arange(g, device=sel.device)).flatten()
+    return rays_s[:, lanes], order[sel], counts[sel]
+
+
+def _hold_job_stats(tables, rays_s, order, counts, g, any_hit, stats,
+                    t_end):
+    """A group walked in one job counts what the plain one walk counts. A
+    split group's chunks prune one another as they finish, so its pairs
+    lie between the pairs its lanes' final segments (up to t_end) touch
+    and those of its chunks each walked from t_max (and so its tiles, up to
+    those). The chunk column is ceil(count / L) for every group."""
+    L = tune.JOB_CHUNK
+    stats = stats.cpu()
+    c = counts.cpu()
+    assert torch.equal(stats[:, 2], c)
+    assert torch.equal(stats[:, 3], (c + L - 1) // L)
+    whole = torch.nonzero(counts <= L).flatten()
+    split = torch.nonzero(counts > L).flatten()
+    if whole.numel():
+        sub = _groups(rays_s, order, counts, whole, g)
+        assert torch.equal(stats[whole.cpu()],
+                           jobs_stats_plain(tables, *sub, g, any_hit, L))
+    if split.numel():
+        sub = _groups(rays_s, order, counts, split, g)
+        apart = jobs_chunked_plain(tables, *sub, g, any_hit, L,
+                                   from_t_max=True)[3]
+        ct = tables.spheres.shape[0]
+        listed = worklist_mask(sub[1], sub[2], ct).repeat_interleave(g, 0).T
+        lanes = (split[:, None] * g
+                 + torch.arange(g, device=split.device)).flatten()
+        needed = (pair_ok(sub[0], lane_terms(sub[0], tables.box)[0],
+                          t_end[lanes], tables.spheres)
+                  & listed).sum(0).view(-1, g).sum(1).int().cpu()
+        mine = stats[split.cpu()]
+        assert (needed <= mine[:, 1]).all()
+        assert (mine[:, 1] <= apart[:, 1]).all()
+        assert (mine[:, 0] <= apart[:, 0]).all()
+    return int(split.numel())
+
+
 def _narrow_kernels_agree(tables, rays8, kernel):
     """One narrow-phase kernel (`"jobs"` at g = 128, `"scan"` at m = 1,024)
     on a whole stack: t, idx, rows and occlusion bit-equal to
     `dense_sweep.cu` walking every tile and to the plain versions, the same
-    from a second launch (the queue's order varies), stats equal to the
-    plain count. Returns (idx, stats, stats_any, block size)."""
+    from a second launch (the queue's order varies, and a split worklist's
+    chunks finish in any order), stats equal to the plain count (the job
+    sweep's: for a worklist walked in one chunk; `_hold_job_stats`).
+    Returns (idx, stats, stats_any, block size, split groups)."""
     R = rays8.shape[1]
     t_f, idx_f, rows_f = cuda_dense.full_sweep(tables, rays8, False)
     occ_f = cuda_dense.full_sweep(tables, rays8, True)
@@ -756,8 +805,6 @@ def _narrow_kernels_agree(tables, rays8, kernel):
                                        any_hit, with_stats=stats)
 
         t_s, i_s = jobs_closest_plain(tables, rays_s, *lists, b)
-        plain_stats = [jobs_stats_plain(tables, rays_s, *lists, b, a)
-                       for a in (False, True)]
     else:
         b = 1024
         rays_s, perm = coherence_sort(rays8, tables.box, b, 0)
@@ -784,9 +831,19 @@ def _narrow_kernels_agree(tables, rays8, kernel):
     keep = perm.long() < R
     assert torch.equal(i_s[keep], idx[perm.long()[keep]])
     assert torch.equal(_bits(t_s[keep]), _bits(t[perm.long()[keep]]))
-    assert torch.equal(stats.cpu(), plain_stats[0])
-    assert torch.equal(stats_any.cpu(), plain_stats[1])
-    return idx, stats, stats_any, b
+    split = 0
+    if kernel == "jobs":
+        live = rays_s[6] > 0.0
+        lane = perm.long().clamp(max=R - 1)
+        t_end = torch.where(live, t_s, 0.0)
+        split = _hold_job_stats(tables, rays_s, *lists, b, False, stats,
+                                t_end)
+        t_end = torch.where(live & ~occ[lane], rays_s[6], 0.0)
+        _hold_job_stats(tables, rays_s, *lists, b, True, stats_any, t_end)
+    else:
+        assert torch.equal(stats.cpu(), plain_stats[0])
+        assert torch.equal(stats_any.cpu(), plain_stats[1])
+    return idx, stats, stats_any, b, split
 
 
 def _pairs_and_tiles(stats, kernel):
@@ -849,7 +906,8 @@ def test_narrow_kernels_every_lane_touches_the_same_tiles(cuda, kernel):
     one = ray_stack(ro, rd, torch.full((RES * RES,), T_MAX,
                                        device=cuda))[:, mid:mid + 1]
     rays8 = one.expand(8, 2048).contiguous()
-    idx, stats, stats_any, b = _narrow_kernels_agree(tables, rays8, kernel)
+    idx, stats, stats_any, b, _ = _narrow_kernels_agree(tables, rays8,
+                                                         kernel)
     assert int(idx[0]) >= 0 and (idx == idx[0]).all()
     for st in (stats, stats_any):
         pairs, tiles = _pairs_and_tiles(st, kernel)
@@ -867,7 +925,8 @@ def test_narrow_kernels_one_live_lane(cuda, bounce_stacks, kernel):
     keep = torch.zeros(2 * R, dtype=torch.bool, device=cuda)
     keep[live] = True
     rays8[6] = torch.where(keep, rays8[6], 0.0)
-    idx, stats, stats_any, _ = _narrow_kernels_agree(tables, rays8, kernel)
+    idx, stats, stats_any, *_ = _narrow_kernels_agree(tables, rays8,
+                                                      kernel)
     assert int((idx >= 0).sum()) == 1
     for st in (stats, stats_any):
         pairs, tiles = _pairs_and_tiles(st, kernel)
@@ -889,6 +948,67 @@ def test_narrow_kernels_ragged_last_tile(cuda, kernel):
     idx, *_ = _narrow_kernels_agree(tables, rays8, kernel)
     assert int((idx >= last).sum()) > 100
     assert int(idx.max()) < tables.valid_count
+
+
+@pytest.mark.parametrize("chunk", [1, 7, tune.JOB_CHUNK])
+def test_job_kernel_split_worklists(cuda, bounce_stacks, monkeypatch, chunk):
+    """spheres' fused bounce-1 stack with worklists cut into chunks of 1, 7
+    and `tune.JOB_CHUNK` entries, walked by several blocks at once and
+    merged by the tie rule: t, idx, rows and occlusion bit-equal to the
+    full sweep and the plain versions, the same from a second launch;
+    stats as `_hold_job_stats` says."""
+    tables, rays8, _ = bounce_stacks["spheres"]
+    monkeypatch.setattr(tune, "JOB_CHUNK", chunk)
+    *_, split = _narrow_kernels_agree(tables, rays8, "jobs")
+    assert split > 0
+
+
+@pytest.mark.parametrize("copy_up", [True, False])
+@pytest.mark.parametrize("chunk", [1, 7, tune.JOB_CHUNK])
+def test_job_kernel_cross_chunk_tie(cuda, bounce_stacks, monkeypatch, chunk,
+                                    copy_up):
+    """spheres' most-hit triangle on its fused bounce-1 stack gets a copy in
+    the tile at the far end of the id range from its own (or is moved there
+    and copied back into its own tile), the copy's index above the
+    original's with copy_up and below it without: the two tiles sit in
+    different chunks of worklists that hold both, and the lower index wins
+    on every tied lane, bit-equal to the full sweep."""
+    tables, rays8, _ = bounce_stacks["spheres"]
+    monkeypatch.setattr(tune, "JOB_CHUNK", chunk)
+    idx_f = cuda_dense.full_sweep(tables, rays8, False)[1]
+    hist = torch.bincount(idx_f[idx_f >= 0].long(),
+                          minlength=tables.valid_count)
+    home = int(torch.argmax(hist)) // 128
+    ct = tables.spheres.shape[0]
+    away = 0 if home > ct // 2 else ct - 1
+    tied, orig, copy = cross_tile_tie(tables, idx_f, home, away,
+                                      (away > home) != copy_up)
+    assert (copy > orig) == copy_up
+    low, high = min(orig, copy), max(orig, copy)
+    idx, *_ = _narrow_kernels_agree(tied, rays8, "jobs")
+    assert int((idx == low).sum()) >= 20 and not (idx == high).any()
+    # The ties are real: without the lower one, the same lanes hit the
+    # higher at the same t.
+    tw = tied.features.shape[1] // 5
+    gone = tied.features.clone().view(-1, 5, tw)
+    gone[:, :, low] = 0.0
+    t_c, idx_c, _ = cuda_dense.full_sweep(
+        tied._replace(features=gone.view(-1, 5 * tw).contiguous()), rays8,
+        False)
+    t_f, _, _ = cuda_dense.full_sweep(tied, rays8, False)
+    on_low = idx == low
+    assert (idx_c[on_low] == high).all()
+    assert torch.equal(_bits(t_c[on_low]), _bits(t_f[on_low]))
+    rays_s, _ = coherence_sort(rays8, tied.box, 128, 0)
+    order, counts = cuda_jobs.worklists(tied.spheres, rays_s, 128, tied.box)
+    pos = torch.full((counts.shape[0], ct), -1, dtype=torch.long,
+                     device=cuda)
+    k = torch.arange(ct, device=cuda).expand_as(order)
+    on = k < counts[:, None]
+    pos[torch.nonzero(on, as_tuple=True)[0], order[on].long()] = k[on]
+    both = (pos[:, home] >= 0) & (pos[:, away] >= 0)
+    assert both.any()
+    assert (pos[both, home] // chunk != pos[both, away] // chunk).any()
 
 
 # -- the product surface on the card ------------------------------------------

@@ -23,7 +23,14 @@ CPU.
   JAX `_run3` agrees but for the tied winners.
 - Stats: `job_sweep(with_stats=True)` counts, per group, the tiles and the
   (lane, tile) pairs that the kernel's per-lane sphere test lets through
-  (`jobs_stats_plain`), and leaves the outputs as they are.
+  (`jobs_stats_plain`), and the chunks of `tune.JOB_CHUNK` entries its
+  worklist is walked in, and leaves the outputs as they are.
+- The chunked walk (`jobs_chunked_plain`, the plain model of how the
+  kernel splits a long worklist over blocks and merges by the least
+  (t bits, index)): bit-equal to the one walk per group at chunk lengths 1,
+  2, 7 and unbounded, chunks first to last and last to first, on the
+  in-tile ties and on a tie between two tiles in different chunks, the
+  copy above and below the original's index (`tests/torch_ties.py`).
 - Dispatch: `cuda_dense` sends every multi-tile scene (and only those)
   through the job path.
 - Fixtures: `dense_trace.bounce_rays` gives the fused stack that the
@@ -41,9 +48,14 @@ from webgpu_raytracer_tpu_torch import kernels
 from webgpu_raytracer_tpu_torch.ops import cuda_dense, cuda_jobs, dense_trace
 from webgpu_raytracer_tpu_torch.ops.coherence import coherence_sort
 from webgpu_raytracer_tpu_torch.ops.cluster_cull import lane_terms, pair_ok
-from webgpu_raytracer_tpu_torch.ops.dense import (closest_plain, rows_plain,
-                                                  shadow_plain,
+from webgpu_raytracer_tpu_torch.ops.dense import (closest_plain,
+                                                  jobs_chunked_plain,
+                                                  jobs_closest_plain,
+                                                  jobs_shadow_plain,
+                                                  jobs_stats_plain,
+                                                  rows_plain, shadow_plain,
                                                   worklist_mask)
+from webgpu_raytracer_tpu_torch.ops.tune import JOB_CHUNK
 from webgpu_raytracer_tpu_torch.ops.fetch import device_pyramid
 from webgpu_raytracer_tpu_torch.ops.rng import init_rng
 from webgpu_raytracer_tpu_torch.utils.textures import (build_quad_pyramid,
@@ -55,6 +67,7 @@ from tests.test_two_level import (drain_world, grid_wt,  # noqa: F401
 from tests.torch_common import (assert_near_ties, camera_rays,
                                 jax_and_port_tables, job_cases, scaled_case,
                                 stack8, tie_case, TIE_NEXT, TIE_STRIDE)
+from tests.torch_ties import cross_tile_tie
 
 
 @pytest.fixture(scope="module")
@@ -197,8 +210,9 @@ def test_job_stats_count_the_touching_lanes(cases, case, any_hit):
     *out, stats = cuda_jobs.job_sweep(*args, with_stats=True)
     for a, b in zip(out, plain if isinstance(plain, tuple) else (plain,)):
         assert torch.equal(a, b)
-    assert stats.shape == (counts.shape[0], 3) and stats.dtype == torch.int32
+    assert stats.shape == (counts.shape[0], 4) and stats.dtype == torch.int32
     assert torch.equal(stats[:, 2], counts)
+    assert torch.equal(stats[:, 3], (counts + JOB_CHUNK - 1) // JOB_CHUNK)
     assert (stats[:, 0] <= stats[:, 2]).all()
     assert (stats[:, 1] >= stats[:, 0]).all()
     assert (stats[:, 1] <= g * stats[:, 0]).all()
@@ -224,6 +238,116 @@ def test_job_stats_count_the_touching_lanes(cases, case, any_hit):
         last = pairs(t_s)
     assert last <= int(stats[:, 1].sum()) <= first
     assert int(stats[:, 1].sum()) > 0 and (any_hit or last > 0)
+
+
+def _lists(tables, rays8, g=128):
+    """(sorted stack, order, counts) of the job path at group size g."""
+    rays_s, _ = coherence_sort(rays8, tables.box, g)
+    return (rays_s, *cuda_jobs.worklists(tables.spheres, rays_s, g,
+                                         tables.box))
+
+
+def _needed_pairs(tables, rays_s, order, counts, g, t_end):
+    """Per group, the (lane, tile) pairs on its worklist that the lane's
+    final segment, up to t_end, touches: what any walk must walk."""
+    ct = tables.spheres.shape[0]
+    listed = worklist_mask(order, counts, ct).repeat_interleave(g, 0).T
+    ok = pair_ok(rays_s, lane_terms(rays_s, tables.box)[0], t_end,
+                 tables.spheres) & listed
+    return ok.sum(0).view(-1, g).sum(1).int()
+
+
+def _hold_chunked_walk(tables, rays8, chunk, reverse, g=128):
+    """The chunked walk bit-equal to the one walk per group, in both modes;
+    its stats those of the one walk where a worklist is one chunk (and
+    everywhere when the chunks go first to last, each starting where the
+    last left off), between the pairs needed and the chunks walked all
+    from t_max. Returns the closest hit's (t, idx) in sorted order."""
+    rays_s, order, counts = _lists(tables, rays8, g)
+    t_p, i_p = jobs_closest_plain(tables, rays_s, order, counts, g)
+    occ_p = jobs_shadow_plain(tables, rays_s, order, counts, g)
+    ct = tables.spheres.shape[0]
+    whole = counts <= (chunk or ct)
+    assert (counts > 0).any()
+    for any_hit in (False, True):
+        t, idx, occ, stats = jobs_chunked_plain(tables, rays_s, order,
+                                                counts, g, any_hit, chunk,
+                                                reverse)
+        if any_hit:
+            assert torch.equal(occ, occ_p)
+            t_end = torch.where(occ, 0.0, rays_s[6])
+        else:
+            assert torch.equal(idx, i_p)
+            assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))
+            t_end = torch.where(rays_s[6] > 0.0, t, 0.0)
+        one = jobs_stats_plain(tables, rays_s, order, counts, g, any_hit,
+                               chunk or ct)
+        assert torch.equal(stats[:, 2:], one[:, 2:])
+        if not reverse:
+            assert torch.equal(stats, one)
+        assert torch.equal(stats[whole], one[whole])
+        apart = jobs_chunked_plain(tables, rays_s, order, counts, g, any_hit,
+                                   chunk, reverse, from_t_max=True)[3]
+        needed = _needed_pairs(tables, rays_s, order, counts, g, t_end)
+        assert (needed <= stats[:, 1]).all()
+        assert (stats[:, 1] <= apart[:, 1]).all()
+        assert (stats[:, 0] <= apart[:, 0]).all()
+    return t_p, i_p, rays_s
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("chunk", [1, 2, 7, None])
+def test_chunked_walk_bit_equal_to_one_walk(grid_wt, chunk,  # noqa: F811
+                                            reverse):
+    """On the in-tile ties of `tie_case` (copies one and 32 indices up in
+    the grid's first tile), the chunked walk keeps the one walk's winners,
+    t and occlusion."""
+    _, tables, copies, ro, rd, t_max = tie_case(grid_wt)
+    _, idx, _ = _hold_chunked_walk(tables, stack8(ro, rd, t_max), chunk,
+                                   reverse)
+    assert not copies[idx[idx >= 0].numpy()].any()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("chunk", [1, 2, 7, None])
+@pytest.mark.parametrize("copy_up", [True, False])
+def test_chunked_walk_cross_chunk_tie(cases, chunk, reverse, copy_up):
+    """The grid's most-hit triangle, in its first tile, gets a copy in its
+    last tile (copy_up: the copy's index above the original's), or is moved
+    to the last tile and copied back into the first (the copy's index
+    below): every lane that hits the pair ties on t bit for bit, and the
+    lower index wins through the chunked walk as through the full sweep,
+    whichever chunk publishes first. At chunk lengths 1 and 2 the two tiles
+    fall in different chunks of every worklist that holds both."""
+    tables, ro, rd, t_max, _ = cases["grid"]
+    rays8 = stack8(ro, rd, t_max)
+    last = tables.spheres.shape[0] - 1
+    tied, orig, copy = cross_tile_tie(tables, closest_plain(tables, rays8)[1],
+                                      0, last, not copy_up)
+    assert (copy > orig) == copy_up
+    low, high = min(orig, copy), max(orig, copy)
+    t_f, idx_f = closest_plain(tied, rays8)
+    on_pair = (idx_f == low) | (idx_f == high)
+    assert int(on_pair.sum()) >= 100 and (idx_f[on_pair] == low).all()
+    # The ties are real: without the lower one, the same lanes hit the
+    # higher at the same t.
+    tw = tied.features.shape[1] // 5
+    gone = tied.features.clone().view(-1, 5, tw)
+    gone[:, :, low] = 0.0
+    t_c, idx_c = closest_plain(tied._replace(
+        features=gone.view(-1, 5 * tw)), rays8)
+    assert (idx_c[on_pair] == high).all()
+    assert torch.equal(t_c[on_pair].view(torch.int32),
+                       t_f[on_pair].view(torch.int32))
+
+    _, idx, _ = _hold_chunked_walk(tied, rays8, chunk, reverse)
+    assert int((idx == low).sum()) == int(on_pair.sum())
+    assert not (idx == high).any()
+    _, order, counts = _lists(tied, rays8)
+    both = worklist_mask(order, counts, last + 1)[:, [0, last]].all(1)
+    assert both.any()
+    if chunk in (1, 2):
+        assert (counts[both] > chunk).all()
 
 
 def _count_sweeps(monkeypatch):

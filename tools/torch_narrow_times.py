@@ -15,7 +15,9 @@ carry the spheres' box (`WorldTables.box`), the sort and the culls take it
 as the main path gives it; a version whose tables have none takes the
 spheres and reduces them itself.
 
-Measured, all on `spheres` 512^2 depth 8 (the shapes `chip_smoke.py` times):
+    cd <checkout root> && python3 <this file> --chunks 32,64,128
+
+Measured on `spheres` 512^2 depth 8 (the shapes `chip_smoke.py` times):
 - the job sweep and the scan sweep of the fused bounce-1 sweep (524,288
   lanes), closest + rows and any-hit: device ms per call, 100 launches
   between one pair of CUDA events after 3 warm-ups;
@@ -27,11 +29,28 @@ Measured, all on `spheres` 512^2 depth 8 (the shapes `chip_smoke.py` times):
   over (one block on every SM);
 - frames 2..5 of `trace_pixels_dense` through `narrow="jobs"` and `"scan"`:
   wall ms per frame ending in a synchronise, and the mean radiance.
+
+and on the shapes of the benchmark's `spheres-interactive` cell, `spheres`
+720x480 depth 10 (`"cell"` in the JSON line): every job sweep of one frame
+(the primary sweep, then the ten fused shadow | extension sweeps), caught
+as `trace_pixels_dense` makes them and launched again, outside any graph:
+- each sweep's device ms a launch, as above, and their sum: the job-sweep
+  device ms of a frame;
+- its stats (`with_stats=True`): tiles and pairs walked, the worklist
+  lengths of the non-empty groups (quartiles, p90, max) and, where the
+  checkout splits worklists, the groups split and the chunks walked;
+- the group with the longest worklist alone, a stack of its own (one
+  block), and beside SPREAD - 1 empty groups (where a checkout splits
+  worklists, its chunks then spread over the card);
+- with `--chunks`, the same sweeps again with `tune.JOB_CHUNK` set to each
+  length given (a checkout that has it), their outputs held bit-equal to
+  the first launch's, with the pairs walked and chunks.
 Prints the card's name and power limit first, then one JSON line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -57,20 +76,23 @@ W = H = 512
 DEPTH = 8
 LAUNCHES = 100
 FRAMES = 5
+CELL_W, CELL_H, CELL_DEPTH = 720, 480, 10  # spheres-interactive's frame
+CELL_LAUNCHES = 40
+SPREAD = 1024  # groups of the stack that holds the longest one and no other
 
 
-def device_ms(fn) -> float:
+def device_ms(fn, launches: int = LAUNCHES) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(LAUNCHES):
+    for _ in range(launches):
         fn()
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / LAUNCHES
+    return a.elapsed_time(b) / launches
 
 
 def frame_ms(tables, camera, narrow: str) -> tuple[float, float]:
@@ -91,7 +113,119 @@ def frame_ms(tables, camera, narrow: str) -> tuple[float, float]:
     return ms, float(torch.stack(means).mean())
 
 
+def cell_sweeps(tables, camera):
+    """Every job sweep of one frame at the cell's shapes: the (args,
+    kwargs) that `cuda_jobs.job_sweep` was called with, in order."""
+    calls = []
+    real = cuda_jobs.job_sweep
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    cuda_jobs.job_sweep = spy
+    try:
+        trace_pixels_dense(tables, camera, 1,
+                           torch.zeros(2, device=tables.device), CELL_W,
+                           CELL_H, 1, CELL_DEPTH)
+    finally:
+        cuda_jobs.job_sweep = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def quartiles(x: torch.Tensor) -> list:
+    if x.numel() == 0:
+        return []
+    q = torch.tensor([0.25, 0.5, 0.75, 0.9, 1.0], device=x.device)
+    return [float(v) for v in torch.quantile(x.float(), q)]
+
+
+def cell(tables, camera, chunks: list) -> dict:
+    """The cell's sweeps: times, stats, the longest group alone and, for
+    each chunk length in `chunks`, the sweeps' times at that length."""
+    calls = cell_sweeps(tables, camera)
+    sweeps = []
+    first = []
+    for args, kw in calls:
+        tab, rays_s, perm, order, counts, g, R, any_hit = args[:8]
+        out = cuda_jobs.job_sweep(*args, **kw, with_stats=True)
+        stats = out[-1]
+        first.append(out[:-1] if isinstance(out, tuple) and len(out) > 2
+                     else out[0])
+        busy = counts[counts > 0]
+        k = int(counts.argmax())
+        dev = rays_s.device
+        alone = (rays_s[:, k * g:(k + 1) * g].contiguous(),
+                 torch.arange(g, dtype=torch.int32, device=dev),
+                 order[k:k + 1].contiguous(), counts[k:k + 1].contiguous())
+        spread_rays = torch.zeros((8, SPREAD * g), device=dev)
+        spread_rays[:, :g] = alone[0]
+        spread_counts = torch.zeros(SPREAD, dtype=torch.int32, device=dev)
+        spread_counts[0] = counts[k]
+        spread = (spread_rays,
+                  torch.arange(SPREAD * g, dtype=torch.int32, device=dev),
+                  order[k:k + 1].repeat(SPREAD, 1).contiguous(),
+                  spread_counts)
+        row = {"lanes": int(rays_s.shape[1]), "any_hit": bool(any_hit),
+               "ms": device_ms(lambda: cuda_jobs.job_sweep(*args, **kw),
+                                 CELL_LAUNCHES),
+               "groups": int(counts.shape[0]),
+               "nonempty_groups": int(busy.numel()),
+               "jobs": int(counts.sum()),
+               "tiles_walked": int(stats[:, 0].sum()),
+               "pairs_walked": int(stats[:, 1].sum()),
+               "worklist_q25_q50_q75_p90_max": quartiles(busy),
+               "longest_group_alone_ms": device_ms(
+                   lambda: cuda_jobs.job_sweep(tab, *alone, g, g, any_hit),
+                   CELL_LAUNCHES),
+               "longest_group_spread_ms": device_ms(
+                   lambda: cuda_jobs.job_sweep(tab, *spread, g, SPREAD * g,
+                                               any_hit),
+                   CELL_LAUNCHES)}
+        if stats.shape[1] > 3:
+            row["groups_split"] = int((stats[:, 3] > 1).sum())
+            row["chunks"] = int(stats[:, 3].clamp(min=1).sum())
+        sweeps.append(row)
+    out = {"sweeps": sweeps,
+           "job_ms_frame": sum(r["ms"] for r in sweeps),
+           "longest_alone_ms_frame": sum(r["longest_group_alone_ms"]
+                                         for r in sweeps)}
+    tune = getattr(cuda_jobs, "tune", None)
+    if chunks and tune is not None:
+        keep = tune.JOB_CHUNK
+        by_chunk = {}
+        try:
+            for chunk in chunks:
+                tune.JOB_CHUNK = chunk
+                ms, pairs, jobs = [], 0, 0
+                for (args, kw), want in zip(calls, first):
+                    *got, stats = cuda_jobs.job_sweep(*args, **kw,
+                                                      with_stats=True)
+                    want = want if isinstance(want, tuple) else (want,)
+                    assert all(torch.equal(a.view(torch.uint8),
+                                           b.view(torch.uint8))
+                               for a, b in zip(got, want)), chunk
+                    pairs += int(stats[:, 1].sum())
+                    jobs += int(stats[:, 3].clamp(min=1).sum())
+                    ms.append(device_ms(
+                        lambda: cuda_jobs.job_sweep(*args, **kw),
+                        CELL_LAUNCHES))
+                by_chunk[str(chunk)] = {"job_ms_frame": sum(ms), "ms": ms,
+                                        "pairs_walked": pairs,
+                                        "chunks": jobs}
+        finally:
+            tune.JOB_CHUNK = keep
+        out["by_chunk"] = by_chunk
+    return out
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--chunks", default="",
+                        help="comma-separated JOB_CHUNK lengths to time the "
+                             "cell's sweeps at")
+    chunks = [int(c) for c in parser.parse_args().chunks.split(",") if c]
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -163,6 +297,10 @@ def main() -> int:
         ms, mean = frame_ms(tables, camera, narrow)
         out[f"frame_{narrow}_ms"] = ms
         out[f"mean_{narrow}"] = mean
+    del rays8, rays_j, rays_s, order_j, lists
+    world.update_camera(CELL_W, CELL_H)
+    camera = torch.from_numpy(np.asarray(world.camera(), np.float32)).cuda()
+    out["cell"] = cell(tables, camera, chunks)
     print(json.dumps(out))
     return 0
 

@@ -143,7 +143,9 @@ def library() -> ctypes.CDLL:
     lib.wrt_job_sweep.restype = _I
     lib.wrt_job_sweep.argtypes = [_P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P,
                                   _P, _I, _F, _F, _F, _I, _I, _P, _P, _P, _P,
-                                  _P, _P]
+                                  _P, _I, _P, _P]
+    lib.wrt_job_sweep_scratch_bytes.restype = ctypes.c_size_t
+    lib.wrt_job_sweep_scratch_bytes.argtypes = [_I, _I, _I, _I]
     lib.wrt_cluster_cull_keyed.restype = _I
     lib.wrt_cluster_cull_keyed.argtypes = [_P, _I, _P, _I, _I, _P, _F, _P,
                                            _P]

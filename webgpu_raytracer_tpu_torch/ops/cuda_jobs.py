@@ -15,13 +15,16 @@ it; `ops/cuda_dense.py` does the same here):
    (`ops/cluster_cull.py::tile_cluster_worklist_exact`);
 3. the narrow phase sweeps each group's worklist: `csrc/job_sweep.cu`
    (`job_sweep`, replacing `_kernel3`: per tile the lanes whose segment
-   touches it queue up and one warp walks the tile for one lane), or
+   touches it queue up and one warp walks the tile for one lane; a
+   worklist longer than `tune.JOB_CHUNK` entries is walked in chunks by
+   several blocks and merged by the tie rule), or
    `ops/dense.jobs_closest_plain` / `jobs_shadow_plain` on the CPU;
 4. outputs come back in the caller's lane order: the kernel writes them
    there through the permutation, the plain path scatters them.
 
-Counts and worklists stay on the device and the grids are fixed by R, so
-a sweep makes no host sync and one launch of each kernel. For CUDA
+Counts and worklists stay on the device and the grids are fixed by R and
+the card, so a sweep makes no host sync and one launch of each kernel (the
+job sweep's scratch is zeroed in part by one memset ahead of it). For CUDA
 tensors the wrappers launch the kernels or raise: there is no fallback,
 neither to the plain versions nor to `dense_sweep.cu`'s walk over every
 tile.
@@ -36,6 +39,7 @@ from .cluster_cull import A_LO_SCALE, HI_NUDGE, worklists_plain
 from .coherence import coherence_sort
 from .dense import (TRI_CHUNK, T_MIN, jobs_closest_plain, jobs_shadow_plain,
                     jobs_stats_plain, rows_plain)
+from . import tune
 from .tune import M_TILE3
 from ..render.worldtris import FEAT_K, SHADE_K, WorldTables
 
@@ -120,8 +124,11 @@ def job_sweep(tables: WorldTables, rays_s: torch.Tensor, perm, order,
     """The narrow phase over a sorted stack, outputs in the caller's order
     of R lanes: occlusion bool (R,) when any_hit, else (t (R,), idx (R,)
     int32, rows (SHADE_K, R - row_from_lane)). with_stats appends the
-    (G, 3) int32 rows [tiles walked, (lane, tile) pairs walked, worklist
-    length] per group."""
+    (G, 4) int32 rows [tiles walked, (lane, tile) pairs walked, worklist
+    length, chunks it was walked in] per group. On the CPU the stats are
+    those of one walk per group (`jobs_stats_plain`); on the card a split
+    group's chunks prune one another as they finish, so its counts depend
+    on timing."""
     if rays_s.device.type == "cpu":
         if any_hit:
             occ = jobs_shadow_plain(tables, rays_s, order, counts, g)
@@ -133,7 +140,7 @@ def job_sweep(tables: WorldTables, rays_s: torch.Tensor, perm, order,
                    rows_plain(tables.shade_table, idx[row_from_lane:])]
         if with_stats:
             out.append(jobs_stats_plain(tables, rays_s, order, counts, g,
-                                        any_hit))
+                                        any_hit, tune.JOB_CHUNK))
         return out[0] if len(out) == 1 else tuple(out)
     rp = check_sorted(rays_s, g)
     dev = rays_s.device
@@ -153,8 +160,11 @@ def job_sweep(tables: WorldTables, rays_s: torch.Tensor, perm, order,
         rows = torch.empty((SHADE_K, R - row_from_lane), dtype=torch.float32,
                            device=dev)
     if with_stats:
-        stats = torch.empty((rp // g, 3), dtype=torch.int32, device=dev)
+        stats = torch.empty((rp // g, 4), dtype=torch.int32, device=dev)
     lib = kernels.library()
+    chunk = tune.JOB_CHUNK
+    scratch = torch.empty(lib.wrt_job_sweep_scratch_bytes(rp, g, ct, chunk),
+                          dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         code = lib.wrt_job_sweep(
             kernels.ptr(tables.features), tw, tables.valid_count,
@@ -163,7 +173,8 @@ def job_sweep(tables: WorldTables, rays_s: torch.Tensor, perm, order,
             kernels.ptr(tables.spheres), ct, T_MIN, A_LO_SCALE, HI_NUDGE,
             int(any_hit), row_from_lane, kernels.ptr(t),
             kernels.ptr(idx), kernels.ptr(rows), kernels.ptr(occ),
-            kernels.ptr(stats), kernels.stream(dev))
+            kernels.ptr(stats), chunk, kernels.ptr(scratch),
+            kernels.stream(dev))
     kernels.raise_on_error(code, "job_sweep")
     kernels.launches["job_sweep"] += 1
     out = [occ] if any_hit else [t, idx, rows]

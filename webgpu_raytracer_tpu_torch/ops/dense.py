@@ -27,6 +27,9 @@ walk's t and idx bit for bit. (The kernel also skips, lane by lane, a
 tile whose sphere the lane's segment cannot touch; that changes no
 result, so the plain versions walk every worklisted tile.
 `jobs_stats_plain` replays that skip to count what the kernel counts.)
+`jobs_chunked_plain` models how the kernel walks a worklist longer than
+`tune.JOB_CHUNK` entries: in chunks, each starting from the lanes' merged
+result so far, merged by the least (t bits, index) and by OR.
 `scan_closest_plain` / `scan_shadow_plain` are the plain versions of the
 scan kernel (`csrc/scan_sweep.cu`): each m-lane tile walks its keyed
 worklist near to far, stops at the first key beyond every lane's reach,
@@ -175,17 +178,110 @@ def jobs_shadow_plain(tables, rays_s: torch.Tensor, order, counts, g: int):
 
 
 def jobs_stats_plain(tables, rays_s: torch.Tensor, order, counts, g: int,
-                     any_hit: bool):
-    """What `csrc/job_sweep.cu` counts per group, (G, 3) int32 [tiles
-    walked, (lane, tile) pairs walked, worklist length]: a lane is walked
-    against a tile when its open interval (up to its best hit so far; up
-    to t_max until occluded in any-hit mode) touches the tile's sphere, a
-    tile when some lane is. That is the scan's walk over the job worklist
-    with every key 0, where the early exit fires exactly when no lane is
-    open, as the kernel's does."""
+                     any_hit: bool, chunk: int):
+    """What `csrc/job_sweep.cu` counts per group when it walks a worklist
+    in one job, (G, 4) int32 [tiles walked, (lane, tile) pairs walked,
+    worklist length, chunks of `chunk` entries (ceil(length / chunk))]: a
+    lane is walked against a tile when its open interval (up to its best
+    hit so far; up to t_max until occluded in any-hit mode) touches the
+    tile's sphere, a tile when some lane is. That is the scan's walk over
+    the job worklist with every key 0, where the early exit fires exactly
+    when no lane is open, as the kernel's does."""
     keys = torch.zeros(order.shape, dtype=torch.float32, device=order.device)
     stats = _scan_plain(tables, rays_s, order, keys, counts, g, any_hit)[3]
-    return stats[:, [1, 3, 2]]
+    return torch.cat([stats[:, [1, 3, 2]],
+                      (stats[:, 2:3] + chunk - 1) // chunk], dim=1)
+
+
+def jobs_chunked_plain(tables, rays_s: torch.Tensor, order, counts, g: int,
+                       any_hit: bool, chunk: int | None,
+                       reverse: bool = False, from_t_max: bool = False):
+    """The job sweep's chunked walk (`csrc/job_sweep.cu`), group by group,
+    over a sorted (8, rp) stack: (t (rp,), idx (rp,) int32, occ (rp,) bool,
+    stats (G, 4) int32 [tiles walked, pairs walked, worklist length,
+    chunks]) in sorted lane order.
+
+    Each worklist is cut into chunks of `chunk` consecutive entries (None:
+    one chunk), taken first to last, or last to first with `reverse`. A
+    chunk starts from each lane's merged result so far (with `from_t_max`
+    from t_max and unoccluded, as if every chunk ran at once), walks its
+    entries as the kernel walks a worklist (a tile only for the lanes whose
+    open interval, nudged outward, touches its sphere; the least (t, index)
+    committed) and is merged into the lane's result by the least (t bits,
+    index), occlusion by OR. The result is the one-walk result whatever the
+    chunks and their order: a chunk that starts from an equal t of a higher
+    index still walks the tile of the lower one."""
+    tw = tables.features.shape[1] // 5
+    feats = tables.features.view(-1, 5, tw)
+    rp = rays_s.shape[1]
+    t_max = rays_s[6]
+    best_t = t_max.clone()
+    best_i = torch.full_like(t_max, -1, dtype=torch.int32)
+    occ = torch.zeros(rp, dtype=torch.bool, device=rays_s.device)
+    d = rays_s[0:3]
+    dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    G = rp // g
+    stats = torch.zeros((G, 4), dtype=torch.int32)
+    stats[:, 2] = counts.cpu()
+    for group, count in enumerate(stats[:, 2].tolist()):
+        lanes = slice(group * g, (group + 1) * g)
+        rays = rays_s[:, lanes]
+        step = chunk or max(count, 1)
+        starts = list(range(0, count, step))
+        stats[group, 3] = len(starts) if chunk else min(count, 1)
+        for k0 in reversed(starts) if reverse else starts:
+            if from_t_max:
+                c_t, c_i = t_max[lanes].clone(), torch.full_like(
+                    best_i[lanes], -1)
+                c_occ = torch.zeros_like(occ[lanes])
+            else:
+                c_t, c_i, c_occ = (best_t[lanes].clone(),
+                                   best_i[lanes].clone(), occ[lanes].clone())
+            for k in range(k0, min(count, k0 + step)):
+                open_t = torch.where(c_occ, 0.0, t_max[lanes]) if any_hit \
+                    else c_t
+                if not bool((open_t > 0.0).any()):
+                    break
+                touch = _walk_cluster(tables, feats, rays, dd[lanes], open_t,
+                                      int(order[group, k]), c_t, c_i, c_occ,
+                                      any_hit)
+                if bool(touch.any()):
+                    stats[group, 0] += 1
+                    stats[group, 1] += int(touch.sum())
+            occ[lanes] |= c_occ
+            upd = (c_t < best_t[lanes]) | ((c_t == best_t[lanes])
+                                           & (c_i < best_i[lanes]))
+            best_t[lanes] = torch.where(upd, c_t, best_t[lanes])
+            best_i[lanes] = torch.where(upd, c_i, best_i[lanes])
+    return best_t, best_i, occ, stats
+
+
+def _walk_cluster(tables, feats, rays, dd, open_t, c: int, best_t, best_i,
+                  occ, any_hit: bool):
+    """One worklist entry of a block's lanes (the columns of `rays`): the
+    lanes whose open interval (t_min, open_t) touches cluster c's sphere
+    walk its triangles; best_t, best_i and occ (one entry a lane) are
+    updated in place, by the least (t, index) or by OR. Returns the
+    touching lanes."""
+    # cluster_cull imports this module's T_MIN, so it is imported here.
+    from .cluster_cull import pair_ok
+
+    touch = pair_ok(rays, dd, open_t, tables.spheres[c:c + 1])[0]
+    c0 = c * TRI_CHUNK
+    c1 = min(c0 + TRI_CHUNK, tables.valid_count)
+    if c1 <= c0 or not bool(touch.any()):
+        return touch
+    t, ok = _chunk_t(rays, feats, c0, c1)
+    ok = ok & touch[:, None] & (t > T_MIN) & (t < rays[6][:, None])
+    if any_hit:
+        occ |= ok.any(dim=1)
+        return touch
+    cmin, carg = torch.min(torch.where(ok, t, float("inf")), dim=1)
+    cidx = (carg + c0).to(torch.int32)
+    upd = (cmin < best_t) | ((cmin == best_t) & (cidx < best_i))
+    best_t.copy_(torch.where(upd, cmin, best_t))
+    best_i.copy_(torch.where(upd, cidx, best_i))
+    return touch
 
 
 def _scan_plain(tables, rays_s, order, keys, counts, m: int, any_hit: bool):
@@ -195,11 +291,10 @@ def _scan_plain(tables, rays_s, order, keys, counts, m: int, any_hit: bool):
     tile: a pair is walked when the lane's open interval touches the
     cluster's sphere."""
     # cluster_cull imports this module's T_MIN, so it is imported here.
-    from .cluster_cull import HI_NUDGE, pair_ok, reach_terms
+    from .cluster_cull import HI_NUDGE, reach_terms
 
     tw = tables.features.shape[1] // 5
     feats = tables.features.view(-1, 5, tw)
-    spheres = tables.spheres
     rp = rays_s.shape[1]
     t_max = rays_s[6]
     best_t = t_max.clone()
@@ -224,27 +319,12 @@ def _scan_plain(tables, rays_s, order, keys, counts, m: int, any_hit: bool):
                          & (keys[tile, k] <= reach * HI_NUDGE)).any()):
                 break
             stats[tile, 0] += 1
-            c = int(order[tile, k])
-            touch = pair_ok(rays, dd[lanes], open_t, spheres[c:c + 1])[0]
-            if not bool(touch.any()):
-                continue
-            stats[tile, 1] += 1
-            stats[tile, 3] += int(touch.sum())
-            c0 = c * TRI_CHUNK
-            c1 = min(c0 + TRI_CHUNK, tables.valid_count)
-            if c1 <= c0:
-                continue
-            t, ok = _chunk_t(rays, feats, c0, c1)
-            ok = ok & touch[:, None] & (t > T_MIN) & (t < t_max[lanes, None])
-            if any_hit:
-                occ[lanes] |= ok.any(dim=1)
-                continue
-            cmin, carg = torch.min(torch.where(ok, t, float("inf")), dim=1)
-            cidx = (carg + c0).to(torch.int32)
-            cur_t, cur_i = best_t[lanes], best_i[lanes]
-            upd = (cmin < cur_t) | ((cmin == cur_t) & (cidx < cur_i))
-            best_t[lanes] = torch.where(upd, cmin, cur_t)
-            best_i[lanes] = torch.where(upd, cidx, cur_i)
+            touch = _walk_cluster(tables, feats, rays, dd[lanes], open_t,
+                                  int(order[tile, k]), best_t[lanes],
+                                  best_i[lanes], occ[lanes], any_hit)
+            if bool(touch.any()):
+                stats[tile, 1] += 1
+                stats[tile, 3] += int(touch.sum())
     return best_t, best_i, occ, stats
 
 
