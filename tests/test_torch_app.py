@@ -60,6 +60,7 @@ from webgpu_raytracer_tpu_torch.utils.profiling import (FrameStats,
                                                         spans, tracing)
 from webgpu_raytracer_tpu_torch.utils.textures import decode_png
 
+from tests import torch_scenes
 from tests.glb_fixture import skinned_strip_glb, two_clip_skinned_glb
 
 KEYS = ("features", "shade_table", "light_rows", "light_count",
@@ -126,12 +127,32 @@ def test_set_animation_switches_clip():
     assert r.world.animation_count() == 4
 
 
-def test_chip_smoke_skinned_strip_is_the_fixture():
-    """chip_smoke.py writes bench.py's skinned strip without the tests'
-    helpers: the same bytes."""
-    import chip_smoke
+def test_pil_free_textured_quad_fixture_decodes_red_and_blue():
+    """`torch_scenes.textured_quad_glb` (written without PIL, for the
+    card's machine) decodes to the fixture's texture: one 1024^2 layer,
+    exactly red left of column 448 and exactly blue from column 576 (a
+    decode that failed would fill 0.8 grey), a (1024^2, 128^2) pyramid,
+    one bound slot (base colour) and no textured light."""
+    from webgpu_raytracer_tpu_torch import NativeWorld
+    from webgpu_raytracer_tpu_torch.ops.fetch import device_pyramid
+    from webgpu_raytracer_tpu_torch.render.worldtris import \
+        build_world_tables
+    from webgpu_raytracer_tpu_torch.utils.textures import (
+        build_quad_pyramid, decode_world_textures)
 
-    assert chip_smoke.skinned_strip_glb() == skinned_strip_glb()
+    world = NativeWorld("viewer", glb_data=torch_scenes.textured_quad_glb())
+    world.update_camera(16, 16)
+    decoded = decode_world_textures(world)
+    assert decoded is not None and decoded.shape == (1, 1024, 1024, 3)
+    np.testing.assert_array_equal(decoded[0, :, :448], np.broadcast_to(
+        np.float32([1, 0, 0]), (1024, 448, 3)))
+    np.testing.assert_array_equal(decoded[0, :, 576:], np.broadcast_to(
+        np.float32([0, 0, 1]), (1024, 448, 3)))
+    level0, level1 = device_pyramid(build_quad_pyramid(decoded), "cpu")
+    assert level0.shape == (1, 1024, 1024) and level1.shape == (1, 128, 128)
+    tables = build_world_tables(world, "cpu")
+    assert tables.tex_slots == (True, False, False, False)
+    assert not tables.light_tex
 
 
 def test_bridge_is_the_renderers_world():

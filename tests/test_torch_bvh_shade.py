@@ -22,7 +22,7 @@
   and the textured quad.
 
 The kernel, `csrc/bvh_shade.cu`, is held to `bvh_shade_step` on the card in
-`tests/test_torch_cuda.py` and `chip_smoke.py`.
+`tests/test_torch_cuda.py` and timed there by `chip_smoke.py`.
 """
 
 import weakref
@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+from tests import torch_scenes
 from webgpu_raytracer_tpu.models.native import NativeWorld as JaxWorld
 from webgpu_raytracer_tpu.ops import trace as jt
 from webgpu_raytracer_tpu.render.resources import \
@@ -49,9 +49,9 @@ RES = 16
 # Preset, or GLB maker in the viewer scene.
 SCENES = {"cornell": ("cornell", None), "mixed": ("mixed", None),
           "special": ("special", None),
-          "textured": ("viewer", chip_smoke.textured_quad_glb),
-          "textured_light": ("viewer", chip_smoke.textured_light_glb),
-          "formats": ("viewer", chip_smoke.formats_scene_glb)}
+          "textured": ("viewer", torch_scenes.textured_quad_glb),
+          "textured_light": ("viewer", torch_scenes.textured_light_glb),
+          "formats": ("viewer", torch_scenes.formats_scene_glb)}
 DEPTHS = [0, 1, 2, 5, 8]
 
 _cache = {}
@@ -61,7 +61,7 @@ def _scene(case):
     """(DeviceScene, camera) on the CPU at RES^2, built once a module."""
     if case not in _cache:
         name, glb = SCENES[case]
-        _cache[case] = chip_smoke.bvh_scene(name, RES, RES, "cpu",
+        _cache[case] = torch_scenes.bvh_scene(name, RES, RES, "cpu",
                                             glb() if glb else None)
     return _cache[case]
 
@@ -70,7 +70,7 @@ def _primaries(case):
     """(scene, ro, rd, rng) of frame 1's pinhole rays, rng past the lens
     draws."""
     scene, cam = _scene(case)
-    args = chip_smoke.bvh_bounce_inputs(scene, cam, RES, RES, 0)
+    args = torch_scenes.bvh_bounce_inputs(scene, cam, RES, RES, 0)
     return scene, args[3], args[4], args[2]
 
 
@@ -107,7 +107,7 @@ def _permuted(args, perm):
                                         ("textured_light", 2)])
 def test_bvh_shade_step_is_lane_independent(case, depth):
     scene, cam = _scene(case)
-    args = chip_smoke.bvh_bounce_inputs(scene, cam, RES, RES, depth)
+    args = torch_scenes.bvh_bounce_inputs(scene, cam, RES, RES, depth)
     perm = torch.from_numpy(np.random.default_rng(5).permutation(RES * RES))
     out, rng, nxt = bvh_shade.bvh_shade_step(*args)
     out_p, rng_p, nxt_p = bvh_shade.bvh_shade_step(*_permuted(args, perm))
@@ -125,7 +125,7 @@ def test_lanes_that_do_not_walk_draw_six_and_keep_their_state(case):
     specular flag and ray count stay, their radiance takes only the
     resolved pending NEE, and they walk neither ray."""
     scene, cam = _scene(case)
-    args = list(chip_smoke.bvh_bounce_inputs(scene, cam, RES, RES, 1))
+    args = list(torch_scenes.bvh_bounce_inputs(scene, cam, RES, RES, 1))
     R = RES * RES
     lane = torch.arange(R)
     off = (lane % 3 == 0) | (lane % 5 == 0)
@@ -149,7 +149,7 @@ def test_lanes_that_do_not_walk_draw_six_and_keep_their_state(case):
 
 def test_bvh_shade_on_cpu_is_the_plain_step():
     scene, cam = _scene("cornell")
-    args = chip_smoke.bvh_bounce_inputs(scene, cam, RES, RES, 2)
+    args = torch_scenes.bvh_bounce_inputs(scene, cam, RES, RES, 2)
     before = dict(kernels.launches)
     a = bvh_shade.bvh_shade(*args, pack=bvh_shade.pack_shade(args[0]))
     b = bvh_shade.bvh_shade_step(*args)
@@ -287,7 +287,7 @@ def test_trace_pixels_matches_jax_textured_light(frame):
     with a textured base colour (NEE reads the light's texels), at
     tests/test_torch_bvh.py's bounds: >= 95% of lanes at rel < 1e-3, the
     means within 2%, the ray counts within 2%."""
-    glb = chip_smoke.textured_light_glb()
+    glb = torch_scenes.textured_light_glb()
     jw = JaxWorld("viewer", glb_data=glb)
     jw.update_camera(RES, RES)
     js = jax_scene(jw, textures=jax_textures.pack_quad_table(

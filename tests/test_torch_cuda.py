@@ -5,16 +5,23 @@ is present. On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-`python3 chip_smoke.py` runs the same checks at the full 512^2 shapes
-(cornell for the single-tile kernels, spheres for the job-stream and scan
-paths); these use small frames.
+These hold every path of the port on the card at small frames: each
+kernel against its plain version, the launch counts of every path, the
+captured steps against the eager ones, the sharded steps, and the product
+surface (recorder, checkpoint, bridge, farm, CLI). `python3 chip_smoke.py`
+times each kernel alone at its main-path shapes (512^2 and 1080p) and
+holds it to its plain version there.
 """
+
+import os
+import socket
+import subprocess
+import sys
+import threading
 
 import numpy as np
 import pytest
 import torch
-
-import chip_smoke
 
 from webgpu_raytracer_tpu_torch import NativeWorld, Renderer, RenderConfig
 from webgpu_raytracer_tpu_torch import kernels
@@ -38,15 +45,19 @@ from webgpu_raytracer_tpu_torch.ops.dense_trace import (bounce_inputs,
                                                         trace_pixels_dense)
 from webgpu_raytracer_tpu_torch.ops.fetch import (fetch_quad_plain,
                                                   fetch_rows_plain)
+from webgpu_raytracer_tpu_torch.ops.gbuffer import render_gbuffer
 from webgpu_raytracer_tpu_torch.ops.rng import init_rng
 from webgpu_raytracer_tpu_torch.ops.v3 import V3
 from webgpu_raytracer_tpu_torch.render.worldtris import (build_world_tables,
                                                          tri_pad)
 
+from tests import torch_scenes
+from tests.glb_fixture import skinned_strip_glb
 from tests.torch_ties import cross_tile_tie
 
 pytestmark = pytest.mark.cuda
 RES = 64
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -269,10 +280,10 @@ def test_max_depth_zero_on_card(cuda):
 
 # Textured scenes of the shade kernel's textured instantiation: GLB maker
 # and whether a fifth layer is added (so level 1 is level 0).
-SHADE_TEXTURED = {"textured": (chip_smoke.textured_quad_glb, False),
-                  "formats": (chip_smoke.formats_scene_glb, False),
-                  "five_layers": (chip_smoke.formats_scene_glb, True),
-                  "textured_light": (chip_smoke.textured_light_glb, False)}
+SHADE_TEXTURED = {"textured": (torch_scenes.textured_quad_glb, False),
+                  "formats": (torch_scenes.formats_scene_glb, False),
+                  "five_layers": (torch_scenes.formats_scene_glb, True),
+                  "textured_light": (torch_scenes.textured_light_glb, False)}
 
 
 @pytest.mark.parametrize("scene,depth", [
@@ -296,7 +307,7 @@ def test_shade_kernel_matches_plain(cuda, scene, depth):
         rng = init_rng(torch.arange(R, device=cuda), 1)
     else:
         glb, fifth = SHADE_TEXTURED[scene]
-        tables, cam, textures = chip_smoke.textured_scene(glb(), RES, RES,
+        tables, cam, textures = torch_scenes.textured_scene(glb(), RES, RES,
                                                           cuda, fifth=fifth)
         assert (textures[1] is textures[0]) == fifth
         state, rng, rowT, idx = bounce_inputs(tables, cam, RES, RES, depth,
@@ -441,7 +452,7 @@ def test_textured_renderer_on_card_counts_launches(cuda):
     colour)."""
     r = Renderer("viewer",
                  config=RenderConfig(width=RES, height=RES, max_depth=5),
-                 glb_data=chip_smoke.textured_quad_glb(), device="cuda")
+                 glb_data=torch_scenes.textured_quad_glb(), device="cuda")
     for _ in range(2):
         r.render_frame(use_gbuffer=True)
         img = r.present()
@@ -452,6 +463,80 @@ def test_textured_renderer_on_card_counts_launches(cuda):
                           "cluster_cull_keyed": 0, "scan_sweep": 0,
                           "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
                           "bvh_walk": 0, "all_reduce": 0}
+
+
+def _launched():
+    """The launch counts since the last reset that are not zero."""
+    return {k: v for k, v in kernels.launches.items() if v}
+
+
+def test_textured_traced_frame_on_card_counts_launches(cuda):
+    """The textured quad traced at 32^2 depth 5: 6 sweeps and 5 shades
+    (the textured instantiation samples the texels itself), no row or quad
+    fetch; the frame close to the plain versions' on the CPU (>= 95% of
+    lanes at rel < 1e-3)."""
+    frames = []
+    for dev in ("cpu", "cuda"):
+        tables, cam, textures = torch_scenes.textured_scene(
+            torch_scenes.textured_quad_glb(), 32, 32, dev)
+        kernels.reset_launches()
+        frames.append(trace_pixels_dense(
+            tables, cam, 1, torch.zeros(2, device=dev), 32, 32, 1, 5,
+            textures=textures).cpu())
+    assert _launched() == {"dense_sweep": 6, "shade_rows": 5}
+    assert frames[1].mean() > 0.05
+    close = torch.isclose(frames[1], frames[0], rtol=1e-3, atol=1e-5).all(1)
+    assert close.float().mean() >= 0.95
+
+
+def test_formats_scene_bit_equal_to_its_png_twin_on_card(cuda):
+    """The texture formats scene (a 4:2:0 JPEG, a progressive JPEG, a
+    16-bit Adam7 PNG and a 4-bit palette PNG in the four slots) through
+    `Renderer` at 64^2 depth 4, two frames traced and then two seeded from
+    the G-buffer: every accumulator bit-equal to its twin's (the port's
+    decodes written as 8-bit PNGs). Four layers, a (1024^2, 128^2)
+    pyramid; a frame launches 5 sweeps and 4 shades, seeded also one
+    seed-row fetch and two quad fetches (base colour, normal map)."""
+    cfg = RenderConfig(width=RES, height=RES, max_depth=4)
+    rf, twin = (Renderer("viewer", config=cfg, device="cuda",
+                         glb_data=torch_scenes.formats_scene_glb(twin=t))
+                for t in (False, True))
+    assert rf.textures[0].shape == (4, 1024, 1024)
+    assert rf.textures[1].shape == (4, 128, 128)
+    assert rf.tables.tex_slots == (True, True, True, True)
+    for seeded, fetches in ((False, {}),
+                            (True, {"fetch_rows": 2, "fetch_quad": 4})):
+        for r in (rf, twin):
+            r.launches = dict.fromkeys(r.launches, 0)
+        for _ in range(2):
+            a = rf.render_frame(use_gbuffer=seeded).clone()
+            b = twin.render_frame(use_gbuffer=seeded).clone()
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        want = dict.fromkeys(rf.launches, 0)
+        want.update(dense_sweep=2 * 5, shade_rows=2 * 4, **fetches)
+        assert rf.launches == want and twin.launches == want
+    assert float(a[:, :3].mean()) > 0.0
+
+
+def test_seeded_frames_bit_equal_to_traced_on_card(cuda):
+    """cornell at 64^2 depth 4, frames 1 and 2 at jitter 0: seeded from the
+    G-buffer (its sweep, then one seed-row fetch) bit-equal to traced (the
+    primary sweep); each pair launches 10 sweeps, 8 shades, 1 row fetch."""
+    world = NativeWorld("cornell")
+    world.update_camera(RES, RES)
+    tables = build_world_tables(world, cuda)
+    cam = torch.from_numpy(np.asarray(world.camera(), np.float32)).to(cuda)
+    jitter = torch.zeros(2, device=cuda)
+    for f in (1, 2):
+        kernels.reset_launches()
+        traced = trace_pixels_dense(tables, cam, f, jitter, RES, RES, 1, 4)
+        gb = render_gbuffer(tables, None, cam, RES, RES, jitter=jitter)
+        seeded = trace_pixels_dense(tables, cam, f, jitter, RES, RES, 1, 4,
+                                    seed_wt_idx=gb.wt_idx.reshape(-1))
+        assert _launched() == {"dense_sweep": 10, "shade_rows": 8,
+                               "fetch_rows": 1}
+        assert torch.equal(traced.view(torch.int32), seeded.view(torch.int32))
+        assert float(traced.mean()) > 0.05
 
 
 # --- the job-stream path (multi-tile scenes) ---------------------------------
@@ -1014,7 +1099,7 @@ def test_job_kernel_cross_chunk_tie(cuda, bounce_stacks, monkeypatch, chunk,
 # -- the product surface on the card ------------------------------------------
 
 def _skinned_renderer(dev, res=64, depth=4):
-    return Renderer("viewer", glb_data=chip_smoke.skinned_strip_glb(),
+    return Renderer("viewer", glb_data=skinned_strip_glb(),
                     config=RenderConfig(width=res, height=res,
                                         max_depth=depth, shader_spp=1,
                                         fps=10, spp=2, batch=2),
@@ -1077,6 +1162,70 @@ def test_bridge_overlap_bit_equal_on_card(cuda):
         seq.render_frame()
         assert torch.equal(over.accum.view(torch.int32),
                            seq.accum.view(torch.int32)), k
+
+
+def test_farm_on_card_byte_equal_to_solo(cuda):
+    """A Coordinator and two WorkerClient(device="cuda") threads render
+    cornell at 64x48 depth 4, spp 2, 4 frames in jobs of 2: the frames
+    byte-equal to a solo record_chunks on the card."""
+    from webgpu_raytracer_tpu_torch.parallel.cluster import (
+        Coordinator, WorkerClient, _default_renderer_factory)
+    from webgpu_raytracer_tpu_torch.render.recorder import VideoRecorder
+
+    config = RenderConfig(width=64, height=48, max_depth=4, shader_spp=1,
+                          spp=2, fps=4, duration=1.0)
+    solo = VideoRecorder(_default_renderer_factory(
+        config, "cornell", None, b"", device=cuda)).record_chunks(config, 0,
+                                                                  4)
+    coord = Coordinator(secret="card")
+    workers = [WorkerClient("127.0.0.1", coord.port, secret="card",
+                            device=cuda) for _ in range(2)]
+    errors = []
+
+    def work(w):
+        try:
+            w.connect()
+            w.run()
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(w,), daemon=True)
+               for w in workers]
+    try:
+        coord.set_scene(config, "cornell")
+        for t in threads:
+            t.start()
+        coord.start_render(total_frames=4, job_batch=2)
+        assert coord.wait(300.0), (coord.admin_status(), errors)
+        frames = coord.collect_frames()
+    finally:
+        for w in workers:
+            w.close()
+        coord.close()
+    for t in threads:
+        t.join(timeout=30)
+    assert not errors, errors
+    assert [f.frame_index for f in frames] == [0, 1, 2, 3]
+    for f, ref in zip(frames, solo):
+        assert f.data == ref.data, f.frame_index
+
+
+def test_cli_render_on_card(cuda, tmp_path):
+    """`cli render` on its default device, the card (64x48, 8 frames, live
+    preview on), and `cli info`, each in a subprocess: both exit 0, and the
+    PNG decodes to 48 x 64 and is not black."""
+    from webgpu_raytracer_tpu_torch.utils.textures import decode_png
+
+    out = tmp_path / "cli.png"
+    for argv in (["render", "--scene", "cornell", "--width", "64",
+                  "--height", "48", "--frames", "8", "--preview", "0",
+                  "--output", str(out)], ["info", "--scene", "cornell"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "webgpu_raytracer_tpu_torch.cli", *argv],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, (argv, proc.stdout, proc.stderr)
+    img = decode_png(out.read_bytes())
+    assert img.shape == (48, 64, 3) and img.mean() > 10
 
 
 def test_profiling_on_card(cuda, tmp_path):
@@ -1232,12 +1381,56 @@ def test_bvh_trace_on_card_counts_launches(cuda):
     assert close.float().mean() >= 0.95
 
 
+def test_bvh_trace_spheres_on_card_matches_cpu(cuda):
+    """trace_pixels on `spheres` (257,136 triangles) at 16^2 depth 3: 3
+    of each walk and 3 shades a frame; the frame close to the plain
+    versions' on the CPU (>= 95% of lanes at rel < 1e-3)."""
+    from webgpu_raytracer_tpu_torch.ops.trace import trace_pixels
+
+    frames = []
+    for dev in ("cpu", "cuda"):
+        sc, cam = torch_scenes.bvh_scene("spheres", 16, 16, dev)
+        kernels.reset_launches()
+        frames.append(trace_pixels(sc, cam, 1, torch.zeros(2, device=dev),
+                                   16, 16, 1, 3).cpu())
+    assert _launched() == {"bvh_closest": 3, "bvh_shadow": 3, "bvh_walk": 6,
+                           "bvh_shade": 3}
+    assert frames[1].mean() > 0.0
+    close = torch.isclose(frames[1], frames[0], rtol=1e-3, atol=1e-5).all(1)
+    assert close.float().mean() >= 0.95
+
+
+def test_bvh_and_dense_tracers_agree_on_card(cuda):
+    """`get_tracer("bvh")` and `get_tracer("dense")` on one cornell frame
+    at 64^2 depth 8: >= 98% of lanes within 1e-3; the dense frame launches
+    9 sweeps and 8 shades, the BVH frame 8 of each walk and 8 shades."""
+    from webgpu_raytracer_tpu_torch.ops.api import get_tracer
+    from webgpu_raytracer_tpu_torch.render.resources import \
+        build_device_scene
+
+    world = NativeWorld("cornell")
+    world.update_camera(RES, RES)
+    cam = torch.from_numpy(np.asarray(world.camera(), np.float32)).to(cuda)
+    jitter = torch.zeros(2, device=cuda)
+    scenes = {"bvh": build_device_scene(world, device=cuda),
+              "dense": (build_world_tables(world, cuda), None)}
+    kernels.reset_launches()
+    cols = {b: get_tracer(b)(scene, cam, 1, jitter, RES, RES, 1, 8)
+            for b, scene in scenes.items()}
+    assert _launched() == {"dense_sweep": 9, "shade_rows": 8,
+                           "bvh_closest": 8, "bvh_shadow": 8, "bvh_walk": 16,
+                           "bvh_shade": 8}
+    close = torch.isclose(cols["bvh"], cols["dense"], rtol=1e-3,
+                          atol=1e-3).all(1)
+    assert close.float().mean() >= 0.98
+
+
 # BVH shade cases: preset, or GLB maker in the viewer scene.
 BVH_SHADE = {"cornell": ("cornell", None), "mixed": ("mixed", None),
              "special": ("special", None),
-             "textured": ("viewer", chip_smoke.textured_quad_glb),
-             "textured_light": ("viewer", chip_smoke.textured_light_glb),
-             "formats": ("viewer", chip_smoke.formats_scene_glb)}
+             "textured": ("viewer", torch_scenes.textured_quad_glb),
+             "textured_light": ("viewer", torch_scenes.textured_light_glb),
+             "formats": ("viewer", torch_scenes.formats_scene_glb)}
 
 
 @pytest.mark.parametrize("scene,depth", [
@@ -1249,14 +1442,14 @@ def test_bvh_shade_kernel_matches_plain(cuda, scene, depth):
     on bounce `depth` of a 64^2 frame, advanced there through the kernels:
     rng words equal, flags equal on every lane, values within rtol 1e-4
     (near-mirror GGX lanes 5e-2), one launch
-    (`chip_smoke.hold_bvh_shade`)."""
+    (`torch_scenes.hold_bvh_shade`)."""
     name, glb = BVH_SHADE[scene]
-    sc, cam = chip_smoke.bvh_scene(name, RES, RES, cuda,
+    sc, cam = torch_scenes.bvh_scene(name, RES, RES, cuda,
                                    glb() if glb else None)
     assert sc.textures.is_floating_point() == (glb is None)
-    args = chip_smoke.bvh_bounce_inputs(sc, cam, RES, RES, depth)
+    args = torch_scenes.bvh_bounce_inputs(sc, cam, RES, RES, depth)
     before = kernels.launches["bvh_shade"]
-    chip_smoke.hold_bvh_shade(f"{scene} depth {depth}", args)
+    torch_scenes.hold_bvh_shade(f"{scene} depth {depth}", args)
     assert kernels.launches["bvh_shade"] == before + 1
 
 
@@ -1291,24 +1484,24 @@ def test_bvh_shade_kernel_ragged_and_unaligned(cuda, scene, depth, cut,
     staged one float a thread), and ro / rd not 16-byte aligned (the
     staged loads' scalar path): the kernel against `bvh_shade_step`."""
     name, glb = BVH_SHADE[scene]
-    sc, cam = chip_smoke.bvh_scene(name, RES, RES, cuda,
+    sc, cam = torch_scenes.bvh_scene(name, RES, RES, cuda,
                                    glb() if glb else None)
-    args = chip_smoke.bvh_bounce_inputs(sc, cam, RES, RES, depth)
+    args = torch_scenes.bvh_bounce_inputs(sc, cam, RES, RES, depth)
     keep = torch.arange(RES * RES - cut, device=cuda)
     args = _lanes(args, keep, offset)
     assert args[3].shape[0] % 256 and (args[3].data_ptr() % 16 != 0) == (
         offset % 4 != 0)
-    chip_smoke.hold_bvh_shade(f"{scene} depth {depth}, {keep.numel()} "
+    torch_scenes.hold_bvh_shade(f"{scene} depth {depth}, {keep.numel()} "
                               f"lanes, ro offset {offset}", args)
 
 
 def test_bvh_shade_kernel_all_inactive(cuda):
     """No lane walked: every lane draws six, keeps its state (radiance
     plus the resolved pending NEE) and walks nothing, as the plain step."""
-    sc, cam = chip_smoke.bvh_scene("cornell", RES, RES, cuda)
-    args = list(chip_smoke.bvh_bounce_inputs(sc, cam, RES, RES, 2))
+    sc, cam = torch_scenes.bvh_scene("cornell", RES, RES, cuda)
+    args = list(torch_scenes.bvh_bounce_inputs(sc, cam, RES, RES, 2))
     args[5] = torch.zeros_like(args[5])
-    chip_smoke.hold_bvh_shade("cornell depth 2, all inactive", tuple(args))
+    torch_scenes.hold_bvh_shade("cornell depth 2, all inactive", tuple(args))
     out, _, nxt = bvh_shade.bvh_shade(*args)
     assert not bool(nxt.do_next.any() | nxt.nee_lane.any())
     assert not bool(out[bvh_shade.PEND].any())
@@ -1320,8 +1513,8 @@ def test_bvh_shade_kernel_all_inactive(cuda):
 def test_bvh_shade_kernel_three_material_mix(cuda, scene):
     """Bounce 0 of a scene whose hits mix Lambert, GGX metal and
     dielectric lanes in one warp: the kernel against the plain step."""
-    sc, cam = chip_smoke.bvh_scene(scene, RES, RES, cuda)
-    args = chip_smoke.bvh_bounce_inputs(sc, cam, RES, RES, 0)
+    sc, cam = torch_scenes.bvh_scene(scene, RES, RES, cuda)
+    args = torch_scenes.bvh_bounce_inputs(sc, cam, RES, RES, 0)
     found = args[7] >= 0
     mats = sc.tri_mat[args[6][found].long()]
     assert all(bool((mats == m).any()) for m in (0, 1, 2))
@@ -1329,7 +1522,7 @@ def test_bvh_shade_kernel_three_material_mix(cuda, scene):
                             -1).reshape(-1, 32)
     mixed = [(warp_mats == m).any(1) for m in (0, 1, 2)]
     assert bool((mixed[0] & mixed[1] & mixed[2]).any())
-    chip_smoke.hold_bvh_shade(f"{scene} depth 0, three materials", args)
+    torch_scenes.hold_bvh_shade(f"{scene} depth 0, three materials", args)
 
 
 @pytest.mark.parametrize("scene", sorted(BVH_SHADE))
@@ -1338,7 +1531,7 @@ def test_shade_pack_on_card_equals_cpu(cuda, scene):
     light corners' products and sums included), with the kernel's view."""
     name, glb = BVH_SHADE[scene]
     data = glb() if glb else None
-    packs = [bvh_shade.pack_shade(chip_smoke.bvh_scene(
+    packs = [bvh_shade.pack_shade(torch_scenes.bvh_scene(
         name, 16, 16, dev, data)[0]) for dev in ("cpu", cuda)]
     for a, b in zip(packs[0][:3], packs[1][:3]):
         assert torch.equal(a, b.cpu())
@@ -1350,8 +1543,8 @@ def test_bvh_shade_writes_into_out(cuda):
     """`out=`: the kernel writes into an earlier call's outputs, bit-equal
     to a call that makes its own; an `out` of another lane count raises
     and launches nothing."""
-    sc, cam = chip_smoke.bvh_scene("mixed", RES, RES, cuda)
-    args = chip_smoke.bvh_bounce_inputs(sc, cam, RES, RES, 1)
+    sc, cam = torch_scenes.bvh_scene("mixed", RES, RES, cuda)
+    args = torch_scenes.bvh_bounce_inputs(sc, cam, RES, RES, 1)
     pack = bvh_shade.pack_shade(sc)
     want = bvh_shade.bvh_shade(*args, pack=pack)
     out = bvh_shade.shade_outputs(RES * RES, cuda)
@@ -1371,8 +1564,8 @@ def test_bvh_shade_writes_into_out(cuda):
 def test_bvh_shade_rejects_bad_inputs(cuda):
     """The wrapper checks every tensor before it launches: a wrong dtype,
     shape or device raises and counts no launch."""
-    sc, cam = chip_smoke.bvh_scene("cornell", 16, 16, cuda)
-    args = list(chip_smoke.bvh_bounce_inputs(sc, cam, 16, 16, 1))
+    sc, cam = torch_scenes.bvh_scene("cornell", 16, 16, cuda)
+    args = list(torch_scenes.bvh_bounce_inputs(sc, cam, 16, 16, 1))
     before = kernels.launches["bvh_shade"]
     for k, bad in ((2, args[2].to(torch.int32)), (3, args[3][:, :2]),
                    (5, args[5].float()), (6, args[6].cpu()),
@@ -1382,9 +1575,9 @@ def test_bvh_shade_rejects_bad_inputs(cuda):
         with pytest.raises((TypeError, ValueError)):
             bvh_shade.bvh_shade(*broken)
     # A pack of another scene, or built on the CPU.
-    other = chip_smoke.bvh_scene("mixed", 16, 16, cuda)[0]
+    other = torch_scenes.bvh_scene("mixed", 16, 16, cuda)[0]
     for pack in (bvh_shade.pack_shade(other), bvh_shade.pack_shade(
-            chip_smoke.bvh_scene("cornell", 16, 16, "cpu")[0])):
+            torch_scenes.bvh_scene("cornell", 16, 16, "cpu")[0])):
         with pytest.raises(ValueError):
             bvh_shade.bvh_shade(*args, pack=pack)
     assert kernels.launches["bvh_shade"] == before
@@ -1393,13 +1586,13 @@ def test_bvh_shade_rejects_bad_inputs(cuda):
 def _walk_bit_equal(scene, ro, rd, t_max, active, pack=None):
     """Closest (t_max 1e30) and any-hit (t_max per lane) through the
     kernel, twice each, bit-equal to the plain walk on the same CUDA
-    tensors, results and counts (`chip_smoke.walk_bit_equal`). Returns the
+    tensors, results and counts (`torch_scenes.walk_bit_equal`). Returns the
     closest hits."""
     from webgpu_raytracer_tpu_torch.ops import intersect
 
-    hit = chip_smoke.walk_bit_equal(scene, ro, rd, intersect.T_MAX, active,
+    hit = torch_scenes.walk_bit_equal(scene, ro, rd, intersect.T_MAX, active,
                                     False, "closest", pack)[0]
-    chip_smoke.walk_bit_equal(scene, ro, rd, t_max, active, True, "any-hit",
+    torch_scenes.walk_bit_equal(scene, ro, rd, t_max, active, True, "any-hit",
                               pack)
     return hit
 
@@ -1416,7 +1609,7 @@ def test_bvh_walk_nonfinite_lanes_bit_equal(cuda, scene_name):
     R = ro.shape[0]
     t_max = torch.from_numpy(np.random.default_rng(R).uniform(
         0.5, 6.0, R).astype(np.float32)).to(cuda)
-    ro, rd, t_max = chip_smoke.poison_lanes(ro, rd, t_max, R)
+    ro, rd, t_max = torch_scenes.poison_lanes(ro, rd, t_max, R)
     active = torch.arange(R, device=cuda) % 11 != 0
     pack = intersect.pack_walk(scene)
     for pk in (pack, None):
@@ -1481,9 +1674,9 @@ def test_bvh_walk_more_rays_than_the_card_holds(cuda):
 STEP_PATHS = {"single-tile": ("cornell", None, False, "jobs"),
               "jobs": ("spheres", None, False, "jobs"),
               "scan": ("spheres", None, False, "scan"),
-              "textured": ("viewer", chip_smoke.textured_quad_glb, False,
+              "textured": ("viewer", torch_scenes.textured_quad_glb, False,
                            "jobs"),
-              "seeded": ("viewer", chip_smoke.textured_quad_glb, True,
+              "seeded": ("viewer", torch_scenes.textured_quad_glb, True,
                          "jobs")}
 
 
@@ -1611,6 +1804,12 @@ def test_capture_of_a_host_sync_raises(cuda):
 
 # --- the sharded steps as captured steps (parallel/sharding.py) --------------
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 @pytest.fixture(scope="module")
 def nccl_world():
     """An NCCL process group of one rank in this process, on a free port:
@@ -1622,7 +1821,7 @@ def nccl_world():
     from webgpu_raytracer_tpu_torch.parallel import sharding
 
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
-                            f"{chip_smoke._free_port()}", world_size=1,
+                            f"{_free_port()}", world_size=1,
                             rank=0, device_id=torch.device("cuda", 0))
     yield (sharding.make_mesh("cuda"),
            sharding.make_mesh("cuda", (1, 1), ("tile", "sample")))
@@ -1689,6 +1888,93 @@ def test_captured_sharded_steps_bit_equal_to_eager(nccl_world, kind,
     assert float(acc_g[:, 3].min()) == 3.0
 
 
+def _one_device_frames(backend, scene, cam, spp, depth, frames):
+    """`get_tracer(backend)` + `accumulate` over frames 1..frames at jitter
+    0 on the card: the accumulator after each frame."""
+    from webgpu_raytracer_tpu_torch.ops.api import get_tracer
+    from webgpu_raytracer_tpu_torch.ops.trace import accumulate
+
+    jitter = torch.zeros(2, device=cam.device)
+    acc = torch.zeros((RES * RES, 4), device=cam.device)
+    return [accumulate(acc, get_tracer(backend)(scene, cam, f, jitter, RES,
+                                                 RES, spp, depth), f).clone()
+            for f in range(1, frames + 1)]
+
+
+@pytest.mark.parametrize("backend", ["bvh", "dense"])
+@pytest.mark.parametrize("kind", ["tile", "sample", "2d"])
+def test_sharded_steps_equal_the_one_device_frame_on_card(nccl_world, kind,
+                                                          backend):
+    """3 frames (jitter 0) of each sharded step, eager, on a world of one
+    against `get_tracer(backend)` + `accumulate`: the tile step (spp 1)
+    bit for bit, the sample and 2-D steps (spp 2) within 2e-5; a step
+    launches the tracer's kernels at its spp, and one all-reduce where it
+    reduces. (The captured steps equal the eager ones bit for bit:
+    `test_captured_sharded_steps_bit_equal_to_eager`.)"""
+    from webgpu_raytracer_tpu_torch.render.renderer import EagerSteps
+
+    dev = torch.device("cuda")
+    spp = 1 if kind == "tile" else 2
+    scene, cam = _shard_scene(backend, dev)
+    ref = _one_device_frames(backend, scene, cam, spp, 3, 3)
+    step = _sharded(kind, nccl_world, backend, spp=spp)
+    step.steps = EagerSteps()
+    want = ({"bvh_closest": 3 * spp, "bvh_shadow": 3 * spp,
+             "bvh_walk": 6 * spp, "bvh_shade": 3 * spp} if backend == "bvh"
+            else {"dense_sweep": 4 * spp, "shade_rows": 3 * spp})
+    if kind != "tile":
+        want["all_reduce"] = 1
+    acc = torch.zeros((RES * RES, 4), device=dev)
+    jitter = torch.zeros(2, device=dev)
+    for f in range(1, 4):
+        kernels.reset_launches()
+        assert step(scene, cam, f, jitter, acc) is acc
+        assert _launched() == want
+        if kind == "tile":
+            assert torch.equal(acc.view(torch.int32),
+                               ref[f - 1].view(torch.int32)), f
+        else:
+            assert torch.allclose(acc, ref[f - 1], rtol=2e-5, atol=2e-5), f
+
+
+REPEAT_CAPTURES = 25  # fresh captured steps per kind and backend
+
+
+@pytest.mark.parametrize("backend", ["bvh", "dense"])
+@pytest.mark.parametrize("kind", ["tile", "sample", "2d"])
+def test_repeated_sharded_captures_all_succeed(nccl_world, kind, backend):
+    """REPEAT_CAPTURES fresh captured steps of one kind and backend, each
+    capturing once (frame 1, jitter 0): every capture succeeds, and every
+    replayed accumulator is the eager step's bit for bit. A capture that
+    fails raises (there is no eager fallback); the count of such failures
+    is in the assertion's message."""
+    from webgpu_raytracer_tpu_torch.render.renderer import (CapturedSteps,
+                                                            EagerSteps)
+
+    dev = torch.device("cuda")
+    scene, cam = _shard_scene(backend, dev)
+    jitter = torch.zeros(2, device=dev)
+    eager = _sharded(kind, nccl_world, backend)
+    eager.steps = EagerSteps()
+    want = torch.zeros((RES * RES, 4), device=dev)
+    eager(scene, cam, 1, jitter, want)
+    failures = []
+    for i in range(REPEAT_CAPTURES):
+        step = _sharded(kind, nccl_world, backend)
+        assert isinstance(step.steps, CapturedSteps)
+        acc = torch.zeros((RES * RES, 4), device=dev)
+        try:
+            step(scene, cam, 1, jitter, acc)
+            torch.cuda.synchronize()
+        except RuntimeError as e:  # torch.AcceleratorError among them
+            failures.append(f"{i}: {type(e).__name__}: {e}"[:200])
+            continue
+        assert len(step.steps.captures) == 1
+        assert torch.equal(acc.view(torch.int32), want.view(torch.int32)), i
+    assert not failures, (f"{len(failures)} of {REPEAT_CAPTURES} captures "
+                          f"failed: {failures}")
+
+
 def test_second_sharded_step_of_one_signature_gets_its_own_graph(
         nccl_world):
     """Two sample steps of one signature on one cache: two captures, and
@@ -1741,3 +2027,55 @@ def test_capture_of_a_host_sync_in_a_sharded_step_raises(nccl_world,
     torch.cuda.synchronize()
     assert step(scene, cam, 1, jitter, acc) is acc
     assert len(step.steps.captures) == 1
+
+
+def test_gloo_sharded_steps_on_one_card(cuda, tmp_path):
+    """Two gloo ranks share the card, each in its own process
+    (`tests/torch_gloo_card_rank.py`), and run the tile step (one graph)
+    and the sample step (two graphs, gloo's all-reduce between them),
+    captured frames bit-equal to eager ones in each rank. Their tile bands
+    put together equal the one-device frame bit for bit, and their sample
+    frames are the same on both ranks and within 2e-5 of it."""
+    from webgpu_raytracer_tpu_torch.render.resources import \
+        build_device_scene
+
+    from tests import torch_gloo_card_rank as rank_script
+
+    n = rank_script.FRAMES
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, rank_script.__file__, str(r), "2", str(port),
+         str(tmp_path)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    world = NativeWorld("cornell")
+    world.update_camera(rank_script.RES, rank_script.RES)
+    cam = torch.from_numpy(np.asarray(world.camera(), np.float32)).to(cuda)
+    scene = build_device_scene(world, device=cuda)
+    ref = {spp: _one_device_frames("bvh", scene, cam, spp,
+                                   rank_script.DEPTH, n)
+           for spp in (1, rank_script.SPP)}
+    for f in range(n):
+        band = np.concatenate([r["band"][f] for r in ranks])
+        np.testing.assert_array_equal(band.view(np.int32),
+                                      ref[1][f].cpu().numpy().view(np.int32))
+        for r in ranks:
+            np.testing.assert_allclose(
+                r["full"][f], ref[rank_script.SPP][f].cpu().numpy(),
+                rtol=2e-5, atol=2e-5)
+    np.testing.assert_array_equal(ranks[0]["full"], ranks[1]["full"])
+    for r in ranks:
+        assert not r["band_split"] and r["full_split"]
+        assert int(r["band_captures"]) == 1 and int(r["full_captures"]) == 2

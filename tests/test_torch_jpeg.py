@@ -5,8 +5,9 @@ libjpeg-turbo 3.1.3, the JAX package's decoder, bit for bit (tolerance 0).
   129x67, 4:4:4 / 4:2:2 / 4:2:0, baseline, optimised and progressive,
   restart markers by blocks and by rows, quality 50 / 90 / 100, covered by
   a rotation through the matrix rather than its full product; greyscale,
-  CMYK and Adobe RGB; and the committed fixtures of `chip_smoke.py`'s
-  texture formats phase, which must also regenerate byte for byte.
+  CMYK and Adobe RGB; and the committed fixtures of the texture formats
+  scene (`tests/torch_scenes.py`), which must also regenerate byte for
+  byte.
 - Streams Pillow's encoder does not write, from
   `tests.torch_common.jpeg_from_coefficients` (random coefficients, any
   sampling factors): h1v2 fancy upsampling, widths where turbo falls

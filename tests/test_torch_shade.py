@@ -48,7 +48,7 @@ from webgpu_raytracer_tpu_torch.render.worldtris import build_world_tables
 from webgpu_raytracer_tpu_torch.utils.textures import (build_quad_pyramid,
                                                        decode_world_textures)
 
-import chip_smoke
+from tests import torch_scenes
 from tests.glb_fixture import character_glb, textured_quad_glb
 from tests.torch_common import camera_rays, jax_and_port_tables
 
@@ -127,10 +127,10 @@ def test_next_rays_layout():
 
 # name -> (GLB, res, depth, extra layer): the textured scenes.
 TEXTURED = {"textured": (textured_quad_glb, 32, 4, False),
-            "formats": (chip_smoke.formats_scene_glb, 32, 4, False),
+            "formats": (torch_scenes.formats_scene_glb, 32, 4, False),
             "character": (character_glb, 16, 3, False),
-            "five_layers": (chip_smoke.formats_scene_glb, 32, 4, True),
-            "textured_light": (chip_smoke.textured_light_glb, 32, 4, False)}
+            "five_layers": (torch_scenes.formats_scene_glb, 32, 4, True),
+            "textured_light": (torch_scenes.textured_light_glb, 32, 4, False)}
 
 
 def textured_scene(name, white=False):
@@ -200,7 +200,7 @@ def _round_f32(x: Fraction) -> np.float32:
 
 
 def test_fma_rounding_finds_double_rounding():
-    """chip_smoke.fma_rounding's exact fma equals the rational result
+    """torch_scenes.fma_rounding's exact fma equals the rational result
     rounded once, on random lerp inputs; on a constructed double-rounding
     tie the sampler's f64 emulation (`_fma_v3`) is one ulp off and
     fma_rounding says so."""
@@ -216,7 +216,7 @@ def test_fma_rounding_finds_double_rounding():
     c[:4] = np.float32(1 + 2.0 ** -23)
     a[2:4] *= -1
     c[2:4] *= -1
-    emu, exact = chip_smoke.fma_rounding(*map(torch.from_numpy, (a, b, c)))
+    emu, exact = torch_scenes.fma_rounding(*map(torch.from_numpy, (a, b, c)))
     want = [_round_f32(Fraction(float(x)) * Fraction(float(y))
                        + Fraction(float(z))) for x, y, z in zip(a, b, c)]
     np.testing.assert_array_equal(exact.numpy(), np.array(want, np.float32))

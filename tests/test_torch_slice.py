@@ -12,9 +12,9 @@
   textures (JAX traces them with its per-ray `ray_color_dense`), each
   package with its own decode;
   G-buffer-seeded cornell at 32^2 d4, each seeded from its own G-buffer;
-  and `chip_smoke.py`'s texture formats scene at 32^2 d4 (a 4:2:0 and a
-  progressive JPEG, a 16-bit Adam7 PNG and a 4-bit palette PNG in the
-  base, metal-rough, normal and emissive slots; Pillow in JAX).
+  and `tests/torch_scenes.py`'s texture formats scene at 32^2 d4 (a 4:2:0
+  and a progressive JPEG, a 16-bit Adam7 PNG and a 4-bit palette PNG in
+  the base, metal-rough, normal and emissive slots; Pillow in JAX).
   The textured quad's mean at 64^2 d8 over 4 frames within 2% of JAX's.
   And on the third slice's: `spheres` (257,136 tris over 2,009 tiles) at
   16^2 d3, frames 1..2. And on the fourth's: mixed (35 tiles) at 32^2 d4
@@ -73,7 +73,7 @@ from webgpu_raytracer_tpu_torch.render.worldtris import build_world_tables
 from webgpu_raytracer_tpu_torch.utils import textures as port_textures
 from webgpu_raytracer_tpu_torch.utils.halton import frame_jitter
 
-import chip_smoke
+from tests import torch_scenes
 from tests.glb_fixture import character_glb, textured_quad_glb
 from tests.test_golden import GOLDEN
 from tests.torch_common import jax_and_port_tables
@@ -85,7 +85,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE2 = {"textured": ("viewer", textured_quad_glb, 32, 4, False),
           "character": ("viewer", character_glb, 16, 3, False),
           "cornell_seeded": ("cornell", None, 32, 4, True),
-          "formats": ("viewer", chip_smoke.formats_scene_glb, 32, 4,
+          "formats": ("viewer", torch_scenes.formats_scene_glb, 32, 4,
                       False)}
 SLICE2_FRAMES = 4
 # The third slice's: multi-tile scenes through the job-stream path.

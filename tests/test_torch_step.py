@@ -62,7 +62,8 @@ from webgpu_raytracer_tpu_torch.utils.halton import frame_jitter
 
 from tests.torch_common import record_eagerly
 
-import chip_smoke
+from tests import torch_scenes
+from tests.glb_fixture import skinned_strip_glb
 
 W, H, DEPTH = 32, 24, 4
 FRAMES = (1, 2, 17)
@@ -343,7 +344,7 @@ def test_captured_renderer_equal_shape_reuploads(captured):
     """The skinned strip, ticked and reuploaded before every frame: the
     tables keep their shapes, so nothing is captured again, the new tables
     are copied into the graph's, and every frame equals the eager one."""
-    glb = chip_smoke.skinned_strip_glb()
+    glb = skinned_strip_glb()
     eager, graph = _pair("viewer", glb)
     for k in range(5):
         for r in (eager, graph):
@@ -356,7 +357,7 @@ def test_captured_renderer_equal_shape_reuploads(captured):
 
 def test_captured_renderer_seeded_and_textured(captured):
     """The textured quad, G-buffer seeded, through the cache."""
-    eager, graph = _pair("viewer", chip_smoke.textured_quad_glb())
+    eager, graph = _pair("viewer", torch_scenes.textured_quad_glb())
     _same_frames(eager, graph, 3, use_gbuffer=True)
     _same_frames(eager, graph, 2)
     assert len(graph.steps.captures) == 3

@@ -29,7 +29,7 @@ import pytest
 import torch
 from PIL import Image
 
-import chip_smoke
+from tests import torch_scenes
 from webgpu_raytracer_tpu.models.native import NativeWorld
 from webgpu_raytracer_tpu.ops.dense_trace import \
     sample_texture_v3 as jax_sample
@@ -180,17 +180,17 @@ def test_png_transparency_is_ignored(color_type, depth, trns):
 
 
 def test_formats_scene_textures_bit_equal():
-    """chip_smoke.py's texture formats scene (a 4:2:0 JPEG, a progressive
-    JPEG, a 16-bit RGB Adam7 PNG and a 4-bit palette PNG): the port's
-    four layers equal the JAX package's (Pillow) bit for bit, and its
-    twin of 8-bit PNGs of the port's decodes gives the same layers."""
-    glb = chip_smoke.formats_scene_glb()
+    """tests/torch_scenes.py's texture formats scene (a 4:2:0 JPEG, a
+    progressive JPEG, a 16-bit RGB Adam7 PNG and a 4-bit palette PNG): the
+    port's four layers equal the JAX package's (Pillow) bit for bit, and
+    its twin of 8-bit PNGs of the port's decodes gives the same layers."""
+    glb = torch_scenes.formats_scene_glb()
     world = NativeWorld("viewer", glb_data=glb)
     assert world.texture_count() == 4
     port = port_tex.decode_world_textures(world)
     np.testing.assert_array_equal(port, jax_tex.decode_world_textures(world))
     assert not (port == 0.8).all(axis=(1, 2, 3)).any()
-    twin = NativeWorld("viewer", glb_data=chip_smoke.formats_scene_glb(
+    twin = NativeWorld("viewer", glb_data=torch_scenes.formats_scene_glb(
         twin=True))
     np.testing.assert_array_equal(port_tex.decode_world_textures(twin), port)
 
@@ -251,9 +251,9 @@ def test_decode_fallback_matches_jax(data):
 
 
 def test_chip_smoke_glb_matches_fixture():
-    """chip_smoke.py writes its textured quad without PIL: the same world
-    tables and the same decoded texture as the fixture's."""
-    ours = NativeWorld("viewer", glb_data=chip_smoke.textured_quad_glb())
+    """tests/torch_scenes.py writes its textured quad without PIL: the same
+    world tables and the same decoded texture as the fixture's."""
+    ours = NativeWorld("viewer", glb_data=torch_scenes.textured_quad_glb())
     theirs = NativeWorld("viewer", glb_data=textured_quad_glb())
     for w in (ours, theirs):
         w.update_camera(32, 32)

@@ -16,7 +16,7 @@ from webgpu_raytracer_tpu_torch.render.worldtris import (build_world_tables,
                                                          tables_from_jax)
 
 from tests.test_two_level import _rays
-from chip_smoke import png_bytes  # noqa: F401  (the tests' PNG writer)
+from tests.torch_scenes import png_bytes  # noqa: F401  (the tests' PNG writer)
 
 # The suite runs in several pytest-xdist workers, each of which imports
 # this module while collecting. ATen's OpenMP pool (a thread per core in

@@ -5,9 +5,9 @@ Run from a checkout's root on a machine with one NVIDIA GPU:
 
     python3 tools/torch_anim_tick.py [--frames 24] [--passes 3]
 
-The skinned strip GLB (`chip_smoke.skinned_strip_glb`, 2 triangles) at
-512^2 d8, ticked at 30 Hz scene time, in turns (each pass runs every mode
-once, the order rotating from pass to pass):
+The skinned strip GLB (`tests/glb_fixture.skinned_strip_glb`, 2
+triangles) at 512^2 d8, ticked at 30 Hz scene time, in turns (each pass
+runs every mode once, the order rotating from pass to pass):
 
 - `overlap`: bench.py's anim_pass order through `Renderer.bridge`: wait for
   the tick, `reupload_scene`, kick the next tick (`update_async`, a new
@@ -37,9 +37,10 @@ sys.path.insert(0, os.getcwd())
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from chip_smoke import skinned_strip_glb  # noqa: E402
 from webgpu_raytracer_tpu_torch import Renderer, RenderConfig  # noqa: E402
 from webgpu_raytracer_tpu_torch.utils.profiling import synchronize  # noqa
+
+from tests.glb_fixture import skinned_strip_glb  # noqa: E402
 
 
 def renderer(dev):

@@ -7,9 +7,10 @@ writes `tests/fixtures/torch_textures/<name>.jpg` for each entry of
 FIXTURES (a seeded smooth-plus-noise image saved with the entry's options)
 and `digests.json`: per file the shape and SHA-256 of the bytes of
 `np.asarray(Image.open(f).convert("RGB"))`, the JAX package's decode.
-`chip_smoke.py` holds the port's decodes to those digests on a machine
-without Pillow; `tests/test_torch_jpeg.py` writes the files and digests
-again in memory and checks both against the committed ones.
+`tests/test_torch_cuda.py` holds the port's decodes to those digests on
+the card's machine, which has no Pillow; `tests/test_torch_jpeg.py` writes
+the files and digests again in memory and checks both against the
+committed ones.
 """
 
 from __future__ import annotations
@@ -42,9 +43,9 @@ FIXTURES = {
 
 def source_pixels(width: int, height: int, channels: int,
                   seed: int) -> np.ndarray:
-    """(height, width, channels) u8: `chip_smoke.smooth_noise`, gradients
-    plus seeded noise."""
-    from chip_smoke import smooth_noise
+    """(height, width, channels) u8: `tests/torch_scenes.smooth_noise`,
+    gradients plus seeded noise."""
+    from tests.torch_scenes import smooth_noise
 
     return smooth_noise(height, width, channels, seed).astype(np.uint8)
 
@@ -87,5 +88,5 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    sys.path.insert(0, REPO)  # chip_smoke, from any working directory
+    sys.path.insert(0, REPO)  # tests.torch_scenes, from any working directory
     main()
