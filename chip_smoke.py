@@ -62,7 +62,13 @@ path at the sizes the kernels are timed at.
      its wrapper's host us split into checks, allocations, context, stream
      and the ctypes launch;
    - how often the plain sampler's f64 emulation of a fused multiply-add
-     rounds otherwise than a true f32 one (`fma_ties`).
+     rounds otherwise than a true f32 one (`fma_ties`);
+   - the present pass (`present.cu`, two launches) against the plain
+     `postprocess` at 720x480 and 1920x1080, image and history bit for
+     bit (frames 1 and 17, with and without the resample), timed on the
+     frame-17 graph's path beside its byte bound and the plain chain, the
+     chain also graph-timed (`plain_graph_ms`, what the present graph
+     replayed before this kernel).
    Each kernel's time is `kernel_ms`: 200 calls of its wrapper captured in
    one CUDA graph and replayed between a pair of CUDA events, so the host's
    cost of the calls is not in it, each call after a 256 MB read that
@@ -72,7 +78,8 @@ path at the sizes the kernels are timed at.
    made from Python (`device_ms`, the slower of device and host) and the
    wrapper's host us a call. Plain versions are host-paced.
 3. Drives one frame (frame 1, jitter 0, spp 1, depth 8) of every path,
-   the launch counts zeroed just before it and asserted exactly: cornell
+   and its present (`present_step`, two launches), the launch counts
+   zeroed just before it and asserted exactly: cornell
    traced at 512^2 and 1080p, and seeded from the G-buffer at 1080p,
    bit-equal to the traced frame; the textured quad traced at 1080p and
    seeded at 512^2; the formats scene traced and seeded at 1080p, each
@@ -107,8 +114,8 @@ import torch
 from webgpu_raytracer_tpu_torch import NativeWorld
 from webgpu_raytracer_tpu_torch import kernels
 from webgpu_raytracer_tpu_torch.ops import (bvh_shade, cuda_dense, cuda_fetch,
-                                            cuda_jobs, cuda_scan, intersect,
-                                            shade_rows)
+                                            cuda_jobs, cuda_present, cuda_scan,
+                                            intersect, shade_rows)
 from webgpu_raytracer_tpu_torch.ops.cluster_cull import (CLUSTER_CHUNK,
                                                          LANE_CHUNK,
                                                          keys_plain,
@@ -133,19 +140,22 @@ from webgpu_raytracer_tpu_torch.ops.fetch import (fetch_quad_plain,
                                                   fetch_rows_plain)
 from webgpu_raytracer_tpu_torch.ops.gbuffer import render_gbuffer
 from webgpu_raytracer_tpu_torch.ops.intersect import T_MIN
+from webgpu_raytracer_tpu_torch.ops.postprocess import postprocess
 from webgpu_raytracer_tpu_torch.ops.rng import init_rng, rand_n
 from webgpu_raytracer_tpu_torch.ops.trace import (accumulate, load_hit,
                                                   trace_pixels)
 from webgpu_raytracer_tpu_torch.parallel import sharding
-from webgpu_raytracer_tpu_torch.render.renderer import EagerSteps
+from webgpu_raytracer_tpu_torch.render.renderer import (EagerSteps,
+                                                        present_step)
 from webgpu_raytracer_tpu_torch.render.resources import build_device_scene
 from webgpu_raytracer_tpu_torch.render.worldtris import (SHADE_COLS,
                                                          build_world_tables)
 
-from tests.torch_scenes import (DEPTH, bits_equal, bvh_bounce_inputs,
-                                bvh_scene, fma_rounding, formats_scene_glb,
-                                hold_bvh_shade, max_abs_diff, poison_lanes,
-                                shade_kw, textured_light_glb,
+from tests.torch_scenes import (DEPTH, PRESENT_JITTERS, bits_equal,
+                                bvh_bounce_inputs, bvh_scene, fma_rounding,
+                                formats_scene_glb, hold_bvh_shade,
+                                hold_present, max_abs_diff, poison_lanes,
+                                present_inputs, shade_kw, textured_light_glb,
                                 textured_quad_glb, textured_scene,
                                 walk_bit_equal)
 
@@ -186,6 +196,13 @@ BVH_TRI_OPS_UNPACKED = 61
 # sample), each a separately rounded instruction (the file is built with
 # --fmad=false), sin and cos not counted.
 BVH_SHADE_OPS = 650
+# The present pass (present.cu) a pixel: bytes (the accumulator 16 read,
+# the history 12 read and 12 written, the image 3; the clean scratch 16
+# written and 16 read) and separately rounded f32 operations (9 bilateral
+# taps of ~20, TAA, two ACES, sharpen; expf and powf not counted).
+PRESENT_BYTES = 16 + 12 + 12 + 3 + 2 * 16
+PRESENT_OPS = 300
+PRESENT_SIZE = (720, 480)  # the interactive cells' image
 
 
 def host_paced(fn, launches: int = KERNEL_LAUNCHES,
@@ -1327,6 +1344,56 @@ def check_bvh_shade(cases) -> dict:
                                        "bound_by", "profiled_ms")})
 
 
+def check_present(sizes) -> dict:
+    """The present pass against `postprocess` at each (width, height):
+    image and history bit for bit on frames 1 (the resample, past the
+    edge) and 17 (with and without it); then timed on frame 17 without
+    the resample (the interactive cells' graph), the resample's path at
+    frame 1 beside it, the plain chain host-paced and graph-timed. The
+    first size's numbers go to the JSON line."""
+    rows = []
+    for width, height in sizes:
+        acc, hist = present_inputs(height, width, width, DEVICE)
+        tag = f"present {width}x{height}"
+        for frame, jitter, unjitter in ((1, PRESENT_JITTERS[1], True),
+                                        (17, PRESENT_JITTERS[0], True),
+                                        (17, PRESENT_JITTERS[0], False)):
+            hold_present(acc, hist, frame, torch.tensor(jitter,
+                                                        device=DEVICE),
+                         unjitter)
+        jit = torch.tensor(PRESENT_JITTERS[0], device=DEVICE)
+        frame = torch.full((), 17, dtype=torch.int64, device=DEVICE)
+        first = torch.ones((), dtype=torch.int64, device=DEVICE)
+        buf = hist.clone()
+        t = kernel_times(lambda: cuda_present.present(acc, buf, frame, jit,
+                                                      False))
+        resample_ms = kernel_ms(lambda: cuda_present.present(acc, buf, first,
+                                                             jit, True))
+        plain_ms = device_ms(lambda: postprocess(acc, hist, frame, jit,
+                                                 False), PLAIN_LAUNCHES)
+        plain_graph_ms = kernel_ms(lambda: postprocess(acc, hist, frame, jit,
+                                                       False), PLAIN_LAUNCHES)
+        px = width * height
+        b_ms, b_by = bound(px * PRESENT_BYTES, px * PRESENT_OPS,
+                           F32_ROUNDED_OPS_PER_S)
+        print(f"{tag}: bit-equal to postprocess (frames 1 and 17, with and "
+              f"without the resample); {times_text(t)}; the resample's "
+              f"path {resample_ms:.4f} ms; plain chain host-paced "
+              f"{plain_ms:.4f} ms, graph {plain_graph_ms:.4f} ms (L2 "
+              f"flushed); bound {b_ms:.4f} ms ({b_by}, "
+              f"{px * PRESENT_BYTES / 1e6:.1f} MB); share "
+              f"{b_ms / t['ms']:.2f}")
+        rows.append(dict(t, plain_ms=plain_ms, plain_graph_ms=plain_graph_ms,
+                         resample_ms=resample_ms, bound_ms=b_ms,
+                         bound_by=b_by, size=f"{width}x{height}"))
+    return dict(name="present", route="cuda",
+                source="webgpu_raytracer_tpu_torch/csrc/present.cu",
+                replaces=None, path="present_step (Renderer.present, the "
+                "recorder, the farm): the plain chain of ops/postprocess.py",
+                max_abs_err=0.0, library_ms=None, **rows[0],
+                other_sizes=rows[1:])
+
+
 def row_launches(seeded: bool = False, multi_tile: bool = False,
                  narrow: str = "jobs", quads: int = 0) -> dict:
     """A frame of the row-state loop at DEPTH: 1 + DEPTH sweeps (the
@@ -1348,14 +1415,27 @@ BVH_LAUNCHES = {"bvh_closest": DEPTH, "bvh_shadow": DEPTH,
                 "bvh_walk": 2 * DEPTH, "bvh_shade": DEPTH}
 
 
-def path_frame(label: str, want: dict, fn, totals: dict):
-    """Runs fn (one frame of a path) with the launch counts zeroed just
-    before it and asserts them exactly (a kernel not in `want` launched
-    nothing); adds them to `totals`. Returns (fn's result, the counts)."""
+def present_frame(out: torch.Tensor, size) -> None:
+    """Frame 1's present of a path's output (its radiance (R, 3), or a
+    sharded step's accumulator (R, 4)) at size (width, height)."""
+    width, height = size
+    acc = out if out.shape[-1] == 4 else accumulate(
+        torch.empty((width * height, 4), device=DEVICE), out, 1)
+    present_step(acc, torch.zeros((height, width, 3), device=DEVICE), 1,
+                 torch.zeros(2, device=DEVICE), width=width, height=height)
+
+
+def path_frame(label: str, want: dict, fn, totals: dict, size):
+    """Runs fn (one frame of a path) and presents it at size (width,
+    height), with the launch counts zeroed just before and asserted
+    exactly (a kernel not in `want` or the present's launched nothing);
+    adds them to `totals`. Returns (fn's result, the counts)."""
     kernels.reset_launches()
     out = fn()
+    present_frame(out, size)
     counts = dict(kernels.launches)
-    expect = {**dict.fromkeys(counts, 0), **want}
+    expect = {**dict.fromkeys(counts, 0), **want,
+              "present": cuda_present.LAUNCHES}
     assert counts == expect, f"{label}: launches {counts}, not {expect}"
     print(f"launches, {label}: {({k: v for k, v in counts.items() if v})}")
     for k, v in counts.items():
@@ -1417,7 +1497,8 @@ def sharded_steps(cases, size, totals: dict) -> None:
                     f"cornell {width}x{height} spp {spp}",
                     {**{k: spp * v for k, v in per_spp.items()},
                      "all_reduce": int(kind != "tile")},
-                    lambda: step(scene, camera, 1, jitter, acc), totals)
+                    lambda: step(scene, camera, 1, jitter, acc), totals,
+                    size)
                 if kind == "tile":
                     assert bits_equal(acc, ref), f"{backend} tile step"
                 else:
@@ -1590,31 +1671,34 @@ def main(argv: list[str]) -> int:
               f"hits, {name}: the plain version's f64 emulation rounds {bad} "
               f"of {total} otherwise than a true f32 fma (one ulp each)")
 
-    # --- phase 3: one frame of every path, counting launches ---
+    results.append(check_present([PRESENT_SIZE, hd]))
+
+    # --- phase 3: one frame of every path and its present, counting
+    # launches ---
     totals = dict.fromkeys(kernels.launches, 0)
     small = (width, height)
     dense_col, _ = path_frame("cornell 512^2 traced", row_launches(),
                               lambda: dense_frame(small, tables, camera),
-                              totals)
+                              totals, small)
     traced_hd, _ = path_frame("cornell 1080p traced", row_launches(),
                               lambda: dense_frame(hd, tables, cam_hd),
-                              totals)
+                              totals, hd)
     seeded_hd, _ = path_frame("cornell 1080p G-buffer seeded",
                               row_launches(seeded=True),
                               lambda: dense_frame(hd, tables, cam_hd,
-                                                  seeded=True), totals)
+                                                  seeded=True), totals, hd)
     assert bits_equal(seeded_hd, traced_hd), \
         "cornell 1080p: seeded frame 1 differs from the traced frame 1"
     textured_shades = path_frame(
         "textured quad 1080p traced", row_launches(),
         lambda: dense_frame(hd, tq_tables, tq_cam, tq_tex),
-        totals)[1]["shade_rows"]
+        totals, hd)[1]["shade_rows"]
     tq_small = textured_scene(glb, width, height, dev)
     textured_shades += path_frame(
         "textured quad 512^2 G-buffer seeded",
         row_launches(seeded=True, quads=1),
         lambda: dense_frame(small, *tq_small, seeded=True),
-        totals)[1]["shade_rows"]
+        totals, small)[1]["shade_rows"]
     twin = textured_scene(formats_scene_glb(twin=True), *hd, dev)
     for seeded in (False, True):
         want = row_launches(seeded=seeded, quads=2 * seeded)
@@ -1625,7 +1709,8 @@ def main(argv: list[str]) -> int:
                             ("texture formats twin (8-bit PNGs)", twin)):
             col, counts = path_frame(
                 f"{name} 1080p{tag}", want,
-                lambda: dense_frame(hd, *scene, seeded=seeded), totals)
+                lambda: dense_frame(hd, *scene, seeded=seeded), totals,
+                hd)
             pair.append(col)
             textured_shades += counts["shade_rows"]
             if seeded and name == "texture formats":
@@ -1634,19 +1719,19 @@ def main(argv: list[str]) -> int:
             "differs from the twin's"
     jobs_sp, _ = path_frame("spheres 512^2 traced", row_launches(
         multi_tile=True), lambda: dense_frame(small, sp_tables, sp_cam),
-        totals)
+        totals, small)
     scan_sp, _ = path_frame("spheres 512^2 traced narrow=scan", row_launches(
         multi_tile=True, narrow="scan"), lambda: dense_frame(
-            small, sp_tables, sp_cam, narrow="scan"), totals)
+            small, sp_tables, sp_cam, narrow="scan"), totals, small)
     assert bits_equal(scan_sp, jobs_sp), \
         "spheres 512^2: the scan path's frame 1 differs from the job path's"
     jitter = torch.zeros(2, device=dev)
     bvh_col, _ = path_frame("cornell 512^2 BVH", BVH_LAUNCHES,
                             lambda: trace_pixels(bvh_cornell, camera, 1,
                                                  jitter, width, height, 1,
-                                                 DEPTH), totals)
+                                                 DEPTH), totals, small)
     path_frame("spheres 512^2 BVH", BVH_LAUNCHES, lambda: trace_pixels(
-        bvh_sp, sp_cam, 1, jitter, width, height, 1, DEPTH), totals)
+        bvh_sp, sp_cam, 1, jitter, width, height, 1, DEPTH), totals, small)
     close = float(torch.isclose(bvh_col, dense_col, rtol=1e-3, atol=1e-3)
                   .all(1).float().mean())
     assert close > 0.98, f"cornell 512^2: BVH and dense frames agree on " \

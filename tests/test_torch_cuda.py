@@ -26,8 +26,8 @@ import torch
 from webgpu_raytracer_tpu_torch import NativeWorld, Renderer, RenderConfig
 from webgpu_raytracer_tpu_torch import kernels
 from webgpu_raytracer_tpu_torch.ops import (bvh_shade, cuda_dense, cuda_fetch,
-                                            cuda_jobs, cuda_scan, shade_rows,
-                                            tune)
+                                            cuda_jobs, cuda_present, cuda_scan,
+                                            shade_rows, tune)
 from webgpu_raytracer_tpu_torch.ops.cluster_cull import (keys_plain,
                                                          lane_terms, pair_ok,
                                                          worklists_plain)
@@ -272,7 +272,7 @@ def test_max_depth_zero_on_card(cuda):
                       "fetch_quad": 0, "cluster_cull": 0, "job_sweep": 0,
                       "cluster_cull_keyed": 0, "scan_sweep": 0,
                       "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
-                      "bvh_walk": 0, "all_reduce": 0}
+                      "bvh_walk": 0, "all_reduce": 0, "present": 0}
     assert frames[1].mean() > 0.01
     close = torch.isclose(frames[1], frames[0], rtol=1e-3, atol=1e-5).all(1)
     assert close.float().mean() >= 0.95
@@ -371,7 +371,8 @@ def test_renderer_on_card_counts_launches(cuda):
                           "cluster_cull": 0, "job_sweep": 0,
                           "cluster_cull_keyed": 0, "scan_sweep": 0,
                           "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
-                          "bvh_walk": 0, "all_reduce": 0}
+                          "bvh_walk": 0, "all_reduce": 0,
+                          "present": 2 * cuda_present.LAUNCHES}
 
 
 @pytest.mark.parametrize("n,k", [(1, 40), (40, 40), (1408, 40), (300, 3)])
@@ -462,7 +463,8 @@ def test_textured_renderer_on_card_counts_launches(cuda):
                           "cluster_cull": 0, "job_sweep": 0,
                           "cluster_cull_keyed": 0, "scan_sweep": 0,
                           "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
-                          "bvh_walk": 0, "all_reduce": 0}
+                          "bvh_walk": 0, "all_reduce": 0,
+                          "present": 2 * cuda_present.LAUNCHES}
 
 
 def _launched():
@@ -629,7 +631,8 @@ def test_renderer_spheres_on_card_counts_launches(cuda):
                           "fetch_rows": 0, "fetch_quad": 0,
                           "cluster_cull_keyed": 0, "scan_sweep": 0,
                           "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
-                          "bvh_walk": 0, "all_reduce": 0}
+                          "bvh_walk": 0, "all_reduce": 0,
+                          "present": 2 * cuda_present.LAUNCHES}
 
 
 # --- the scan path (narrow="scan") -------------------------------------------
@@ -812,7 +815,8 @@ def test_renderer_spheres_scan_on_card_counts_launches(cuda):
                           "scan_sweep": 2 * 4, "shade_rows": 2 * 3,
                           "fetch_rows": 0, "fetch_quad": 0,
                           "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
-                          "bvh_walk": 0, "all_reduce": 0}
+                          "bvh_walk": 0, "all_reduce": 0,
+                          "present": 2 * cuda_present.LAUNCHES}
 
 
 # --- the cooperative walk behind the queue of touching lanes -----------------
@@ -1666,6 +1670,82 @@ def test_bvh_walk_more_rays_than_the_card_holds(cuda):
     hit = _walk_bit_equal(scene, ro, rd, t_max, active, pack)
     live_hits = ((hit.inst_idx >= 0) & active).sum() / active.sum()
     assert float(live_hits) > 0.8  # the box is open towards the camera
+
+
+# --- the present step (csrc/present.cu) -------------------------------------
+
+PRESENT_SIZES = {"720x480": (480, 720), "1920x1080": (1080, 1920),
+                 "37x23": (23, 37)}
+
+
+@pytest.mark.parametrize("unjitter", [True, False])
+@pytest.mark.parametrize("size", sorted(PRESENT_SIZES))
+def test_present_kernel_bit_equal_to_plain(cuda, size, unjitter):
+    """The two passes against `postprocess` on the card, image and history
+    bit for bit: frames 1, 2, 16 (resampled on the unjitter graph), 17 and
+    5,000 (k = 60, alpha 1/5000), a sub-pixel jitter and one that moves
+    every resample tap past the edge; zero-count pixels and 1e6 fireflies
+    (`torch_scenes.present_inputs`); 37x23 is smaller than a block."""
+    height, width = PRESENT_SIZES[size]
+    acc, hist = torch_scenes.present_inputs(height, width, height + width,
+                                            cuda)
+    for jitter in torch_scenes.PRESENT_JITTERS:
+        jit = torch.tensor(jitter, dtype=torch.float32, device=cuda)
+        for frame in (1, 2, 16, 17, 5000):
+            torch_scenes.hold_present(acc, hist, frame, jit, unjitter)
+
+
+def test_present_step_captured_equals_eager(cuda):
+    """`present_step` through `CapturedSteps` over frames 1-18 (the
+    unjitter graph to frame 16, then the one without the resample), the
+    accumulator changed in place between frames: image and history bit for
+    bit with the eager step's, the donated history returned written, two
+    captures, two launches counted at each replay."""
+    from webgpu_raytracer_tpu_torch.render.renderer import (CapturedSteps,
+                                                            present_step)
+
+    height, width = 23, 37
+    acc, hist = torch_scenes.present_inputs(height, width, 5, cuda)
+    accum = acc.view(height * width, 4)
+    jit = torch.tensor(torch_scenes.PRESENT_JITTERS[0], device=cuda)
+    frame = torch.zeros((), dtype=torch.int64, device=cuda)
+    steps = CapturedSteps(cuda)
+    hist_g, hist_e = hist.clone(), hist.clone()
+    for f in range(1, 19):
+        accum[f::7, :3] *= 1.25
+        frame.fill_(f)
+        static = dict(width=width, height=height, unjitter=f <= 16)
+        given = hist_g
+        before = kernels.launches["present"]
+        (ldr_g, hist_g), _ = steps.run(present_step,
+                                       (accum, hist_g, frame, jit), static,
+                                       donate=(1,))
+        assert kernels.launches["present"] == before + cuda_present.LAUNCHES
+        assert hist_g is given
+        ldr_e, out = present_step(accum, hist_e, frame, jit, **static)
+        assert out is hist_e
+        assert torch.equal(ldr_g, ldr_e), f
+        assert torch.equal(hist_g.view(torch.int32),
+                           hist_e.view(torch.int32)), f
+    assert len(steps.captures) == 2
+
+
+def test_present_wrapper_raises_on_card(cuda):
+    """The wrapper raises before it launches on an accumulator that is not
+    16-byte aligned, a history on another device and a frame count that is
+    not int64; nothing is counted."""
+    acc, hist = torch_scenes.present_inputs(4, 6, 1, cuda)
+    jit = torch.zeros(2, device=cuda)
+    before = dict(kernels.launches)
+    shifted = torch.zeros(4 * 6 * 4 + 1, device=cuda)[1:].view(4, 6, 4)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_present.present(shifted, hist, 1, jit)
+    with pytest.raises(ValueError, match="history: on cpu"):
+        cuda_present.present(acc, hist.cpu(), 1, jit)
+    with pytest.raises(ValueError, match="frame_count"):
+        cuda_present.present(acc, hist, torch.tensor(1, dtype=torch.int32,
+                                                     device=cuda), jit)
+    assert kernels.launches == before
 
 
 # --- the captured frame steps (render/renderer.py) ---------------------------

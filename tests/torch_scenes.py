@@ -16,6 +16,9 @@ share. Imports no JAX and no PIL, so it runs on a machine with the card.
   `poison_lanes` (lanes of NaN / inf).
 - `fma_rounding`: a true f32 fused multiply-add beside the plain
   sampler's f64 emulation of one.
+- The present step: `present_inputs` (an accumulator and a TAA history)
+  and `hold_present` (`ops/cuda_present.present` against the plain
+  `postprocess`, bit for bit).
 """
 
 from __future__ import annotations
@@ -28,11 +31,12 @@ import zlib
 import numpy as np
 import torch
 
-from webgpu_raytracer_tpu_torch import NativeWorld
-from webgpu_raytracer_tpu_torch.ops import bvh_shade, intersect
+from webgpu_raytracer_tpu_torch import NativeWorld, kernels
+from webgpu_raytracer_tpu_torch.ops import bvh_shade, cuda_present, intersect
 from webgpu_raytracer_tpu_torch.ops.dense_trace import pinhole_rays
 from webgpu_raytracer_tpu_torch.ops.fetch import device_pyramid
 from webgpu_raytracer_tpu_torch.ops.intersect import T_MIN
+from webgpu_raytracer_tpu_torch.ops.postprocess import postprocess
 from webgpu_raytracer_tpu_torch.ops.rng import init_rng, rand_n
 from webgpu_raytracer_tpu_torch.render.resources import build_device_scene
 from webgpu_raytracer_tpu_torch.render.worldtris import build_world_tables
@@ -498,3 +502,49 @@ def hold_bvh_shade(label: str, args: tuple) -> float:
     assert bool(held.all()), f"{label}: values differ"
     return err
 
+
+# The present step's average jitters (x, y), in image units: a frame's
+# sub-pixel one, and one that moves every resample tap past the image's
+# edge (clamped there) on every size.
+PRESENT_JITTERS = ((0.21 / 720, -0.34 / 480), (0.6, -0.75))
+
+
+def present_inputs(height: int, width: int, seed: int, dev):
+    """(acc (H, W, 4), history (H, W, 3)) f32 for the present step:
+    radiance log-normal over six decades, sample counts 1-64 with one pixel
+    in 16 never sampled (count 0), a 1e6 firefly at the first pixel and
+    another inside the image; the history the radiance within +-50%, so
+    TAA clamps it both ways."""
+    rs = np.random.default_rng(seed)
+    n = height * width
+    rad = rs.lognormal(-1.0, 1.5, (n, 3)).astype(np.float32)
+    count = rs.integers(1, 65, n).astype(np.float32)
+    count[rs.uniform(size=n) < 1 / 16] = 0.0
+    for p in (0, n // 2 + width // 3):
+        rad[p], count[p] = 1e6, 1.0
+    acc = np.concatenate([rad * count[:, None], count[:, None]], 1)
+    hist = rad * rs.uniform(0.5, 1.5, (n, 3)).astype(np.float32)
+    return (torch.from_numpy(acc.reshape(height, width, 4)).to(dev),
+            torch.from_numpy(hist.reshape(height, width, 3)).to(dev))
+
+
+def hold_present(acc, history, frame: int, jitter, unjitter: bool) -> None:
+    """`cuda_present.present` against `postprocess` on the same inputs:
+    the image and the new history bit for bit, the history written into
+    the tensor given, two kernel launches on the card."""
+    ldr_p, hist_p = postprocess(acc, history, frame, jitter, unjitter)
+    mine = history.clone()
+    before = kernels.launches["present"]
+    ldr, out = cuda_present.present(
+        acc, mine, torch.full((), frame, dtype=torch.int64,
+                              device=acc.device), jitter, unjitter)
+    launched = kernels.launches["present"] - before
+    tag = (tuple(acc.shape[:2]), frame, tuple(jitter.tolist()), unjitter)
+    assert out is mine, tag
+    assert launched == (cuda_present.LAUNCHES if acc.is_cuda else 0), tag
+    off = int((ldr != ldr_p).sum())
+    assert off == 0, f"{tag}: {off} image values differ, largest by " \
+        f"{int((ldr.int() - ldr_p.int()).abs().max())}"
+    assert bits_equal(out, hist_p), f"{tag}: history differs on " \
+        f"{int((out != hist_p).sum())} values, largest by " \
+        f"{max_abs_diff(out, hist_p)}"

@@ -31,19 +31,23 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
-# Flags of one source only. bvh_shade.cu rounds every product and sum on its
-# own, as its plain version's tensor operations do: no FMA contraction.
-SOURCE_FLAGS = {"bvh_shade.cu": ("--fmad=false",)}
+# Flags of one source only. bvh_shade.cu and present.cu round every product
+# and sum on their own, as their plain versions' tensor operations do: no
+# FMA contraction.
+SOURCE_FLAGS = {"bvh_shade.cu": ("--fmad=false",),
+                "present.cu": ("--fmad=false",)}
 
 # Launch counts by kernel. A wrapper adds one where it launches its kernel
 # and nowhere else, so a run can show that its path went through it;
 # "bvh_walk" counts both of bvh_walk.cu's walks (closest and any-hit, each
 # also under its own name), "all_reduce" the sharded steps' collectives
-# (one NCCL kernel each).
+# (one NCCL kernel each), "present" both of present.cu's passes (two a
+# present).
 launches = {"dense_sweep": 0, "shade_rows": 0, "fetch_rows": 0,
             "fetch_quad": 0, "cluster_cull": 0, "job_sweep": 0,
             "cluster_cull_keyed": 0, "scan_sweep": 0, "bvh_closest": 0,
-            "bvh_shadow": 0, "bvh_walk": 0, "bvh_shade": 0, "all_reduce": 0}
+            "bvh_shadow": 0, "bvh_walk": 0, "bvh_shade": 0, "all_reduce": 0,
+            "present": 0}
 
 
 def reset_launches() -> None:
@@ -161,6 +165,9 @@ def library() -> ctypes.CDLL:
     lib.wrt_bvh_shade.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P]
+    lib.wrt_present.restype = _I
+    lib.wrt_present.argtypes = [_P, _I, _I, _P, _P, _P, _I, _F, _F, _F, _F,
+                                _F, _F, _P, _P, _P]
     return lib
 
 

@@ -40,6 +40,7 @@ accumulator and the TAA history on the renderer's device.
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from typing import NamedTuple, Optional
@@ -50,13 +51,13 @@ import torch
 from .. import kernels
 from ..config import RenderConfig
 from ..models.bridge import WorldBridge
+from ..ops import cuda_present
 from ..ops.api import choose_backend, get_tracer
 from ..ops.bvh_shade import pack_shade
 from ..ops.cuda_dense import NARROW
 from ..ops.fetch import device_pyramid
 from ..ops.gbuffer import render_gbuffer
 from ..ops.intersect import pack_walk
-from ..ops.postprocess import postprocess
 from ..ops.trace import accumulate, scene_packs
 from ..utils.halton import JitterAccumulator
 from ..utils.profiling import count, span
@@ -103,10 +104,11 @@ def present_step(accum, history, frame_count, average_jitter, *, width: int,
     `history` (H, W, 3) f32, which is returned. unjitter=False (a frame
     count past 16, known to the caller) skips the un-jitter resample that
     such a frame does not select: the same image, and on the card a second
-    graph without the resample's device time."""
-    ldr, new_history = postprocess(accum.view(height, width, 4), history,
-                                   frame_count, average_jitter, unjitter)
-    return ldr, history.copy_(new_history)
+    graph without the resample. On the card the chain is `csrc/present.cu`
+    (two launches, `ops/cuda_present.py`), on the CPU the plain
+    `postprocess`, the same bits."""
+    return cuda_present.present(accum.view(height, width, 4), history,
+                                frame_count, average_jitter, unjitter)
 
 
 def _signature(x):
@@ -263,11 +265,16 @@ class CapturedSteps:
 
     def _record(self, step, args, static):
         """Capture one call of `step` into a CUDA graph in the shared pool:
-        (graph, outputs)."""
+        (graph, outputs). Python's cyclic GC is held off during the
+        capture: a dropped step that sits in a reference cycle (a
+        `ShardedStep`) is freed only by the GC, and freeing its graph and
+        pool inside a capture invalidates the capture."""
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         stream = torch.cuda.current_stream(self.device)
         graph = torch.cuda.CUDAGraph()
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool,
                                   capture_error_mode="thread_local"):
@@ -283,6 +290,9 @@ class CapturedSteps:
                 pass
             self.pool = None
             raise
+        finally:
+            if gc_on:
+                gc.enable()
         return graph, out
 
     def pool_bytes(self) -> int:
@@ -498,7 +508,8 @@ class Renderer:
     def present(self) -> np.ndarray:
         """Run the post-process chain (one `present_step`, one graph replay
         on the card); returns (H, W, 3) uint8. Call once per rendered
-        frame: the TAA history blend uses alpha = 1/frame.
+        frame: the TAA history blend uses alpha = 1/frame. Adds the
+        present's kernel launches to self.launches.
 
         Spans: `present`, with `present.inputs` (the frame count's fill),
         the steps' own and `present.copy`, the image's copy to the host,
@@ -506,12 +517,14 @@ class Renderer:
         with span("present", self.frame_count):
             with span("present.inputs"):
                 self._frame.fill_(self.frame_count)
+            before = kernels.launches["present"]
             (ldr, self.history), args = self.steps.run(
                 present_step, (self.accum, self.history, self._frame,
                                self._avg_jitter),
                 dict(width=self.width, height=self.height,
                      unjitter=self.frame_count <= 16), donate=(1,))
             self.accum = args[0]
+            self.launches["present"] += kernels.launches["present"] - before
             with span("present.copy"):
                 self._last_frame = ldr.cpu().numpy()
         return self._last_frame
