@@ -36,6 +36,19 @@ on the program's accumulator and TAA history before it:
 - `history_off_pct`: the share of the new TAA history's values off by
   more than rtol 1e-5 + atol 1e-6.
 
+A snapshot whose frame was seeded from the G-buffer (`gbuffer`) is traced
+as the frame it stands for: at lens radius 0 the seeded radiance is the
+traced one bit for bit, and the program counts the G-buffer's W*H primary
+rays in the place of the tracer's own (which a seeded tracer does not
+cast), so the reference's count, a primary ray a pixel, holds for both.
+The check raises on a seeded snapshot whose camera has a lens radius above
+0, rather than compare against another estimator.
+
+The scene is the configuration's preset with the GLB of its `"model"`, if
+it names one (`drivers.scene_source`, the input the loops build from too);
+a textured scene's images are decoded and sampled by the reference itself
+(`reference/textures.py`).
+
 The reference follows the program from the program's state before each
 checked frame (its accumulator and history), which the window built over
 thousands of frames; the start (a first frame overwrites the accumulator)
@@ -50,20 +63,25 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import drivers
+
 RTOL, ATOL = 1e-5, 1e-6
 PART = 0.01  # a sample this far off is another path, not a rounding
 
 
-def scene_arrays(scene: str, width: int, height: int, t: float) -> dict:
+def scene_arrays(scene: str, width: int, height: int, t: float,
+                 **source) -> dict:
     """The scene compiler's raw arrays at time t (the input both sides
-    start from) and the camera."""
+    start from), its encoded texture images and the camera. `source` is
+    what else builds the scene (`drivers.scene_source`: a model's GLB)."""
     from webgpu_raytracer_tpu_torch import NativeWorld
-    w = NativeWorld(scene)
+    w = NativeWorld(scene, **source)
     if t:
         w.update(t)
     w.update_camera(width, height)
     out = {k: np.array(getattr(w, k)()) for k in
-           ("topology", "vertices", "normals", "instances", "lights")}
+           ("topology", "vertices", "normals", "uvs", "instances", "lights")}
+    out["textures"] = [w.texture(i) for i in range(w.texture_count())]
     out["camera"] = np.array(w.camera(), np.float32)
     return out
 
@@ -108,12 +126,17 @@ def check(window, cfg: dict, device, control: bool = False) -> tuple:
 
     W, H, D = cfg["width"], cfg["height"], cfg["max_depth"]
     lo = torch.bfloat16
+    source = drivers.scene_source(cfg)
     worlds = {}
 
     def world(t):
         if t not in worlds:
-            arr = scene_arrays(cfg["scene"], W, H, t)
+            arr = scene_arrays(cfg["scene"], W, H, t, **source)
             tables = pt.world_tables(arr)
+            if tables["textures"] is not None and cfg.get("backend") == "bvh":
+                raise ValueError("a textured scene on the BVH path, which "
+                                 "samples level 0 at every bounce: the "
+                                 "reference follows the dense path's levels")
             worlds[t] = (arr["camera"], pt.Scene(tables, device),
                          pt.Scene(tables, device, lo) if control else None,
                          tables)
@@ -125,6 +148,11 @@ def check(window, cfg: dict, device, control: bool = False) -> tuple:
     ranks = ranks_off = 0
     for s in window.snapshots:
         cam, sc, sc_lo, tables = world(s["time"])
+        if s.get("gbuffer") and cam[3] > 0.0:
+            raise ValueError(f"a frame seeded from the G-buffer under a lens "
+                             f"of radius {float(cam[3])}: its radiance is "
+                             f"not the traced frame's, which the reference "
+                             f"traces")
         px = s["pixels"]
         ref, ref_rays = sample(sc, cam, s, W, H, D)
         one = torch.ones_like(ref[:, :1])

@@ -3,7 +3,8 @@
 A loop is a module of its own, `loops/<loop>.py`, found by the name that a
 traffic file gives under `"loop"`; its `run(cfg, traffic, seed, seconds,
 trace, device, t_start, patterns)` builds the program from the
-configuration, warms up every step key its window will use (set-up), runs
+configuration (its preset, with the GLB of its `"model"` where it names
+one: `scene_source`), warms up every step key its window will use (set-up), runs
 the window for `seconds` with the traffic file's parameters and returns a
 `Window`. `--seed` changes only the random streams and the choice of the
 frames and pixels that the output check compares, never the scene, the
@@ -21,6 +22,7 @@ import random
 import sys
 import time
 
+from . import spec
 from .profile import Stretcher
 
 
@@ -33,6 +35,16 @@ def sync(device) -> None:
     import torch
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+def scene_source(cfg: dict) -> dict:
+    """The keyword arguments that build the configuration's scene, beside
+    its preset name, wherever a `Renderer` or a `NativeWorld` is made (the
+    loops and the output check): `glb_data`, the bytes of
+    `scenes/<model>.py`'s `glb()`, where the configuration names a
+    `"model"`; none otherwise."""
+    model = cfg.get("model")
+    return {} if model is None else {"glb_data": spec.scene(model).glb()}
 
 
 def pixels(rnd: random.Random, cfg: dict, device):

@@ -5,6 +5,8 @@ sits in a file of its own, found by the name `BENCHMARK.json` gives it:
 
 - `configs/<config>.json`      the configuration as it is run (the entry's
                                `file`);
+- `scenes/<model>.py`          `glb()`: the bytes of the GLB model that a
+                               configuration's optional `"model"` names;
 - `traffic/<traffic>.json`     a traffic mix: the loop it runs (`"loop"`)
                                and the loop's parameters;
 - `loops/<loop>.py`            `run(...)` of one kind of user's loop, found
@@ -97,6 +99,11 @@ def reader_path(kind: str, name: str) -> str:
     if os.path.exists(whole) or "." not in name:
         return whole
     return os.path.join(folder, name.split(".")[0] + ".py")
+
+
+def scene(model: str) -> ModuleType:
+    """The file that writes a configuration's model (`glb()`)."""
+    return load_module(os.path.join(HERE, "scenes", model + ".py"))
 
 
 def roofline(kernel: str) -> ModuleType:

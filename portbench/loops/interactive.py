@@ -10,7 +10,8 @@ Traffic keys:
   count `first_frame` + (a number below `frame_span` drawn from the seed),
   as a resumed render's count does;
 - `render_args` (optional): keyword arguments of every `render_frame`
-  call, such as `{"use_gbuffer": true}`;
+  call, such as `{"use_gbuffer": true}` (a snapshot then says `gbuffer`:
+  its frame's bounce 0 was seeded from the G-buffer);
 - `tick_every`, `tick_fps` (optional): a scene tick every `tick_every`
   frames, as the upstream viewer's `update_interval`: at the start of such
   a frame the world is updated to (frame index) / `tick_fps` seconds on
@@ -41,7 +42,8 @@ def run(cfg, traffic, seed, seconds, trace, device, phases,
     phases.mark("program import")
     rnd = random.Random(seed)
     r = Renderer(cfg["scene"], config=drivers.render_config(cfg),
-                 device=device, narrow=cfg["narrow"])
+                 device=device, narrow=cfg["narrow"],
+                 **drivers.scene_source(cfg))
     phases.mark("renderer (scene compile, upload)")
     args = traffic.get("render_args", {})
     every = traffic.get("tick_every", 0)
@@ -111,6 +113,7 @@ def run(cfg, traffic, seed, seconds, trace, device, phases,
             snaps.append(dict(
                 frame=count, pixels=px, before=before[0],
                 after=after, rays=r.last_rays.clone(), time=clock["scene"],
+                gbuffer=bool(args.get("use_gbuffer")),
                 present=dict(
                     frame=count, accum=after, hist_before=before[1],
                     hist_after=r.history.clone(), ldr=ldr,

@@ -40,7 +40,7 @@ def run(cfg, traffic, seed, seconds, trace, device, phases,
     rc = drivers.render_config(cfg, spp=traffic["spp"],
                                batch=traffic["batch"], fps=traffic["fps"])
     r = Renderer(cfg["scene"], config=rc, device=device,
-                 narrow=cfg["narrow"])
+                 narrow=cfg["narrow"], **drivers.scene_source(cfg))
     phases.mark("renderer (scene compile, upload)")
     rec = VideoRecorder(r)
     start = rnd.randrange(traffic["start_frames"])

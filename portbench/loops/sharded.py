@@ -4,8 +4,8 @@ own copy of the scene, and the step's all-reduce leaves the frame's mean on
 every card. Steps run back to back; rank 0 waits for each (a progressive
 viewer waits for the step it shows), and a step ends there.
 
-Configuration keys: `scene`, `width`, `height`, `max_depth`, `ranks` (one
-a card), `spp_per_step` (the frame's samples a step, split over the
+Configuration keys: `scene` (and `model`, `drivers.scene_source`),
+`width`, `height`, `max_depth`, `ranks` (one a card), `spp_per_step` (the frame's samples a step, split over the
 ranks), `backend` ("bvh": the scene is a DeviceScene), `check_pixels`.
 
 Traffic keys:
@@ -93,7 +93,7 @@ def _scene(cfg, dev):
     from webgpu_raytracer_tpu_torch.render.resources import \
         build_device_scene
 
-    world = NativeWorld(cfg["scene"])
+    world = NativeWorld(cfg["scene"], **drivers.scene_source(cfg))
     world.update_camera(cfg["width"], cfg["height"])
     cam = torch.from_numpy(np.asarray(world.camera(), np.float32)).to(dev)
     return build_device_scene(world, device=dev), cam

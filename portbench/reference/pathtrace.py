@@ -1,5 +1,5 @@
 """Plain reference path tracer: one progressive frame's radiance for chosen
-pixels of an untextured scene.
+pixels of a scene, textured or not.
 
 It follows the estimator of the system under test (the per-ray loop of the
 upstream WGSL shader, as the port states it): thin-lens primaries, a closest
@@ -12,16 +12,28 @@ CUDA kernels round as those do; a pixel whose path parts (a grazing hit
 decided the other way by one rounding) shows as a large gap on that pixel
 only.
 
-Inputs are the native scene compiler's raw arrays (`world_tables`); this
-file imports nothing of the system under test. `dtype` is the precision the
-whole frame is computed in: float32 as the configuration states, or a lower
-one for the benchmark's control.
+A textured scene samples its `texture_2d_array` (`textures.py`) in the
+four slots of a shading row's `tex` columns, at the hit's interpolated UVs:
+the base colour (times the base-colour factor; at level 0 on bounce 0 and
+at level 1 after it), the normal map (the same levels; the tangent frame
+from the triangle's first edge), metallic-roughness (level 1: metallic
+times B, roughness times G) and emissive (level 1); a light sample's
+emission is the light's base colour times its texture at level 1, at the
+sampled point's UVs. A scene that binds no texture takes none of these
+operations.
+
+Inputs are the native scene compiler's raw arrays and encoded images
+(`world_tables`); this file imports nothing of the system under test.
+`dtype` is the precision the whole frame is computed in: float32 as the
+configuration states, or a lower one for the benchmark's control.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import textures
 
 PI = 3.141592653589793
 M32 = 0xFFFFFFFF
@@ -31,8 +43,8 @@ T_MAX = 1e30
 BLOCK = 1 << 24
 
 # The shade row layout: column ranges of one world triangle's attributes.
-COLS = dict(v0=0, e1=3, e2=6, n0=9, n1=12, n2=15, base=24, mat=27,
-            mrir=28, tex=31, emissive=35)
+COLS = dict(v0=0, e1=3, e2=6, n0=9, n1=12, n2=15, uv0=18, uv1=20, uv2=22,
+            base=24, mat=27, mrir=28, tex=31, emissive=35)
 
 
 # -- numbers ------------------------------------------------------------------
@@ -162,10 +174,13 @@ def _unit(v):
 
 def world_tables(arrays: dict) -> dict:
     """Flatten the scene compiler's arrays (`topology`, `vertices`,
-    `normals`, `instances`, `lights`) into world-space triangles: the
+    `normals`, `instances`, `lights`, and for a textured scene `uvs` and
+    `textures`, the encoded images) into world-space triangles: the
     Plucker features of the hit test, one 40-column shading row a
-    triangle, and the emissive triangles' rows. Raises on a textured
-    scene, which this reference does not sample."""
+    triangle, the emissive triangles' rows, and the texture levels
+    (`textures.levels`, None for a scene that binds no texture). The UV
+    columns are filled only where some triangle binds a texture; raises
+    on a texture index past the scene's images."""
     topo = np.asarray(arrays["topology"], np.uint32).reshape(-1, 20)
     tri_v = topo[:, 0:3].astype(np.int64)
     tri_geom = topo[:, 3].astype(np.int64)
@@ -192,15 +207,24 @@ def world_tables(arrays: dict) -> dict:
         light_rows_at += [base + where[int(t)]
                           for _, t in lights[lights[:, 0] == i]]
         base += mine.size
-        parts.append((mine, *p, *n))
+        parts.append((mine, *p, *n, vi))
     if not parts:
         raise ValueError("the scene has no triangles")
-    mine, v0, v1, v2, n0, n1, n2 = (np.concatenate([q[k] for q in parts])
-                                    for k in range(7))
+    mine, v0, v1, v2, n0, n1, n2, vi = (np.concatenate([q[k] for q in parts])
+                                        for k in range(8))
     a = attrs[mine]
-    if (a[:, 8:12] >= 0).any():
-        raise ValueError("textured scene: the reference samples no textures")
     tw = v0.shape[0]
+    uv = np.zeros((tw, 6), np.float32)
+    levels = None
+    bound = a[:, 8:12][a[:, 8:12] >= 0]
+    if bound.size:
+        images = arrays["textures"]
+        if bound.max() >= len(images):
+            raise ValueError(f"texture index {int(bound.max())} past the "
+                             f"scene's {len(images)} images")
+        uvs = np.asarray(arrays["uvs"], np.float32).reshape(-1, 2)
+        uv = np.concatenate([uvs[vi[:, k]] for k in range(3)], axis=1)
+        levels = textures.levels(images)
     e1, e2 = v1 - v0, v2 - v0
 
     def edge(pa, pb):
@@ -215,7 +239,6 @@ def world_tables(arrays: dict) -> dict:
     tn[9] = np.einsum("tj,tj->t", nn, v0)
     td = np.zeros((16, tw), np.float32)
     td[0:3] = nn.T
-    uv = np.zeros((tw, 6), np.float32)
     shade = np.concatenate(
         [v0, e1, e2, n0, n1, n2, uv, a[:, 0:3], a[:, 3:4], a[:, 4:7],
          a[:, 8:12], a[:, 12:15], np.zeros((tw, 2), np.float32)],
@@ -225,14 +248,20 @@ def world_tables(arrays: dict) -> dict:
                 shade=shade,
                 lights=shade[np.asarray(light_rows_at, np.int64)]
                 if light_rows_at else np.zeros((1, 40), np.float32),
-                light_count=len(light_rows_at))
+                light_count=len(light_rows_at), textures=levels)
 
 
 class Scene:
-    """The world tables on a device, in one precision."""
+    """The world tables on a device, in one precision; `tex` the texture
+    (level 0, level 1), or None."""
 
     def __init__(self, tables: dict, device, dtype=torch.float32):
         self.dtype = dtype
+        self.tex = None
+        if tables.get("textures") is not None:
+            l0, l1 = tables["textures"]
+            d0 = textures.Level(l0, device)
+            self.tex = (d0, d0 if l1 is l0 else textures.Level(l1, device))
         # (5, 16, T): per Plucker group, the columns a lane's terms dot with
         self.f = torch.from_numpy(tables["features"]).to(device, dtype)
         self.shade = torch.from_numpy(tables["shade"]).to(device, dtype)
@@ -317,7 +346,8 @@ def refine_t(row: Row, ro: V, rd: V):
 
 
 def surface(row: Row, ro: V, rd: V):
-    """(shading normal, geometric normal) at the hit of the row."""
+    """(shading normal, geometric normal, barycentrics (u, v, w)) at the
+    hit of the row."""
     v0, e1, e2 = row.v("v0"), row.v("e1"), row.v("e2")
     s = ro - v0
     h = cross(rd, e2)
@@ -327,7 +357,45 @@ def surface(row: Row, ro: V, rd: V):
     v = f * dot(rd, cross(s, e1))
     w = 1.0 - u - v
     ln = normalize(row.v("n0") * w + row.v("n1") * u + row.v("n2") * v)
-    return ln, normalize(cross(e1, e2))
+    return ln, normalize(cross(e1, e2)), (u, v, w)
+
+
+def tex_uv(row: Row, u, v, w):
+    """The row's texture coordinates at barycentrics: uv0 * w + uv1 * u +
+    uv2 * v, per coordinate."""
+    return tuple(row.f("uv0", k) * w + row.f("uv1", k) * u
+                 + row.f("uv2", k) * v for k in (0, 1))
+
+
+def textured(scene: Scene, row: Row, found, active, depth: int, ln, bary,
+             albedo, metallic, rough, emissive) -> tuple:
+    """The hit's surface with its textures sampled: (shading normal,
+    albedo, metallic, roughness, emissive). Base colour and normal map read
+    the lanes that found a triangle, at level 0 on bounce 0 and level 1
+    after it; metallic-roughness and emissive the live lanes, at level 1."""
+    u, v, w = bary
+    l0, l1 = scene.tex
+    level = l0 if depth == 0 else l1
+    tu, tv = tex_uv(row, u, v, w)
+
+    def slot(k, mask):
+        return torch.where(mask, row.f("tex", k), -1.0).to(torch.int32)
+
+    def tex(lvl, k, mask):
+        return V(*textures.sample(lvl, slot(k, mask), tu, tv))
+
+    albedo = albedo * tex(level, 0, found)
+    n_map = tex(level, 2, found) * 2.0 - 1.0
+    t_axis = normalize(row.v("e1"))
+    b_axis = normalize(cross(ln, t_axis))
+    mapped = normalize(t_axis * n_map.x + b_axis * n_map.y + ln * n_map.z)
+    nrm = sel(found & (row.f("tex", 2) >= 0.0), mapped, ln)
+    k_mr = slot(1, active)
+    mr = V(*textures.sample(l1, k_mr, tu, tv))
+    metallic = torch.where(k_mr >= 0, metallic * mr.z, metallic)
+    rough = torch.where(k_mr >= 0, rough * mr.y, rough)
+    emissive = emissive * tex(l1, 3, active)
+    return nrm, albedo, metallic, rough, emissive
 
 
 # -- BSDF ---------------------------------------------------------------------
@@ -488,7 +556,13 @@ def sample_light(scene: Scene, hit_p, r0, r1, r2):
     cos_l = torch.clamp(dot(n_raw, -unit), min=0.0)
     pdf = dist_sq / torch.clamp(cos_l * area, min=1e-20) / lc_f
     valid = (cos_l >= 1e-6) & (area > 0.0) & (lc > 0)
-    return row.v("base"), unit, dist, torch.where(valid, pdf, 0.0)
+    emit = row.v("base")
+    if scene.tex is not None:
+        # p's vertex weights are (u, v, w): uv0 * u + uv1 * v + uv2 * w.
+        tu, tv = tex_uv(row, v, w, u)
+        emit = emit * V(*textures.sample(
+            scene.tex[1], row.f("tex", 0).to(torch.int32), tu, tv))
+    return emit, unit, dist, torch.where(valid, pdf, 0.0)
 
 
 def light_pdf(scene: Scene, row: Row, t, l_dir):
@@ -558,16 +632,21 @@ def radiance(scene: Scene, camera, pixels, frame: int, width: int,
     rays = torch.ones(n, dtype=torch.int64, device=dev)
     for depth in range(max_depth):
         last = depth == max_depth - 1
-        nrm, geo = surface(row, ro, rd)
+        nrm, geo, bary = surface(row, ro, rd)
+        metallic = row.f("mrir", 0)
+        rough = row.f("mrir", 1)
+        emissive = row.v("emissive")
+        albedo = row.v("base")
+        if scene.tex is not None:
+            nrm, albedo, metallic, rough, emissive = textured(
+                scene, row, idx >= 0, active, depth, nrm, bary, albedo,
+                metallic, rough, emissive)
         mat = row.f("mat").to(torch.int32)
         hit_p = ro + rd * hit_t
         normal = sel(dot(rd, nrm) < 0.0, nrm, -nrm)
         geom_n = sel(dot(rd, geo) < 0.0, geo, -geo)
-        metallic = row.f("mrir", 0)
-        rough = torch.clamp(row.f("mrir", 1), min=0.005)
+        rough = torch.clamp(rough, min=0.005)
         ior = row.f("mrir", 2)
-        emissive = row.v("emissive")
-        albedo = row.v("base")
         f0 = albedo * metallic + (0.04 * (1.0 - metallic))
 
         is_light = mat == 3

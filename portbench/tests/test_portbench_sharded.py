@@ -70,7 +70,8 @@ def _scene(backend: str, width: int, height: int, device):
 
 @contextlib.contextmanager
 def _planted(rank: int, n: int, fault, rays):
-    """The step's tracer counts its rays into `rays`; `fault` breaks the
+    """The step's tracer (`ShardedStep._share` takes its radiance and
+    exact ray count) also copies its rays into `rays`; `fault` breaks the
     step underneath, on this rank."""
     from webgpu_raytracer_tpu_torch.parallel import sharding
     get_tracer, share = sharding.get_tracer, sharding.ShardedStep._share
@@ -82,18 +83,18 @@ def _planted(rank: int, n: int, fault, rays):
         def trace(*a, **kw):
             if fault == "streams_shifted_by_one":
                 kw["sample0"] += 1
-            col, r = tracer(*a, with_stats=True, **kw)
+            col, r = tracer(*a, **kw)
             if fault == "one_stream_left_out" and rank == n - 1:
                 col, r = col * 0.0, r * 0
             if fault == "ray_count_altered":
                 r = r * 1.25
             rays.copy_(r)
-            return col
+            return col, r
         return trace
 
     def wrong_share(self, *a, spp_per, total_spp, **kw):
-        col = share(self, *a, spp_per=spp_per, total_spp=total_spp, **kw)
-        return col * (total_spp / spp_per) / spp_per
+        col, r = share(self, *a, spp_per=spp_per, total_spp=total_spp, **kw)
+        return col * (total_spp / spp_per) / spp_per, r
 
     def altered(prev, col, frame_count):
         out = accumulate(prev, col, frame_count)
