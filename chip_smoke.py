@@ -1395,18 +1395,21 @@ def check_present(sizes) -> dict:
 
 
 def row_launches(seeded: bool = False, multi_tile: bool = False,
-                 narrow: str = "jobs", quads: int = 0) -> dict:
+                 narrow: str = "jobs", quads: int = 0,
+                 textured: bool = False) -> dict:
     """A frame of the row-state loop at DEPTH: 1 + DEPTH sweeps (the
     primary's, or when seeded the G-buffer's) - a dense sweep each on one
     tile, a cull and a narrow-phase sweep each on several - and DEPTH
-    shades; seeded, also one seed-row fetch and `quads` quad fetches (the
+    shades (on a textured scene, each also counted as `shade_rows_tex`);
+    seeded, also one seed-row fetch and `quads` quad fetches (the
     G-buffer's bound base-colour and normal slots)."""
     n = 1 + DEPTH
     sweeps = ({"dense_sweep": n} if not multi_tile else
               {"cluster_cull": n, "job_sweep": n} if narrow == "jobs" else
               {"cluster_cull_keyed": n, "scan_sweep": n})
-    return {**sweeps, "shade_rows": DEPTH, "fetch_rows": int(seeded),
-            "fetch_quad": quads}
+    return {**sweeps, "shade_rows": DEPTH,
+            "shade_rows_tex": DEPTH if textured else 0,
+            "fetch_rows": int(seeded), "fetch_quad": quads}
 
 
 # A frame of the BVH path (`trace_pixels`): the primary and DEPTH - 1
@@ -1689,19 +1692,17 @@ def main(argv: list[str]) -> int:
                                                   seeded=True), totals, hd)
     assert bits_equal(seeded_hd, traced_hd), \
         "cornell 1080p: seeded frame 1 differs from the traced frame 1"
-    textured_shades = path_frame(
-        "textured quad 1080p traced", row_launches(),
-        lambda: dense_frame(hd, tq_tables, tq_cam, tq_tex),
-        totals, hd)[1]["shade_rows"]
+    path_frame("textured quad 1080p traced", row_launches(textured=True),
+               lambda: dense_frame(hd, tq_tables, tq_cam, tq_tex), totals,
+               hd)
     tq_small = textured_scene(glb, width, height, dev)
-    textured_shades += path_frame(
-        "textured quad 512^2 G-buffer seeded",
-        row_launches(seeded=True, quads=1),
-        lambda: dense_frame(small, *tq_small, seeded=True),
-        totals, small)[1]["shade_rows"]
+    path_frame("textured quad 512^2 G-buffer seeded",
+               row_launches(seeded=True, quads=1, textured=True),
+               lambda: dense_frame(small, *tq_small, seeded=True), totals,
+               small)
     twin = textured_scene(formats_scene_glb(twin=True), *hd, dev)
     for seeded in (False, True):
-        want = row_launches(seeded=seeded, quads=2 * seeded)
+        want = row_launches(seeded=seeded, quads=2 * seeded, textured=True)
         tag = " G-buffer seeded" if seeded else ""
         pair = []
         for name, scene in (("texture formats", (fm_tables, fm_cam,
@@ -1712,7 +1713,6 @@ def main(argv: list[str]) -> int:
                 lambda: dense_frame(hd, *scene, seeded=seeded), totals,
                 hd)
             pair.append(col)
-            textured_shades += counts["shade_rows"]
             if seeded and name == "texture formats":
                 formats_quads = counts["fetch_quad"]
         assert bits_equal(*pair), f"texture formats 1080p{tag}: frame 1 " \
@@ -1745,8 +1745,8 @@ def main(argv: list[str]) -> int:
           f"{close:.4f} of the lanes (1e-3); launches in all: {totals}")
 
     # Every shade of a textured scene ran the textured instantiation.
-    shade_tex_row["launches"] = textured_shades
-    shade_row["launches"] = totals["shade_rows"] - textured_shades
+    shade_tex_row["launches"] = totals["shade_rows_tex"]
+    shade_row["launches"] = totals["shade_rows"] - totals["shade_rows_tex"]
     for res in results:
         if res["name"] == "fetch_quad_4_layers":
             res["launches"] = formats_quads

@@ -268,8 +268,9 @@ def test_max_depth_zero_on_card(cuda):
                                          torch.zeros(2, device=dev), 32, 32,
                                          1, 0).cpu())
         counts = dict(kernels.launches)
-    assert counts == {"dense_sweep": 2, "shade_rows": 0, "fetch_rows": 1,
-                      "fetch_quad": 0, "cluster_cull": 0, "job_sweep": 0,
+    assert counts == {"dense_sweep": 2, "shade_rows": 0,
+                      "shade_rows_tex": 0, "fetch_rows": 1, "fetch_quad": 0,
+                      "cluster_cull": 0, "job_sweep": 0,
                       "cluster_cull_keyed": 0, "scan_sweep": 0,
                       "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
                       "bvh_walk": 0, "all_reduce": 0, "present": 0}
@@ -315,9 +316,11 @@ def test_shade_kernel_matches_plain(cuda, scene, depth):
     kw = dict(textures=textures)
     args = (state, rng, rowT, idx, tables.light_rows, depth,
             tables.light_count, 8)
-    before = kernels.launches["shade_rows"]
+    before = dict(kernels.launches)
     out, rng_k, rays8 = shade_rows.shade(*args, **kw)
-    assert kernels.launches["shade_rows"] == before + 1
+    assert kernels.launches["shade_rows"] == before["shade_rows"] + 1
+    assert kernels.launches["shade_rows_tex"] == \
+        before["shade_rows_tex"] + (textures is not None)
     out_p, rng_p = shade_rows.shade_step(*args, **kw)
     assert torch.equal(rng_k, rng_p)
     assert torch.equal(rays8, shade_rows.next_rays(out))
@@ -367,7 +370,8 @@ def test_renderer_on_card_counts_launches(cuda):
         img = r.present()
     assert img.shape == (RES, RES, 3) and np.isfinite(r.radiance()).all()
     assert r.launches == {"dense_sweep": 2 * 6, "shade_rows": 2 * 5,
-                          "fetch_rows": 0, "fetch_quad": 0,
+                          "shade_rows_tex": 0, "fetch_rows": 0,
+                          "fetch_quad": 0,
                           "cluster_cull": 0, "job_sweep": 0,
                           "cluster_cull_keyed": 0, "scan_sweep": 0,
                           "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
@@ -459,7 +463,8 @@ def test_textured_renderer_on_card_counts_launches(cuda):
         img = r.present()
     assert img.shape == (RES, RES, 3) and np.isfinite(r.radiance()).all()
     assert r.launches == {"dense_sweep": 2 * 6, "shade_rows": 2 * 5,
-                          "fetch_rows": 2 * 1, "fetch_quad": 2 * 1,
+                          "shade_rows_tex": 2 * 5, "fetch_rows": 2 * 1,
+                          "fetch_quad": 2 * 1,
                           "cluster_cull": 0, "job_sweep": 0,
                           "cluster_cull_keyed": 0, "scan_sweep": 0,
                           "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
@@ -485,7 +490,8 @@ def test_textured_traced_frame_on_card_counts_launches(cuda):
         frames.append(trace_pixels_dense(
             tables, cam, 1, torch.zeros(2, device=dev), 32, 32, 1, 5,
             textures=textures).cpu())
-    assert _launched() == {"dense_sweep": 6, "shade_rows": 5}
+    assert _launched() == {"dense_sweep": 6, "shade_rows": 5,
+                           "shade_rows_tex": 5}
     assert frames[1].mean() > 0.05
     close = torch.isclose(frames[1], frames[0], rtol=1e-3, atol=1e-5).all(1)
     assert close.float().mean() >= 0.95
@@ -515,7 +521,8 @@ def test_formats_scene_bit_equal_to_its_png_twin_on_card(cuda):
             b = twin.render_frame(use_gbuffer=seeded).clone()
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
         want = dict.fromkeys(rf.launches, 0)
-        want.update(dense_sweep=2 * 5, shade_rows=2 * 4, **fetches)
+        want.update(dense_sweep=2 * 5, shade_rows=2 * 4,
+                    shade_rows_tex=2 * 4, **fetches)
         assert rf.launches == want and twin.launches == want
     assert float(a[:, :3].mean()) > 0.0
 
@@ -539,6 +546,32 @@ def test_seeded_frames_bit_equal_to_traced_on_card(cuda):
                                "fetch_rows": 1}
         assert torch.equal(traced.view(torch.int32), seeded.view(torch.int32))
         assert float(traced.mean()) > 0.05
+
+
+def test_textured_seeded_cell_frame_on_card_counts_launches(cuda):
+    """One frame of the benchmark's `textured-seeded` cell: the
+    `tex_instances` model (16 textured spheres and a textured emitter, five
+    1024^2 layers, 8,462 triangles in 67 tiles) at 1920x1080 depth 8,
+    seeded from the G-buffer, then presented. Multi-tile, so every sweep
+    is a cull and a job sweep: the G-buffer's and one fused sweep a bounce
+    (9 each). 8 shades, each the textured instantiation (shade_rows and
+    shade_rows_tex 8 each). One seed-row fetch, after the G-buffer's sweep.
+    Two quad fetches: the G-buffer's base colour and normal map (the other
+    slots and every later bounce are sampled inside the shade kernel).
+    Two present passes."""
+    from portbench.lib import spec
+    r = Renderer("viewer", config=RenderConfig(width=1920, height=1080,
+                                               max_depth=8),
+                 glb_data=spec.scene("tex_instances").glb(), device="cuda")
+    assert r.backend == "dense" and cuda_dense.multi_tile(r.tables)
+    r.render_frame(use_gbuffer=True)
+    img = r.present()
+    print(f"textured-seeded frame: launches {r.launches}")
+    want = dict.fromkeys(r.launches, 0)
+    want.update(cluster_cull=9, job_sweep=9, shade_rows=8, shade_rows_tex=8,
+                fetch_rows=1, fetch_quad=2, present=cuda_present.LAUNCHES)
+    assert r.launches == want
+    assert np.isfinite(r.radiance()).all() and img.mean() > 1.0
 
 
 # --- the job-stream path (multi-tile scenes) ---------------------------------
@@ -628,7 +661,8 @@ def test_renderer_spheres_on_card_counts_launches(cuda):
     assert img.shape == (RES, RES, 3) and np.isfinite(r.radiance()).all()
     assert r.launches == {"dense_sweep": 0, "cluster_cull": 2 * 4,
                           "job_sweep": 2 * 4, "shade_rows": 2 * 3,
-                          "fetch_rows": 0, "fetch_quad": 0,
+                          "shade_rows_tex": 0, "fetch_rows": 0,
+                          "fetch_quad": 0,
                           "cluster_cull_keyed": 0, "scan_sweep": 0,
                           "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
                           "bvh_walk": 0, "all_reduce": 0,
@@ -813,7 +847,8 @@ def test_renderer_spheres_scan_on_card_counts_launches(cuda):
     assert r.launches == {"dense_sweep": 0, "cluster_cull": 0,
                           "job_sweep": 0, "cluster_cull_keyed": 2 * 4,
                           "scan_sweep": 2 * 4, "shade_rows": 2 * 3,
-                          "fetch_rows": 0, "fetch_quad": 0,
+                          "shade_rows_tex": 0, "fetch_rows": 0,
+                          "fetch_quad": 0,
                           "bvh_closest": 0, "bvh_shadow": 0, "bvh_shade": 0,
                           "bvh_walk": 0, "all_reduce": 0,
                           "present": 2 * cuda_present.LAUNCHES}

@@ -39,15 +39,16 @@ SOURCE_FLAGS = {"bvh_shade.cu": ("--fmad=false",),
 
 # Launch counts by kernel. A wrapper adds one where it launches its kernel
 # and nowhere else, so a run can show that its path went through it;
-# "bvh_walk" counts both of bvh_walk.cu's walks (closest and any-hit, each
-# also under its own name), "all_reduce" the sharded steps' collectives
-# (one NCCL kernel each), "present" both of present.cu's passes (two a
-# present).
-launches = {"dense_sweep": 0, "shade_rows": 0, "fetch_rows": 0,
-            "fetch_quad": 0, "cluster_cull": 0, "job_sweep": 0,
-            "cluster_cull_keyed": 0, "scan_sweep": 0, "bvh_closest": 0,
-            "bvh_shadow": 0, "bvh_walk": 0, "bvh_shade": 0, "all_reduce": 0,
-            "present": 0}
+# "shade_rows" counts both instantiations of shade_rows.cu and
+# "shade_rows_tex" the textured one alone; "bvh_walk" counts both of
+# bvh_walk.cu's walks (closest and any-hit, each also under its own name),
+# "all_reduce" the sharded steps' collectives (one NCCL kernel each),
+# "present" both of present.cu's passes (two a present).
+launches = {"dense_sweep": 0, "shade_rows": 0, "shade_rows_tex": 0,
+            "fetch_rows": 0, "fetch_quad": 0, "cluster_cull": 0,
+            "job_sweep": 0, "cluster_cull_keyed": 0, "scan_sweep": 0,
+            "bvh_closest": 0, "bvh_shadow": 0, "bvh_walk": 0, "bvh_shade": 0,
+            "all_reduce": 0, "present": 0}
 
 
 def reset_launches() -> None:

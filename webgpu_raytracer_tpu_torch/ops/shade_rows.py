@@ -362,4 +362,6 @@ def shade(state, rng, rowT, idx, light_rows, depth: int, light_count: int,
             code = lib.wrt_shade_rows_textured(*args, *levels, *outs)
     kernels.raise_on_error(code, "shade_rows")
     kernels.launches["shade_rows"] += 1
+    if textures is not None:
+        kernels.launches["shade_rows_tex"] += 1
     return out, rng_out, rays8

@@ -318,7 +318,10 @@ class Renderer:
     device ("cuda" by default; raises when CUDA is absent). The positional
     arguments are the JAX package's: scene, OBJ text, GLB bytes, config.
     `backend` is "dense" or "bvh" (`ops/api.choose_backend`); the dense
-    path keeps its `tables`, the BVH path its `scene`."""
+    path keeps its `tables`, the BVH path its `scene`. Construction's span
+    `scene.textures` covers the textures' decode, pyramid and upload, and
+    a textured scene adds its layers and that host ms to the process-wide
+    counters `texture_layers` and `texture_load_ms`."""
 
     def __init__(self, scene_name: str = "cornell",
                  obj_source: Optional[str] = None,
@@ -351,9 +354,14 @@ class Renderer:
             self.world.update(0.0)
         # Textures never change across scene ticks: decode and pack them
         # once and keep the device pyramid. None is the white placeholder.
-        decoded = decode_world_textures(self.world)
-        self.textures = (None if decoded is None else device_pyramid(
-            build_quad_pyramid(decoded), self.device))
+        t0 = time.perf_counter()
+        with span("scene.textures"):
+            decoded = decode_world_textures(self.world)
+            self.textures = (None if decoded is None else device_pyramid(
+                build_quad_pyramid(decoded), self.device))
+        if decoded is not None:
+            count("texture_layers", decoded.shape[0])
+            count("texture_load_ms", 1e3 * (time.perf_counter() - t0))
         self.backend = choose_backend(world_tri_count(self.world),
                                       self.device)
         self.tables = self.scene = None
